@@ -1,8 +1,9 @@
 """Architecture registry of the port: ``get_config(name)``.
 
-Holds the dense configs the port runs so far, copied from the JAX
-package's ``configs/gemma_2b.py`` and ``configs/qwen3_8b.py``. Any other
-arch of the JAX registry raises ``KeyError`` until it is ported.
+Holds the configs the port runs so far, copied from the JAX package's
+``configs/gemma_2b.py``, ``configs/qwen3_8b.py`` and
+``configs/rwkv6_7b.py``. Any other arch of the JAX registry raises
+``KeyError`` until it is ported.
 """
 from __future__ import annotations
 
@@ -46,7 +47,23 @@ QWEN3_8B = ArchConfig(
     rope_theta=1_000_000.0,
 )
 
-ARCHS: Dict[str, ArchConfig] = {c.name: c for c in (GEMMA_2B, QWEN3_8B)}
+# rwkv6-7b (Finch) — attention-free, data-dependent decay [arXiv:2404.05892].
+# Time-mix heads of size 64 (64 heads); recurrent state, no KV cache.
+RWKV6_7B = ArchConfig(
+    name="rwkv6-7b",
+    family="ssm",
+    n_layers=32,
+    d_model=4096,
+    n_heads=64,  # d_model / rwkv_head_dim
+    n_kv_heads=0,  # attention-free
+    head_dim=64,
+    d_ff=14336,
+    vocab_size=65536,
+    rwkv_head_dim=64,
+    rope_variant="none",
+)
+
+ARCHS: Dict[str, ArchConfig] = {c.name: c for c in (GEMMA_2B, QWEN3_8B, RWKV6_7B)}
 
 
 def get_config(name: str) -> ArchConfig:
@@ -59,4 +76,4 @@ def get_config(name: str) -> ArchConfig:
     return ARCHS[name]
 
 
-__all__ = ["ArchConfig", "ARCHS", "GEMMA_2B", "QWEN3_8B", "get_config"]
+__all__ = ["ArchConfig", "ARCHS", "GEMMA_2B", "QWEN3_8B", "RWKV6_7B", "get_config"]

@@ -106,6 +106,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, p,  # dtype, device, stream
     ]
     lib.flash_attention_fwd.restype = i
+    lib.wkv6_fwd.argtypes = [
+        p, p, p, p, p, p, p, p,  # r, k, v, w, u, s0 (or null), o, state
+        i, i, i, i, i, i,  # b, s, h, dk, dv, chunk
+        ll, ll, ll, ll, ll, ll, ll, ll, ll, ll, ll, ll,  # r/k/v/w (batch, seq, head) strides
+        i, p,  # device, stream
+    ]
+    lib.wkv6_fwd.restype = i
 
 
 def library() -> ctypes.CDLL:

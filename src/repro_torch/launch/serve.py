@@ -4,8 +4,8 @@ Poisson request stream, and report per-service p50/p95/p99 request
 latency. Each request is one prefill of a ``(4, 16)`` prompt followed by
 an argmax over the last position.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --archs gemma-2b,qwen3-8b \\
-        --rps 2 --duration 10
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --archs gemma-2b,qwen3-8b,rwkv6-7b --rps 2 --duration 10
 
 ``--no-smoke`` runs the full-size configs (smoke-scale is the default);
 ``--device cpu`` runs on the CPU (the default is the card, and there is
@@ -27,6 +27,8 @@ from repro_torch.device import device as pick_device
 from repro_torch.models import ModelOptions, build_model
 
 PROMPT_SHAPE = (4, 16)
+# the JAX driver's service options: a (4, 16) rwkv prompt is two WKV chunks
+SERVE_OPTS = ModelOptions(wkv_chunk=8)
 
 
 def stable_seed(name: str) -> int:
@@ -41,12 +43,13 @@ def make_service(
 ):
     """One resident inference service: (handle, params, data_fn). Params
     are drawn from a generator seeded by ``stable_seed(name)``; request
-    ``i`` comes from a generator seeded by ``i``."""
+    ``i`` comes from a generator seeded by ``i``. ``opts`` defaults to
+    ``SERVE_OPTS``."""
     dev = torch.device(device)
     cfg = get_config(name)
     if smoke:
         cfg = cfg.smoke()
-    model = build_model(cfg, opts)
+    model = build_model(cfg, opts or SERVE_OPTS)
     params = model.init(torch.Generator(device=dev).manual_seed(stable_seed(name)))
 
     def handle(state, request):
@@ -70,7 +73,7 @@ def poisson_requests(rps: float, duration: float, rng: random.Random):
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--archs", default="gemma-2b,qwen3-8b")
+    ap.add_argument("--archs", default="gemma-2b,qwen3-8b,rwkv6-7b")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction, default=True)
     ap.add_argument("--rps", type=float, default=2.0, help="requests/s per service")
     ap.add_argument("--duration", type=float, default=10.0, help="open-loop window (s)")

@@ -84,7 +84,7 @@ def rmsnorm(
 
 
 def rope_frequencies(
-    head_dim: int, theta: float, device: Union[str, torch.device] = "cpu"
+    head_dim: int, theta: float, device: Union[str, torch.device]
 ) -> torch.Tensor:
     """Inverse frequencies for the head_dim//2 rotation planes."""
     half = head_dim // 2
@@ -107,7 +107,7 @@ def apply_rope(
 
 
 def positions_from_tokens(
-    batch: int, seq: int, offset: int = 0, device: Union[str, torch.device] = "cpu"
+    batch: int, seq: int, offset: int = 0, *, device: Union[str, torch.device]
 ) -> torch.Tensor:
     pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :] + offset
     return pos.expand(batch, seq)

@@ -1,7 +1,7 @@
 """Model: ``build_model(cfg)`` -> a :class:`Model` with init / apply /
-prefill for the dense decoder family (the JAX package's
-``models/model.py``, forward only: training, decode and the other
-families come in later slices).
+prefill for the dense decoder and the rwkv (``ssm``) families (the JAX
+package's ``models/model.py``, forward only: training, decode and the
+other families come in later slices).
 """
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, transformer
+from repro_torch.models import attention, rwkv, transformer
 from repro_torch.models.layers import (
     Params,
     check_kernel_mode,
@@ -29,13 +29,14 @@ class ModelOptions:
     kernel_mode: str = "kernel"
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    wkv_chunk: int = 64  # rwkv: time steps per WKV chunk
 
 
 class Model:
     def __init__(self, cfg: ArchConfig, opts: Optional[ModelOptions] = None):
-        if cfg.family != "dense" or cfg.frontend != "none":
+        if cfg.family not in ("dense", "ssm") or cfg.frontend != "none":
             raise NotImplementedError(
-                f"{cfg.name}: only the dense text family is ported so far"
+                f"{cfg.name}: only the dense and rwkv text families are ported so far"
             )
         self.cfg = cfg
         self.opts = opts or ModelOptions()
@@ -73,19 +74,23 @@ class Model:
             return params["embed"]["table"]
         return params["lm_head"]["table"]
 
-    def _trunk(self, params: Params, batch: Dict, on_kv=None) -> torch.Tensor:
+    def _trunk(
+        self, params: Params, batch: Dict,
+        on_cache: Optional[transformer.CacheSink] = None,
+    ) -> torch.Tensor:
         x = self._embed(params, batch)
-        b, s = x.shape[0], x.shape[1]
-        positions = positions_from_tokens(b, s, device=x.device)
+        positions = None
+        if self.cfg.rope_variant != "none":
+            positions = positions_from_tokens(x.shape[0], x.shape[1], device=x.device)
         return transformer.stack_apply(
             params["layers"], self.cfg, x, positions,
             compute_dtype=self._compute_dtype(), kernel_mode=self.opts.kernel_mode,
-            on_kv=on_kv,
+            wkv_chunk=self.opts.wkv_chunk, on_cache=on_cache,
         )
 
     def apply(self, params: Params, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full logits (small models / tests only) and the aux loss, which
-        is 0 for the dense family."""
+        is 0 for the dense and rwkv families."""
         x = self._trunk(params, batch)
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps, kernel_mode=self.opts.kernel_mode)
         table = self._head_table(params).to(self._compute_dtype())
@@ -99,13 +104,18 @@ class Model:
     def prefill(
         self, params: Params, batch: Dict, max_len: Optional[int] = None
     ) -> Tuple[torch.Tensor, Dict]:
-        """Run the full prompt once; return (last-token logits, KV cache).
+        """Run the full prompt once; return (last-token logits, cache).
 
-        The cache holds each layer's rotated K/V as ``(n_layers, b, cap,
-        hkv, head_dim)`` in the compute dtype, ``cap =
+        Dense: the cache holds each layer's rotated K/V as ``(n_layers, b,
+        cap, hkv, head_dim)`` in the compute dtype, ``cap =
         cache_capacity(cfg, max_len)``: the last ``cap`` tokens, zero-padded
         at the end when the prompt is shorter (room for decode steps).
-        ``max_len`` defaults to the prompt length."""
+        ``max_len`` defaults to the prompt length.
+
+        rwkv: the recurrent state of ``rwkv.rwkv_init_state``, the
+        token-shift carries ``tmix_shift``/``cmix_shift`` ``(n_layers, b, 1,
+        d)`` in the compute dtype and ``wkv`` ``(n_layers, b, h, dk, dv)``
+        fp32; ``max_len`` does not size it."""
         x, cache = self._prefill_trunk(params, batch, max_len=max_len)
         # the norm is row-wise: normalizing only the last position gives
         # the last row of the full normalized sequence (copied, because the
@@ -121,26 +131,35 @@ class Model:
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
+        cdt = self._compute_dtype()
+        if cfg.family == "ssm":
+            cache = rwkv.rwkv_init_state(cfg, b, cdt, tokens.device)
+
+            def keep(i: int, entries: transformer.CacheEntries) -> None:
+                for name, t in entries.items():
+                    cache[name][i] = t
+
+            return self._trunk(params, batch, on_cache=keep), cache
+
         cap = attention.cache_capacity(cfg, max_len if max_len is not None else s)
         shape = (cfg.n_layers, b, cap, cfg.n_kv_heads, cfg.head_dim)
-        cdt = self._compute_dtype()
         cache = {
             "k": torch.zeros(shape, dtype=cdt, device=tokens.device),
             "v": torch.zeros(shape, dtype=cdt, device=tokens.device),
         }
 
-        def keep(i: int, k: torch.Tensor, v: torch.Tensor) -> None:
+        def keep_kv(i: int, entries: transformer.CacheEntries) -> None:
             # the last `cap` tokens; a ring cache (sliding window) aligns
             # token p to slot p % cap; shorter prompts pad at the end
             n = min(s, cap)
-            k, v = k[:, -n:], v[:, -n:]
+            k, v = entries["k"][:, -n:], entries["v"][:, -n:]
             if cfg.sliding_window > 0 and s >= cap and s % cap:
                 k = torch.roll(k, s % cap, dims=1)
                 v = torch.roll(v, s % cap, dims=1)
             cache["k"][i, :, :n] = k
             cache["v"][i, :, :n] = v
 
-        return self._trunk(params, batch, on_kv=keep), cache
+        return self._trunk(params, batch, on_cache=keep_kv), cache
 
 
 def build_model(cfg: ArchConfig, opts: Optional[ModelOptions] = None) -> Model:

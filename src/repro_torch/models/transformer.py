@@ -1,30 +1,44 @@
-"""Dense decoder blocks and the layer stack (forward only).
+"""Decoder blocks and the layer stack (forward only), for the dense and
+the rwkv (``family == "ssm"``) families.
 
 Layer params are a dict whose leaves carry a leading ``n_layers`` axis,
 as in the JAX package's ``models/transformer.py``; ``stack_apply`` is a
 Python loop over that axis in place of ``lax.scan``. Each layer's leaves
 are cast to the compute dtype inside the loop, one layer at a time, so a
 request never holds a second, cast copy of the whole stack.
+
+Every block also hands back its layer's cache entries, which
+``stack_apply`` passes to an optional sink: ``k``/``v`` (rotated keys and
+values) for a dense block, ``tmix_shift``/``cmix_shift``/``wkv`` (the
+token-shift carries and the fp32 wkv state) for an rwkv block.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention
+from repro_torch.models import attention, rwkv
 from repro_torch.models.layers import Params, mlp_apply, mlp_init, rmsnorm, rmsnorm_init
 
-# on_kv(layer_index, k, v): receives each layer's rotated keys and values
-KVSink = Callable[[int, torch.Tensor, torch.Tensor], None]
+CacheEntries = Dict[str, torch.Tensor]
+# on_cache(layer_index, entries): receives each layer's cache entries
+CacheSink = Callable[[int, CacheEntries], None]
 
 
 def layer_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Params:
-    """All ``cfg.n_layers`` dense layers at once, leaves stacked."""
+    """All ``cfg.n_layers`` layers at once, leaves stacked."""
+    lead = (cfg.n_layers,)
+    if cfg.family == "ssm":  # rwkv
+        return {
+            "norm1": rmsnorm_init(cfg.d_model, dtype, gen.device, lead),
+            "tmix": rwkv.tmix_init(gen, cfg, dtype, lead),
+            "norm2": rmsnorm_init(cfg.d_model, dtype, gen.device, lead),
+            "cmix": rwkv.cmix_init(gen, cfg, dtype, lead),
+        }
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    lead = (cfg.n_layers,)
     return {
         "attn_norm": rmsnorm_init(cfg.d_model, dtype, gen.device, lead),
         "attn": attention.attention_init(gen, cfg, dtype, lead),
@@ -46,27 +60,37 @@ def layer_slice(layers: Params, i: int, dtype: torch.dtype) -> Params:
 
 
 def block_apply(
-    p: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, *,
-    kernel_mode: str = "kernel",
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One dense block; returns (x_out, k, v) with the layer's rotated
-    keys and values."""
+    p: Params, cfg: ArchConfig, x: torch.Tensor, positions: Optional[torch.Tensor], *,
+    kernel_mode: str = "kernel", wkv_chunk: int = 64,
+) -> Tuple[torch.Tensor, CacheEntries]:
+    """One block; returns (x_out, the layer's cache entries)."""
+    if cfg.family == "ssm":
+        h = rmsnorm(p["norm1"], x, cfg.norm_eps, kernel_mode=kernel_mode)
+        out, (tshift, state) = rwkv.tmix_apply(
+            p["tmix"], cfg, h, kernel_mode=kernel_mode, chunk=wkv_chunk
+        )
+        x = x + out
+        h = rmsnorm(p["norm2"], x, cfg.norm_eps, kernel_mode=kernel_mode)
+        out, cshift = rwkv.cmix_apply(p["cmix"], cfg, h)
+        return x + out, {"tmix_shift": tshift, "cmix_shift": cshift, "wkv": state}
     h = rmsnorm(p["attn_norm"], x, cfg.norm_eps, kernel_mode=kernel_mode)
     attn_out, k, v = attention.attend(p["attn"], cfg, h, positions, kernel_mode=kernel_mode)
     x = x + attn_out
     h = rmsnorm(p["mlp_norm"], x, cfg.norm_eps, kernel_mode=kernel_mode)
-    return x + mlp_apply(p["mlp"], h, cfg.gated_act), k, v
+    return x + mlp_apply(p["mlp"], h, cfg.gated_act), {"k": k, "v": v}
 
 
 def stack_apply(
-    layers: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, *,
-    compute_dtype: torch.dtype, kernel_mode: str = "kernel",
-    on_kv: Optional[KVSink] = None,
+    layers: Params, cfg: ArchConfig, x: torch.Tensor, positions: Optional[torch.Tensor], *,
+    compute_dtype: torch.dtype, kernel_mode: str = "kernel", wkv_chunk: int = 64,
+    on_cache: Optional[CacheSink] = None,
 ) -> torch.Tensor:
     """Run all layers in order."""
     for i in range(cfg.n_layers):
         p = layer_slice(layers, i, compute_dtype)
-        x, k, v = block_apply(p, cfg, x, positions, kernel_mode=kernel_mode)
-        if on_kv is not None:
-            on_kv(i, k, v)
+        x, entries = block_apply(
+            p, cfg, x, positions, kernel_mode=kernel_mode, wkv_chunk=wkv_chunk
+        )
+        if on_cache is not None:
+            on_cache(i, entries)
     return x

@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 
-def from_jax(tree: Any, device: Union[str, torch.device] = "cpu") -> Any:
+def from_jax(tree: Any, device: Union[str, torch.device]) -> Any:
     """Leaf for leaf: ``torch.from_numpy(np.asarray(leaf))`` on ``device``,
     nested dicts kept as they are."""
     if isinstance(tree, dict):

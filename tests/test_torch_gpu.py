@@ -16,6 +16,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.fused_rmsnorm import ops as rms_ops  # noqa: E402
 from repro_torch.kernels.fused_rmsnorm.ref import rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.rwkv_scan import ops as wkv_ops  # noqa: E402
+from repro_torch.kernels.rwkv_scan.ref import wkv6_ref  # noqa: E402
 from repro_torch.models import ModelOptions, build_model  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -109,13 +111,16 @@ def test_serve_smoke_configs_through_the_kernels(cuda):
     from repro_torch.launch import serve
 
     rms0, fa0 = rms_ops.rmsnorm.launches, fa_ops.flash_attention.launches
+    wkv0 = wkv_ops.wkv6.launches
     report, ex = serve.serve(serve.build_parser().parse_args(
         ["--device", "cuda", "--smoke", "--requests", "2", "--rps", "4", "--duration", "1"]
     ))
     assert not report.failures
+    assert len(ex.sessions) == 3
     served = sum(st.iterations_done for st in report.stats.values())
     assert served == sum(s.n_iters for s in ex.sessions.values()) > 0
     assert rms_ops.rmsnorm.launches > rms0 and fa_ops.flash_attention.launches > fa0
+    assert wkv_ops.wkv6.launches > wkv0
 
 
 @pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-8b"])
@@ -133,3 +138,149 @@ def test_smoke_prefill_kernel_matches_reference(cuda, arch):
     _close(logits_k, logits_r, 1e-4)
     _close(cache_k["k"], cache_r["k"], 1e-4)
     _close(cache_k["v"], cache_r["v"], 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# WKV6
+# ---------------------------------------------------------------------------
+
+WKV_TOL = 2e-3  # the JAX kernel test's
+# w = sigmoid(z) * span + low: the JAX test's slow and fast regimes, and a
+# faster one with decays down to 0.05
+REGIMES = {"slow": (0.1, 0.88), "fast": (0.5, 0.15), "faster": (0.9, 0.05)}
+
+
+def _wkv_inputs(cuda, b, s, h, dk, dv, regime, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    r = torch.randn(b, s, h, dk, generator=gen, device=cuda)
+    k = torch.randn(b, s, h, dk, generator=gen, device=cuda)
+    v = torch.randn(b, s, h, dv, generator=gen, device=cuda)
+    span, low = REGIMES[regime]
+    w = torch.sigmoid(torch.randn(b, s, h, dk, generator=gen, device=cuda)) * span + low
+    u = torch.randn(h, dk, generator=gen, device=cuda) * 0.1
+    return r, k, v, w, u
+
+
+@pytest.mark.parametrize("regime", ["slow", "fast", "faster"])
+@pytest.mark.parametrize(
+    "b,s,h,dk,dv,chunk",
+    [
+        (2, 128, 3, 16, 16, 32),  # the JAX test's cases
+        (1, 64, 2, 64, 64, 16),
+        (2, 256, 4, 32, 32, 64),
+        (1, 96, 1, 8, 8, 32),
+        (3, 32, 2, 16, 16, 32),
+        (4, 16, 64, 64, 64, 8),  # rwkv6-7b's serve prompt
+        (1, 512, 8, 64, 64, 64),  # prefill-sized
+    ],
+)
+def test_wkv6_kernel_matches_plain(cuda, b, s, h, dk, dv, chunk, regime):
+    r, k, v, w, u = _wkv_inputs(cuda, b, s, h, dk, dv, regime)
+    before = wkv_ops.wkv6.launches
+    o, sf = wkv_ops.wkv6(r, k, v, w, u, chunk=chunk)
+    torch.cuda.synchronize()
+    assert wkv_ops.wkv6.launches == before + 1
+    assert o.shape == (b, s, h, dv) and sf.shape == (b, h, dk, dv)
+    assert torch.isfinite(o).all() and torch.isfinite(sf).all()
+    o_ref, s_ref = wkv6_ref(r, k, v, w, u)
+    _close(o, o_ref, WKV_TOL)
+    _close(sf, s_ref, WKV_TOL)
+
+
+def test_wkv6_reads_strided_views(cuda):
+    """The model's r/k/v/w are views of wider tensors: no copy needed."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    big = torch.randn(2, 64, 4, 3, 32, generator=gen, device=cuda)
+    big[:, :, 3] = torch.sigmoid(big[:, :, 3]) * 0.5 + 0.15
+    r, k, v, w = big.unbind(2)
+    assert not w.is_contiguous() and w.stride(-1) == 1
+    u = torch.randn(3, 32, generator=gen, device=cuda) * 0.1
+    o, sf = wkv_ops.wkv6(r, k, v, w, u, chunk=16)
+    o_ref, s_ref = wkv6_ref(r, k, v, w, u)
+    _close(o, o_ref, WKV_TOL)
+    _close(sf, s_ref, WKV_TOL)
+
+
+def test_wkv6_wrapper_refuses(cuda):
+    r, k, v, w, u = _wkv_inputs(cuda, 1, 64, 2, 16, 16, "slow")
+    with pytest.raises(TypeError):
+        wkv_ops.wkv6(r.bfloat16(), k, v, w, u)  # bf16
+    r48, k48, _, w48, u48 = _wkv_inputs(cuda, 1, 64, 2, 48, 48, "slow")
+    with pytest.raises(ValueError):
+        wkv_ops.wkv6(r48, k48, r48, w48, u48)  # head size 48
+    with pytest.raises(ValueError):
+        wkv_ops.wkv6(r[:, :60], k[:, :60], v[:, :60], w[:, :60], u, chunk=16)  # ragged
+    r2, k2, v2, w2, u2 = _wkv_inputs(cuda, 1, 128, 2, 16, 16, "slow")
+    with pytest.raises(ValueError):
+        wkv_ops.wkv6(r2, k2, v2, w2, u2, chunk=128)  # chunk above the kernel's 64
+    strided = torch.randn(1, 64, 2, 32, device=cuda)[..., ::2]  # r's shape, last stride 2
+    assert strided.shape == r.shape
+    with pytest.raises(ValueError, match="last dimension must be contiguous"):
+        wkv_ops.wkv6(strided, k, v, w, u)
+    with pytest.raises(ValueError, match="s0 must be contiguous"):
+        wkv_ops.wkv6(r, k, v, w, u, s0=torch.zeros(1, 2, 16, 16, device=cuda).mT)
+
+
+@pytest.mark.parametrize("regime", ["slow", "faster"])
+@pytest.mark.parametrize(
+    "b,s,h,d,chunk",
+    [
+        (2, 100, 3, 64, 64),  # a last chunk of 36
+        (4, 13, 64, 64, 8),  # rwkv6-7b's heads, a last chunk of 5
+        (4, 1, 64, 64, 8),  # one token: a decode step
+        (1, 70, 2, 16, 32),
+    ],
+)
+def test_wkv6_kernel_ragged_from_a_state(cuda, b, s, h, d, chunk, regime):
+    """A shorter last chunk, from a zero state and from a given one."""
+    r, k, v, w, u = _wkv_inputs(cuda, b, s, h, d, d, regime, seed=s)
+    s0 = torch.randn(b, h, d, d, generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    for start in (None, s0):
+        before = wkv_ops.wkv6.launches
+        o, sf = wkv_ops.wkv6(r, k, v, w, u, chunk=chunk, s0=start, ragged=True)
+        torch.cuda.synchronize()
+        assert wkv_ops.wkv6.launches == before + 1
+        assert torch.isfinite(o).all() and torch.isfinite(sf).all()
+        o_ref, s_ref = wkv6_ref(r, k, v, w, u, start)
+        _close(o, o_ref, WKV_TOL)
+        _close(sf, s_ref, WKV_TOL)
+
+
+def test_rwkv_smoke_prefill_kernel_matches_reference(cuda):
+    cfg = get_config("rwkv6-7b").smoke()
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    params = build_model(cfg).init(gen)
+    params["layers"]["tmix"]["decay_base"] = torch.linspace(
+        -4.6, 0.64, cfg.d_model, device=cuda
+    ).expand(cfg.n_layers, -1).contiguous()
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 16), generator=gen, device=cuda)}
+    opts = dict(compute_dtype="float32", wkv_chunk=8)
+    rms0, wkv0 = rms_ops.rmsnorm.launches, wkv_ops.wkv6.launches
+    logits_k, cache_k = build_model(cfg, ModelOptions(kernel_mode="kernel", **opts)).prefill(params, batch)
+    assert rms_ops.rmsnorm.launches - rms0 == 2 * cfg.n_layers + 1
+    assert wkv_ops.wkv6.launches - wkv0 == cfg.n_layers
+    logits_r, cache_r = build_model(cfg, ModelOptions(kernel_mode="reference", **opts)).prefill(params, batch)
+    _close(logits_k, logits_r, 1e-4)
+    for name in ("tmix_shift", "cmix_shift", "wkv"):
+        _close(cache_k[name], cache_r[name], 1e-4)
+
+
+@pytest.mark.parametrize("seq", [13, 1])
+def test_rwkv_smoke_prefill_any_length_through_the_kernel(cuda, seq):
+    """A prompt the chunk does not divide, and a single token, still go
+    through the kernel, once a layer, and agree with the reference mode."""
+    cfg = get_config("rwkv6-7b").smoke()
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    params = build_model(cfg).init(gen)
+    params["layers"]["tmix"]["decay_base"] = torch.linspace(
+        -4.6, 0.64, cfg.d_model, device=cuda
+    ).expand(cfg.n_layers, -1).contiguous()
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, seq), generator=gen, device=cuda)}
+    opts = dict(compute_dtype="float32", wkv_chunk=8)
+    wkv0 = wkv_ops.wkv6.launches
+    logits_k, cache_k = build_model(cfg, ModelOptions(kernel_mode="kernel", **opts)).prefill(params, batch)
+    assert wkv_ops.wkv6.launches - wkv0 == cfg.n_layers
+    logits_r, cache_r = build_model(cfg, ModelOptions(kernel_mode="reference", **opts)).prefill(params, batch)
+    _close(logits_k, logits_r, 1e-4)
+    for name in ("tmix_shift", "cmix_shift", "wkv"):
+        _close(cache_k[name], cache_r[name], 1e-4)

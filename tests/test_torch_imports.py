@@ -48,6 +48,12 @@ def test_no_jax_or_repro_import(path):
 def test_importing_the_port_loads_no_jax():
     mods = _module_names()
     assert "repro_torch.launch.serve" in mods and len(mods) > 20
+    assert {
+        "repro_torch.models.rwkv",
+        "repro_torch.kernels.rwkv_scan",
+        "repro_torch.kernels.rwkv_scan.ops",
+        "repro_torch.kernels.rwkv_scan.ref",
+    } <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -29,13 +29,13 @@ def _setup(arch, kernel_mode="reference"):
     jcfg = jax_get_config(arch).smoke()
     jmodel = jax_build_model(jcfg, JaxOptions(compute_dtype="float32", kernel_mode=kernel_mode))
     jparams = jmodel.init(jax.random.PRNGKey(3))
-    tparams = from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = from_jax(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
     model = build_model(get_config(arch).smoke(), ModelOptions(compute_dtype="float32"))
     tokens = np.random.default_rng(11).integers(0, jcfg.vocab_size, (2, 16), dtype=np.int32)
     return jmodel, jparams, model, tparams, tokens
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["rwkv6-7b"])
 def test_configs_are_copies(arch):
     jcfg, cfg = jax_get_config(arch), get_config(arch)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
@@ -45,10 +45,10 @@ def test_configs_are_copies(arch):
 
 def test_unported_arch_raises():
     with pytest.raises(KeyError, match="not yet ported"):
-        get_config("rwkv6-7b")
+        get_config("mixtral-8x22b")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["rwkv6-7b"])
 def test_init_matches_jax_tree(arch):
     """Same leaf names, shapes and dtypes as the JAX params (values differ:
     torch and JAX draw different numbers from a seed)."""
@@ -132,3 +132,18 @@ def test_kernel_and_reference_modes_agree_on_cpu(arch):
 def test_model_rejects_unknown_kernel_mode():
     with pytest.raises(ValueError):
         build_model(get_config("gemma-2b").smoke(), ModelOptions(kernel_mode="pallas"))
+
+
+def test_device_is_a_required_argument():
+    """No helper quietly places tensors on the CPU."""
+    from repro_torch.models.layers import positions_from_tokens, rope_frequencies
+
+    with pytest.raises(TypeError):
+        positions_from_tokens(2, 4)
+    with pytest.raises(TypeError):
+        rope_frequencies(16, 10_000.0)
+    with pytest.raises(TypeError):
+        from_jax({"w": np.zeros(2, np.float32)})
+    assert positions_from_tokens(2, 4, device="cpu").shape == (2, 4)
+    assert rope_frequencies(16, 10_000.0, "cpu").shape == (8,)
+    assert from_jax({"w": np.zeros(2, np.float32)}, "cpu")["w"].device.type == "cpu"

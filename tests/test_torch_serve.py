@@ -2,6 +2,7 @@
 handle, fed the JAX service's params, gives the JAX handle's next tokens;
 request streams and seeds match the JAX driver; the device is the card
 unless the caller asks for the CPU."""
+import dataclasses
 import random
 
 import numpy as np
@@ -12,20 +13,19 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 
 from repro.launch import serve as jax_serve  # noqa: E402
-from repro.models import ModelOptions as JaxOptions  # noqa: E402
 from repro_torch.device import device  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import ModelOptions  # noqa: E402
 from repro_torch.weights import from_jax  # noqa: E402
 
-ARGV = ["--device", "cpu", "--smoke", "--archs", "gemma-2b,qwen3-8b",
+ARCHS = ["gemma-2b", "qwen3-8b", "rwkv6-7b"]  # the JAX driver's default list
+ARGV = ["--device", "cpu", "--smoke", "--archs", ",".join(ARCHS),
         "--rps", "4", "--duration", "1", "--requests", "3", "--policy", "priority"]
 
 
 def test_serve_main_serves_every_request():
     report, ex = serve.serve(serve.build_parser().parse_args(ARGV))
     assert not report.failures
-    assert {s.name for s in ex.sessions.values()} == {"gemma-2b", "qwen3-8b"}
+    assert {s.name for s in ex.sessions.values()} == set(ARCHS)
     for jid, st in report.stats.items():
         sess = ex.sessions[jid]
         assert sess.n_iters > 0 and st.iterations_done == sess.n_iters
@@ -40,16 +40,20 @@ def test_train_background_is_not_ported_yet():
         serve.main(ARGV + ["--train-background", "gemma-2b"])
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-8b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_handle_gives_jax_next_tokens(arch, monkeypatch):
-    """fp32 on both sides, so the argmax compares the algorithm and not
-    where the two frameworks round bf16."""
-    monkeypatch.setattr(jax_serve, "_MODEL_OPTS", JaxOptions(compute_dtype="float32"))
+    """Each driver's own service options, in fp32 on both sides, so the
+    argmax compares the algorithm and not where the two frameworks round
+    bf16."""
+    monkeypatch.setattr(
+        jax_serve, "_MODEL_OPTS", dataclasses.replace(jax_serve._MODEL_OPTS, compute_dtype="float32")
+    )
     jhandle, jparams, jdata = jax_serve.make_service(arch, smoke=True)
     handle, _, _ = serve.make_service(
-        arch, smoke=True, device="cpu", opts=ModelOptions(compute_dtype="float32")
+        arch, smoke=True, device="cpu",
+        opts=dataclasses.replace(serve.SERVE_OPTS, compute_dtype="float32"),
     )
-    params = from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+    params = from_jax(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
     for i in range(3):
         tokens = np.array(jdata(i)["tokens"])
         _, jout = jhandle(jparams, {"tokens": tokens})
@@ -63,8 +67,10 @@ def test_requests_and_seeds_match_jax():
         ours = serve.poisson_requests(4.0, 3.0, random.Random(seed))
         theirs = jax_serve.poisson_requests(4.0, 3.0, random.Random(seed))
         assert ours == theirs and len(ours) > 0
-    for name in ("gemma-2b", "qwen3-8b"):
+    for name in ARCHS:
         assert serve.stable_seed(name) == jax_serve.stable_seed(name)
+    assert serve.build_parser().parse_args([]).archs == ",".join(ARCHS)
+    assert serve.SERVE_OPTS.wkv_chunk == jax_serve._MODEL_OPTS.wkv_chunk
 
 
 def test_service_is_deterministic_in_its_seeds():
