@@ -7,19 +7,24 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, at
 first use), then runs five phases, each printing JSON lines:
 
 1. env      — the card's name and power limit (nvidia-smi), torch/CUDA
-              versions, the kernels' build time.
+              versions, the kernels' build time, and ptxas's registers and
+              spills of the tensor-core flash kernels.
 2. kernels  — every kernel at the serve path's shapes and at prefill
               sizes, held against its plain PyTorch version on the card
               (tolerance stated per line), timed beside the plain version,
               one PyTorch library call where one computes the same
               function, and its bound (bytes or operations at the H100's
-              published peaks).
+              published peaks); the wrapper's host cost a launch (enqueue
+              time on the host clock, no synchronise) beside it, and where
+              that cost goes at the serve shapes (``host_us_a_call``).
 3. serve    — ``repro_torch.launch.serve`` with its default services,
               gemma-2b, qwen3-8b and rwkv6-7b, at full width and depth
               (random weights from fixed seeds) on one ``SalusExecutor``:
               every request served, no failures, and the kernels' launch
-              counters rise by exactly the count the path implies. Then
-              the ``{"kernels": [...]}`` summary line.
+              counters rise by exactly the count the path implies; one
+              more request a service under the profiler, where each of
+              its kernels must show device time. Then the
+              ``{"kernels": [...]}`` summary line.
 4. parity   — qwen3-8b and rwkv6-7b at full width and depth, prefill of a
               (1, 512) prompt through the kernels against the plain
               versions, in bf16 and fp32, logits and caches.
@@ -37,6 +42,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -98,6 +104,20 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, iters: int) -> float:
+    """Mean host-clock milliseconds to enqueue one call of ``fn``, with no
+    synchronise inside the window (the wrapper's cost a launch), after one
+    warm-up call."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    sync()
+    return ms
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
 
@@ -150,6 +170,7 @@ def phase_env() -> dict:
     t0 = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t0
+    regs = ptxas_report((_build.BUILD_ROOT / _build.build_key() / _build.LOG_NAME).read_text())
     info = {
         "phase": "env",
         "nvidia_smi": smi,
@@ -158,9 +179,31 @@ def phase_env() -> dict:
         "cuda": torch.version.cuda,
         "python": sys.version.split()[0],
         "kernel_build_s": build_s,
+        "flash_wgmma_ptxas": {k: v for k, v in regs.items() if "flash_fwd_kernel_wgmma" in k},
+        "kernels_with_spills": sorted(k for k, v in regs.items() if v.get("spill_stores")),
     }
     emit(info)
     return info
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of each kernel, from ``nvcc -Xptxas -v``."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name]["spill_stores"], out[name]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -185,6 +228,7 @@ def rmsnorm_case(rows: int, d: int, dtype, residual: bool, iters: int) -> dict:
     err = max_err(out, ref)
     ok = within(out, ref, tol)
     ms = time_ms(lambda: ops.rmsnorm(x, scale, r), iters)
+    launch_ms = host_ms(lambda: ops.rmsnorm(x, scale, r), iters)
     plain_ms = time_ms(lambda: rmsnorm_ref(x, scale, r), iters)
     library_ms = None
     if not residual and hasattr(F, "rms_norm"):
@@ -202,10 +246,12 @@ def rmsnorm_case(rows: int, d: int, dtype, residual: bool, iters: int) -> dict:
         "tol": tol,
         "ok": ok,
         "ms": ms,
+        "host_ms": launch_ms,
         "plain_ms": plain_ms,
         "library_ms": library_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "launch_shape": ops.launch_shape(d, x.element_size())._asdict(),
     }
     emit(res)
     check(ok, f"rmsnorm {rows}x{d} {dtype} residual={residual}: err {err} > tol {tol}")
@@ -232,6 +278,7 @@ def flash_case(b, sq, sk, hq, hkv, d, dtype, *, causal=True, window=None,
     err = max_err(out, ref)
     ok = within(out, ref, tol)
     ms = time_ms(run, iters)
+    launch_ms = host_ms(run, iters)
     plain_ms = time_ms(plain, iters)
     library_ms = None
     if window is None and q_offset == 0 and sq == sk:
@@ -260,10 +307,12 @@ def flash_case(b, sq, sk, hq, hkv, d, dtype, *, causal=True, window=None,
         "shape": {"b": b, "sq": sq, "sk": sk, "hq": hq, "hkv": hkv, "d": d,
                   "causal": causal, "window": window, "q_offset": q_offset},
         "dtype": str(dtype).removeprefix("torch."),
+        "route": ops.route(dtype, d),
         "max_abs_err": err,
         "tol": tol,
         "ok": ok,
         "ms": ms,
+        "host_ms": launch_ms,
         "plain_ms": plain_ms,
         "library_ms": library_ms,
         "bound_ms": bound_ms,
@@ -296,6 +345,7 @@ def wkv6_case(b, s, h, d, chunk, regime, iters=10, plain_iters=2) -> dict:
     err = max(max_err(o, o_ref), max_err(sf, s_ref))
     ok = finite and within(o, o_ref, WKV_TOL) and within(sf, s_ref, WKV_TOL)
     ms = time_ms(run, iters)
+    launch_ms = host_ms(run, iters)
     plain_ms = time_ms(plain, plain_iters)
     chunked_ms = time_ms(chunked, plain_iters)
     # each input read once (r, k, w, v, u), o and the state written once;
@@ -313,6 +363,7 @@ def wkv6_case(b, s, h, d, chunk, regime, iters=10, plain_iters=2) -> dict:
         "finite": finite,
         "ok": ok,
         "ms": ms,
+        "host_ms": launch_ms,
         "plain_ms": plain_ms,
         "plain_chunked_ms": chunked_ms,
         "library_ms": None,  # no PyTorch call computes WKV6
@@ -324,9 +375,51 @@ def wkv6_case(b, s, h, d, chunk, regime, iters=10, plain_iters=2) -> dict:
     return res
 
 
+def host_breakdown() -> dict:
+    """Where a wrapper's host cost a launch goes, at the serve shapes:
+    host-clock microseconds a call, no synchronise inside the window."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.fused_rmsnorm import ops as rms
+
+    lib = _build.library()
+    x = torch.randn(64, 4096, device="cuda").bfloat16()
+    scale = torch.ones(4096, device="cuda").bfloat16()
+    out = torch.empty_like(x)
+    q = torch.randn(4, 16, 32, 128, device="cuda").bfloat16()
+    k = torch.randn(4, 16, 8, 128, device="cuda").bfloat16()
+    o = torch.empty_like(q)
+    dev = torch.cuda.current_device()
+    stream = _build.current_stream(dev)
+    shape = rms.launch_shape(4096, 2)
+    tma = fa._tma_args(q, k, k)
+    fa_args = (q.data_ptr(), k.data_ptr(), k.data_ptr(), o.data_ptr(), 4, 16, 16, 32, 8, 128,
+               *q.stride()[:3], *k.stride()[:3], *k.stride()[:3], 128 ** -0.5, 1, 0, 0, 1, tma,
+               dev, stream)
+    pieces = {
+        "torch.cuda.current_stream().cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "_build.current_stream": lambda: _build.current_stream(dev),
+        "torch.empty_like (64, 4096)": lambda: torch.empty_like(x),
+        "rmsnorm_fwd through ctypes, arguments ready": lambda: lib.rmsnorm_fwd(
+            x.data_ptr(), None, scale.data_ptr(), out.data_ptr(), 64, 4096, 1e-6, 1, 1,
+            *shape[:3], dev, stream),
+        "ops.rmsnorm (64, 4096)": lambda: rms.rmsnorm(x, scale),
+        "F.rms_norm (64, 4096)": lambda: torch.nn.functional.rms_norm(x, (4096,), scale, 1e-6),
+        "tensor-map geometry (cached)": lambda: fa._tma_args(q, k, k),
+        "flash_attention_fwd through ctypes, arguments ready (3 encodes + launch)":
+            lambda: lib.flash_attention_fwd(*fa_args),
+        "ops.flash_attention (4, 16) 32/8 d 128": lambda: fa.flash_attention(
+            q, k, k, block_q=16, block_k=16),
+    }
+    res = {"phase": "kernels", "host_us_a_call": {
+        name: 1e3 * host_ms(fn, 500) for name, fn in pieces.items()}}
+    emit(res)
+    return res
+
+
 def phase_kernels() -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
-    results = {}
+    results = {"host": host_breakdown()}
     for dtype in (f32, bf16):
         # serve path (b*s = 64 rows): attn/mlp norm qwen3 (4096), gemma
         # (2048); qk-norm rows b*s*heads; and a prefill-sized input
@@ -405,6 +498,7 @@ def profile_request(sess) -> dict:
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups = {"rmsnorm": 0.0, "flash_attention": 0.0, "wkv6": 0.0, "gemm": 0.0, "other": 0.0}
+    counts = dict.fromkeys(groups, 0)
     n_kernels = 0
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -424,6 +518,7 @@ def profile_request(sess) -> dict:
         else:
             key = "other"
         groups[key] += us / 1e3
+        counts[key] += evt.count
         n_kernels += evt.count
     device_ms = sum(groups.values())
     return {
@@ -431,6 +526,8 @@ def profile_request(sess) -> dict:
         "device_ms": device_ms,
         "device_busy_share": device_ms / wall_ms if device_ms else None,
         "device_ms_by_kind": groups,
+        "launches_by_kind": counts,
+        "device_us_per_launch": {k: 1e3 * groups[k] / counts[k] for k in groups if counts[k]},
         "kernels_launched": n_kernels,
     }
 
@@ -490,7 +587,14 @@ def phase_serve() -> dict:
     check(launches == expected, f"launch counts {launches} != expected {expected}")
     for jid in report.stats:
         sess = ex.sessions[jid]
-        services[sess.job.name]["profiled_request"] = profile_request(sess)
+        prof = profile_request(sess)
+        services[sess.job.name]["profiled_request"] = prof
+        # the profiler's grouping caught each of the path's kernels
+        per = launches_per_request(get_config(sess.job.name))
+        for name in ("rmsnorm", "flash_attention", "wkv6"):
+            if per[name]:
+                check(prof["device_ms_by_kind"][name] > 0,
+                      f"{sess.job.name}: no {name} device time in the profiled request")
     res = {
         "phase": "serve",
         "wall_s": wall_s,
@@ -510,22 +614,32 @@ def kernels_line(k: dict, serve_res: dict) -> None:
     """The summary line: each kernel the serve path launches, measured at
     its largest serve-path shape (bf16 for the norm and attention, whose
     largest is qwen3-8b's; fp32 for WKV6, rwkv6-7b's prompt at the serve
-    chunk), with the path's count."""
+    chunk), with the path's count; beside it, the norm at (8192, 4096) and
+    attention at (1, 2048) for qwen3-8b's and gemma-2b's heads."""
     rms = k[("rmsnorm", 64, 4096, "bfloat16")]
     rms_res = k[("rmsnorm_residual", 64, 4096, "bfloat16")]
     fa = k[("flash_attention", 4, 16, 32, 128, None, 0, "bfloat16")]
     wkv = k[("wkv6", 4, 16, 8, "slow")]
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("max_abs_err", "ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def at(res):
+        return {"shape": res["shape"], **{x: res[x] for x in keys}}
+
     emit({"kernels": [
         {"name": "rmsnorm", "route": "cuda", "source": RMS_SRC,
          "replaces": RMS_TPU, "also_replaces": RMS_RES_TPU,
          "launches": serve_res["launches"]["rmsnorm"], "shape": rms["shape"],
          "dtype": "bfloat16", **{x: rms[x] for x in keys},
-         "residual_form": {x: rms_res[x] for x in keys}},
+         "residual_form": {x: rms_res[x] for x in keys},
+         "at_prefill": [at(k[("rmsnorm", 8192, 4096, "bfloat16")]),
+                        {"residual_form": True,
+                         **at(k[("rmsnorm_residual", 8192, 4096, "bfloat16")])}]},
         {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
          "replaces": FLASH_TPU,
          "launches": serve_res["launches"]["flash_attention"], "shape": fa["shape"],
-         "dtype": "bfloat16", **{x: fa[x] for x in keys}},
+         "dtype": "bfloat16", **{x: fa[x] for x in keys},
+         "at_prefill": [at(k[("flash_attention", 1, 2048, 32, 128, None, 0, "bfloat16")]),
+                        at(k[("flash_attention", 1, 2048, 8, 256, None, 0, "bfloat16")])]},
         {"name": "wkv6", "route": "cuda", "source": WKV_SRC, "replaces": WKV_TPU,
          "launches": serve_res["launches"]["wkv6"], "shape": wkv["shape"],
          "dtype": "float32", **{x: wkv[x] for x in keys},
@@ -588,9 +702,9 @@ def phase_parity(arch: str, seq: int = 512) -> dict:
         check(bool(torch.isfinite(t).all().item()), f"{name}: non-finite logits")
         check(t.shape == (1, cfg.vocab_size), f"{name}: logits shape {tuple(t.shape)}")
     # bf16 through the stack: the kernels round at other places than the
-    # plain versions (attention keeps its probabilities in fp32, as the
-    # Pallas kernel does, where the plain path rounds them to bf16, as the
-    # JAX oracle does; the WKV kernel sums in another order), so the two
+    # plain versions (attention rounds its probabilities to bf16 before
+    # the running sum normalises them, where the plain path, as the JAX
+    # oracle, rounds them after; the WKV kernel sums in another order), so the two
     # drift apart by the order of bf16's own rounding error through the
     # stack. That error is measured here as the plain bf16 path's distance
     # from the plain fp32 path; the kernels may differ from the plain path

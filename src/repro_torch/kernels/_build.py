@@ -4,9 +4,10 @@ At first use, every ``repro_torch/csrc/*.cu`` is compiled for ``sm_90a``
 with ``nvcc`` — one ``nvcc -c`` per source, all started together — and the
 objects are linked into one shared library with a plain C interface,
 loaded with ``ctypes``. The library lands in ``build/repro_torch/<key>/``
-at the repository root, keyed by a hash of the sources and flags, so an
-edited source rebuilds and an unchanged one is loaded as it is. A failed
-build raises; nothing falls back to the plain PyTorch versions.
+at the repository root, keyed by a hash of the sources, the headers they
+include (``csrc/*.cuh``) and the flags, so an edited file rebuilds and an
+unchanged one is loaded as it is. A failed build raises; nothing falls
+back to the plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -25,8 +26,11 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# -Xptxas -v: each kernel's registers, shared memory and spills, kept in
+# the build directory's nvcc.log
+CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "librepro_torch_kernels.so"
+LOG_NAME = "nvcc.log"
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -47,7 +51,7 @@ def sources() -> List[Path]:
 
 def build_key() -> str:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(ARCH_FLAGS + CFLAGS).encode())
@@ -74,8 +78,10 @@ def build() -> Path:
             )))
             objs.append(str(obj))
         failures = []
+        logs = []
         for src, proc in procs:
             out, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{out}")
             if proc.returncode != 0:
                 failures.append(f"{src.name}:\n{out}")
         if failures:
@@ -88,6 +94,7 @@ def build() -> Path:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
         out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / LOG_NAME).write_text("\n".join(logs))
         # atomic within the filesystem: a concurrent build of the same
         # key replaces an identical file
         os.replace(tmp_lib, lib_path)
@@ -96,14 +103,19 @@ def build() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.rmsnorm_fwd.argtypes = [p, p, p, p, ll, i, f, i, i, i, p]
+    lib.rmsnorm_fwd.argtypes = [
+        p, p, p, p, ll, i, f,  # x, residual (or null), scale, out, rows, d, eps
+        i, i,  # x and scale dtypes
+        i, i, i,  # elements a vector, threads a row, vectors a thread
+        i, p,  # device, stream
+    ]
     lib.rmsnorm_fwd.restype = i
     lib.flash_attention_fwd.argtypes = [
         p, p, p, p,  # q, k, v, o
         i, i, i, i, i, i,  # b, sq, sk, hq, hkv, d
         ll, ll, ll, ll, ll, ll, ll, ll, ll,  # q/k/v (batch, seq, head) strides
         f, i, i, i,  # scale, causal, window, q_offset
-        i, i, p,  # dtype, device, stream
+        i, p, i, p,  # dtype, tensor-map geometry (or null), device, stream
     ]
     lib.flash_attention_fwd.restype = i
     lib.wkv6_fwd.argtypes = [
@@ -116,7 +128,15 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call; later calls take no
+    lock."""
+    lib = _lib
+    if lib is not None:
+        return lib
+    return _load()
+
+
+def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
@@ -127,10 +147,21 @@ def library() -> ctypes.CDLL:
 
 
 def check(err: int, what: str) -> None:
-    """Raise if a C entry point returned a CUDA error."""
-    if err != 0:
+    """Raise if a C entry point returned a CUDA error (> 0) or minus a
+    driver ``CUresult`` (< 0, a tensor map that failed to encode)."""
+    if err > 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+    if err < 0:
+        raise RuntimeError(f"{what}: tensor-map encode failed, CUresult {-err}")
 
 
 # the C entry points' dtype argument
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def current_stream(device_index: int) -> int:
+    """The current stream's ``cudaStream_t`` on a device, as an int: what
+    ``torch.cuda.current_stream(i).cuda_stream`` returns, without building
+    a ``Stream`` object (several µs a launch on an H100 host; the
+    ``host_us_a_call`` line of ``chip_smoke.py`` times both)."""
+    return torch._C._cuda_getCurrentRawStream(device_index)

@@ -1,25 +1,39 @@
 """Public flash-attention wrapper in the model layout ``(b, s, h, d)``,
 dispatching on the tensors' device. CPU tensors take the plain version
-(``ref.attention_ref``); CUDA tensors launch the hand-written kernel
+(``ref.attention_ref``); CUDA tensors launch a hand-written kernel
 (``csrc/flash_attention.cu``) or raise on a dtype, head size or layout it
 does not take.
 
-The kernel reads q/k/v through their batch/sequence/head strides, so the
+The kernel's route is chosen by dtype and head size alone (``route``),
+never because another route failed:
+
+* ``"wgmma"`` — bf16 with d in 64, 128 or 256: the tensor-core kernel,
+  which loads q/k/v by TMA. The wrapper computes each tensor map's
+  geometry (``tma_geometry``) and raises ``ValueError`` on a view TMA
+  cannot read: a base that is not 16-byte aligned, or a batch, sequence
+  or head stride that is not a multiple of 16 bytes.
+* ``"simt"`` — fp32 at any supported d (its 2e-5 parity rules out TF32
+  and bf16 products), and bf16 with d 16 or 32 (narrower than the 128-byte
+  swizzle): the SIMT fp32 kernel, which reads any strides.
+
+Both read q/k/v through their batch/sequence/head strides, so the
 ``(b, s, h, d)`` views go in as they are (no transpose, no
 ``.contiguous()``); only the last dimension must be contiguous. The
 output is a new contiguous ``(b, s_q, hq, d)`` tensor.
 
 ``block_q``/``block_k`` keep the JAX wrapper's contract — sequence
 lengths must divide them, else ``ValueError`` — on both paths. The CUDA
-kernel tiles by 64 x 64 internally whatever they are.
+kernels tile by 64 x 64 internally whatever they are.
 
 ``flash_attention.launches`` counts kernel launches (never plain-version
 calls).
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -27,6 +41,81 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
+WGMMA_HEAD_DIMS = (64, 128, 256)
+# a TMA box: 64 columns of d (128 bytes of bf16, the swizzle's width), one
+# head, 64 sequence rows, one batch entry
+TMA_BOX = (64, 1, 64, 1)
+TMA_ALIGN = 16  # bytes: the base address and every stride
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """``"wgmma"`` (bf16 tensor-core kernel) or ``"simt"`` (fp32 SIMT
+    kernel), by dtype and head size only."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
+
+
+class TmaGeometry(NamedTuple):
+    dims: tuple  # (d, h, s, b): innermost first
+    strides: tuple  # bytes, of h, s and b
+    box: tuple
+
+
+def tma_geometry(
+    shape: Sequence[int], strides: Sequence[int], data_ptr: int, element_size: int
+) -> TmaGeometry:
+    """The rank-4 tensor map of a ``(b, s, h, d)`` view with a contiguous
+    last dimension (element strides ``strides``): dims innermost first,
+    byte strides of the head, sequence and batch dimensions, and the box.
+    A dimension of size 1 is never stepped over, so its stride is taken as
+    the extent of the dimensions inside it. Raises ``ValueError`` where TMA
+    cannot read the view."""
+    _check_base(data_ptr)
+    return _geometry(tuple(shape), tuple(strides), element_size)
+
+
+def _check_base(data_ptr: int) -> None:
+    if data_ptr % TMA_ALIGN:
+        raise ValueError(f"TMA needs a {TMA_ALIGN}-byte aligned base, got {data_ptr:#x}")
+
+
+@functools.lru_cache(maxsize=1024)
+def _geometry(shape: tuple, strides: tuple, element_size: int) -> TmaGeometry:
+    b, s, h, d = shape
+    if strides[3] != 1:
+        raise ValueError("TMA needs a contiguous last dimension")
+    byte_strides = []
+    inner = d * element_size  # extent of the dimensions inside this one
+    for size, stride in ((h, strides[2]), (s, strides[1]), (b, strides[0])):
+        st = stride * element_size if size > 1 else inner
+        byte_strides.append(st)
+        inner = st * size
+    for name, st in zip(("head", "sequence", "batch"), byte_strides):
+        if st % TMA_ALIGN:
+            raise ValueError(f"TMA needs {name} strides in multiples of {TMA_ALIGN} bytes, got {st}")
+    return TmaGeometry((d, h, s, b), tuple(byte_strides), TMA_BOX)
+
+
+def _tma_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q's, k's and v's geometry as the C entry point takes it: 3 x 11
+    unsigned 64-bit values (dims, byte strides, box)."""
+    for t in (q, k, v):
+        _check_base(t.data_ptr())
+    return _packed(q.shape, q.stride(), k.shape, k.stride(), v.shape, v.stride(),
+                   q.element_size())
+
+
+@functools.lru_cache(maxsize=256)
+def _packed(*shapes_strides_size):
+    """Shared between launches of the same shapes and strides (the
+    pointers go to the C entry point apart); never written."""
+    *pairs, element_size = shapes_strides_size
+    vals = []
+    for shape, strides in zip(pairs[::2], pairs[1::2]):
+        g = _geometry(tuple(shape), tuple(strides), element_size)
+        vals.extend((*g.dims, *g.strides, *g.box))
+    return (ctypes.c_ulonglong * len(vals))(*vals)
 
 
 def flash_attention(
@@ -45,13 +134,14 @@ def flash_attention(
     bq, bk = min(block_q, sq), min(block_k, sk)
     if sq % bq or sk % bk:
         raise ValueError(f"seq ({sq},{sk}) must divide blocks ({bq},{bk})")
-    if q.device.type == "cpu":
+    device = q.device
+    if device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, expected {q.device}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
         if t.dtype != q.dtype:
             raise TypeError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
         if t.dim() != 4 or t.shape[-1] != d:
@@ -64,23 +154,23 @@ def flash_attention(
         raise ValueError(f"head_dim {d} not supported; kernel takes {HEAD_DIMS}")
     if k.shape[0] != b or v.shape[:3] != k.shape[:3] or hq % hkv:
         raise ValueError("k/v must be (b, s_k, hkv, d) with hq divisible by hkv")
-    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    tma = _tma_args(q, k, v) if route(q.dtype, d) == "wgmma" else None
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=device)
     if out.numel() == 0:
         return out
-    dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
     err = _build.library().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, sq, sk, hq, hkv, d,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
+        qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
         1.0 / math.sqrt(d),
         int(causal),
         int(window or 0),
         int(q_offset),
         _build.DTYPE_CODES[q.dtype],
-        dev,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        tma,
+        device.index,
+        _build.current_stream(device.index),
     )
     _build.check(err, "flash_attention_fwd")
     flash_attention.launches += 1

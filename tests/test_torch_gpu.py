@@ -37,7 +37,17 @@ def _close(a, b, tol):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(3, 5, 128), (7, 2048), (64, 4096), (1, 100)])
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (3, 5, 128),  # q/k-norm rows: several rows a block
+        (7, 2048),
+        (64, 4096),  # the serve path's norm
+        (8192, 4096),
+        (1, 100),  # not a multiple of the vector width: scalar loads
+        (2, 20001),  # more than 16 vectors a thread: the looping form
+    ],
+)
 @pytest.mark.parametrize("residual", [False, True])
 def test_rmsnorm_kernel_matches_plain(cuda, dtype, shape, residual):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -49,6 +59,21 @@ def test_rmsnorm_kernel_matches_plain(cuda, dtype, shape, residual):
     torch.cuda.synchronize()
     assert rms_ops.rmsnorm.launches == before + 1
     assert out.dtype == dtype and out.shape == x.shape
+    _close(out, rmsnorm_ref(x, scale, r), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [False, True])
+def test_rmsnorm_kernel_unaligned_view(cuda, dtype, residual):
+    """A contiguous view one element off a 16-byte boundary takes the
+    scalar loads of the same kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(4 * 4096 + 1, generator=gen, device=cuda).to(dtype)[1:].view(4, 4096)
+    assert x.data_ptr() % 16 != 0
+    assert rms_ops.launch_shape(4096, x.element_size(), aligned=False).vec == 1
+    scale = torch.randn(4096, generator=gen, device=cuda).to(dtype)
+    r = torch.randn(4, 4096, generator=gen, device=cuda).to(dtype) if residual else None
+    out = rms_ops.rmsnorm(x, scale, r)
     _close(out, rmsnorm_ref(x, scale, r), TOL[dtype])
 
 
@@ -84,6 +109,75 @@ def test_flash_kernel_matches_plain(cuda, dtype, b, sq, sk, hq, hkv, d, window, 
     torch.cuda.synchronize()
     assert fa_ops.flash_attention.launches == before + 1
     _close(out, attention_ref(q, k, v, **kw), TOL[dtype])
+
+
+@pytest.mark.parametrize(
+    "b,sq,sk,hq,hkv,d,causal,window,q_offset",
+    [
+        (2, 128, 128, 4, 4, 64, True, None, 0),  # GQA ratio 1
+        (1, 1, 1, 8, 2, 128, True, None, 0),  # one query
+        (2, 13, 13, 8, 1, 256, True, None, 0),  # 13 rows, ratio 8
+        (4, 16, 16, 32, 8, 128, True, None, 0),  # serve prompt, qwen3-8b
+        (4, 16, 16, 8, 1, 256, True, None, 0),  # serve prompt, gemma-2b
+        (1, 100, 100, 8, 2, 64, True, None, 0),  # ragged last tiles
+        (1, 100, 100, 8, 1, 256, True, None, 0),
+        (1, 2048, 2048, 32, 8, 128, True, None, 0),  # prefill, qwen3-8b
+        (1, 2048, 2048, 8, 1, 256, True, None, 0),  # prefill, gemma-2b
+        (1, 256, 256, 8, 2, 128, True, 64, 0),  # sliding window
+        (1, 300, 300, 4, 1, 256, True, 100, 0),
+        (1, 64, 192, 8, 2, 128, True, None, 128),  # query suffix
+        (1, 1, 512, 8, 1, 256, True, None, 511),  # one query at the end
+        (1, 64, 64, 4, 1, 64, True, None, -16),  # fully-masked rows
+        (1, 128, 100, 4, 4, 128, False, None, 0),  # bidirectional, ragged keys
+    ],
+)
+def test_flash_wgmma_route_matches_plain(cuda, b, sq, sk, hq, hkv, d, causal, window, q_offset):
+    """bf16 with d 64/128/256 takes the tensor-core kernel (TMA + wgmma)."""
+    assert fa_ops.route(torch.bfloat16, d) == "wgmma"
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn(b, sq, hq, d, generator=gen, device=cuda).bfloat16()
+    k = torch.randn(b, sk, hkv, d, generator=gen, device=cuda).bfloat16()
+    v = torch.randn(b, sk, hkv, d, generator=gen, device=cuda).bfloat16()
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(q, k, v, block_q=sq, block_k=sk, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    assert out.shape == (b, sq, hq, d) and out.dtype == torch.bfloat16 and out.is_contiguous()
+    ref = attention_ref(q, k, v, **kw)
+    _close(out, ref, TOL[torch.bfloat16])
+    if q_offset < 0:
+        assert (out[:, : -q_offset] == 0).all()
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_wgmma_reads_strided_views(cuda, d):
+    """q/k/v as views of one projection, through TMA tensor maps of the
+    views' own strides."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    qkv = torch.randn(2, 100, 3, 4, d, generator=gen, device=cuda).bfloat16()
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    out = fa_ops.flash_attention(q, k, v, block_q=100, block_k=100)
+    _close(out, attention_ref(q, k, v), TOL[torch.bfloat16])
+
+
+def test_flash_wgmma_refuses_misaligned_view(cuda):
+    """TMA needs 16-byte strides and base: a 65-element head stride, or a
+    base one element off, is refused, never sent to another route."""
+    base = torch.zeros(64 * 2 * 65 + 8, device=cuda, dtype=torch.bfloat16)
+    q = base.as_strided((1, 64, 2, 64), (64 * 2 * 65, 2 * 65, 65, 1))
+    before = fa_ops.flash_attention.launches
+    with pytest.raises(ValueError, match="head strides"):
+        fa_ops.flash_attention(q, q, q, block_q=64, block_k=64)
+    off = base[1:1 + 64 * 2 * 64].view(1, 64, 2, 64)
+    with pytest.raises(ValueError, match="aligned base"):
+        fa_ops.flash_attention(off, off, off, block_q=64, block_k=64)
+    assert fa_ops.flash_attention.launches == before
+    # the same views in fp32 take the SIMT kernel, which reads any stride
+    q32 = torch.randn(64 * 2 * 65, device=cuda).as_strided((1, 64, 2, 64), (64 * 2 * 65, 2 * 65, 65, 1))
+    _close(fa_ops.flash_attention(q32, q32, q32, block_q=64, block_k=64),
+           attention_ref(q32, q32, q32), TOL[torch.float32])
 
 
 def test_flash_reads_strided_views(cuda):

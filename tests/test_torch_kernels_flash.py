@@ -81,3 +81,69 @@ def test_flash_fully_masked_rows_give_zero():
                                 interpret=True))
     assert np.all(out[:, :16].numpy() == 0.0)
     np.testing.assert_allclose(out.numpy(), kern, rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA wrapper's route and TMA geometry (Python helpers; the kernels
+# themselves run only on the card, tests/test_torch_gpu.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "dtype,d,expected",
+    [
+        (torch.bfloat16, 64, "wgmma"),
+        (torch.bfloat16, 128, "wgmma"),
+        (torch.bfloat16, 256, "wgmma"),
+        (torch.bfloat16, 16, "simt"),
+        (torch.bfloat16, 32, "simt"),
+        (torch.float32, 128, "simt"),
+        (torch.float32, 256, "simt"),
+    ],
+)
+def test_flash_route_by_dtype_and_head_dim(dtype, d, expected):
+    assert ops.route(dtype, d) == expected
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_tma_geometry_contiguous(d):
+    t = torch.zeros((2, 100, 8, d), dtype=torch.bfloat16)
+    g = ops.tma_geometry(t.shape, t.stride(), t.data_ptr(), t.element_size())
+    assert g.dims == (d, 8, 100, 2)
+    assert g.strides == (2 * d, 2 * d * 8, 2 * d * 8 * 100)
+    assert g.box == (64, 1, 64, 1)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_tma_geometry_strided_view(d):
+    """q/k/v as views of one (b, s, 3, h, d) projection: no copy, the
+    sequence and batch strides step over the other two."""
+    qkv = torch.zeros((2, 64, 3, 4, d), dtype=torch.bfloat16)
+    q, k, _ = qkv.unbind(2)
+    gq = ops.tma_geometry(q.shape, q.stride(), q.data_ptr(), 2)
+    gk = ops.tma_geometry(k.shape, k.stride(), k.data_ptr(), 2)
+    assert gq.dims == gk.dims == (d, 4, 64, 2)
+    assert gq.strides == gk.strides == (2 * d, 2 * d * 12, 2 * d * 12 * 64)
+    assert gk.box == (64, 1, 64, 1)
+
+
+def test_tma_geometry_size_one_dims_take_inner_extent():
+    """A dimension of size 1 is never stepped over: its stride, whatever
+    the view says, is replaced by the extent inside it."""
+    g = ops.tma_geometry((1, 5, 1, 128), (7, 384, 3, 1), 0x1000, 2)
+    assert g.dims == (128, 1, 5, 1)
+    assert g.strides == (256, 768, 768 * 5)
+
+
+@pytest.mark.parametrize(
+    "shape,strides,ptr,match",
+    [
+        ((1, 64, 2, 64), (8320, 130, 65, 1), 0x1000, "head strides"),  # 130-byte heads
+        ((2, 64, 2, 64), (8196, 128, 64, 1), 0x1000, "batch strides"),
+        ((1, 64, 2, 64), (8192, 128, 64, 1), 0x1002, "aligned base"),
+        ((1, 64, 2, 64), (8192, 128, 64, 2), 0x1000, "contiguous last"),
+    ],
+)
+def test_tma_geometry_refuses_misaligned(shape, strides, ptr, match):
+    with pytest.raises(ValueError, match=match):
+        ops.tma_geometry(shape, strides, ptr, 2)

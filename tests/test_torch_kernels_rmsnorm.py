@@ -58,3 +58,45 @@ def test_rmsnorm_cpu_path_never_counts_a_launch():
     before = ops.rmsnorm.launches
     ops.rmsnorm(torch.from_numpy(x), torch.from_numpy(scale))
     assert ops.rmsnorm.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's launch shape (a Python helper; the kernel itself runs
+# only on the card, tests/test_torch_gpu.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "d,element_size,aligned,expected",
+    [
+        (128, 2, True, (8, 16, 1, 16)),  # q/k-norm rows: a half-warp a row
+        (128, 4, True, (4, 32, 1, 8)),
+        (2048, 2, True, (8, 256, 1, 1)),
+        (4096, 2, True, (8, 256, 2, 1)),  # 256 threads a row, two 16-byte vectors each
+        (4096, 4, True, (4, 256, 4, 1)),
+        (100, 2, True, (1, 128, 1, 2)),  # not a multiple of 8: scalar loads
+        (4096, 2, False, (1, 256, 16, 1)),  # a pointer off 16 bytes: scalar loads
+        (20001, 2, True, (1, 256, 0, 1)),  # more than 16 a thread: the looping form
+        (1, 4, True, (1, 1, 1, 256)),
+    ],
+)
+def test_rmsnorm_launch_shape(d, element_size, aligned, expected):
+    assert tuple(ops.launch_shape(d, element_size, aligned)) == expected
+
+
+@pytest.mark.parametrize("element_size", [2, 4])
+def test_rmsnorm_launch_shape_covers_every_row(element_size):
+    """Every d up to 40000: the threads of a row (a power of two within
+    one block) times what each holds cover the row, with no more than one
+    vector a thread to spare beyond a power of two."""
+    for d in range(1, 40001, 7):
+        s = ops.launch_shape(d, element_size)
+        assert s.threads_per_row & (s.threads_per_row - 1) == 0
+        assert s.threads_per_row * s.rows_per_block == ops.BLOCK
+        assert d % s.vec == 0
+        n_vec = d // s.vec
+        if s.vectors_per_thread:
+            assert s.threads_per_row * s.vectors_per_thread >= n_vec
+            assert s.threads_per_row * s.vectors_per_thread < 2 * n_vec + ops.BLOCK
+        else:
+            assert n_vec > 16 * ops.BLOCK
