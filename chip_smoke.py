@@ -8,7 +8,8 @@ first use), then runs five phases, each printing JSON lines:
 
 1. env      — the card's name and power limit (nvidia-smi), torch/CUDA
               versions, the kernels' build time, and ptxas's registers and
-              spills of the tensor-core flash kernels.
+              spills of the tensor-core flash kernels and the WKV6 kernel
+              (a spill in the WKV6 kernel fails the run).
 2. kernels  — every kernel at the serve path's shapes and at prefill
               sizes, held against its plain PyTorch version on the card
               (tolerance stated per line), timed beside the plain version,
@@ -180,9 +181,14 @@ def phase_env() -> dict:
         "python": sys.version.split()[0],
         "kernel_build_s": build_s,
         "flash_wgmma_ptxas": {k: v for k, v in regs.items() if "flash_fwd_kernel_wgmma" in k},
+        "wkv6_ptxas": {k: v for k, v in regs.items() if "wkv6_fwd_kernel" in k},
         "kernels_with_spills": sorted(k for k, v in regs.items() if v.get("spill_stores")),
     }
     emit(info)
+    check(bool(info["wkv6_ptxas"]), "no ptxas report of the WKV6 kernel")
+    for name, v in info["wkv6_ptxas"].items():
+        check(not v.get("spill_stores") and not v.get("spill_loads"),
+              f"{name} spills: {v}")
     return info
 
 
@@ -344,6 +350,19 @@ def wkv6_case(b, s, h, d, chunk, regime, iters=10, plain_iters=2) -> dict:
     finite = bool(torch.isfinite(o).all().item() and torch.isfinite(sf).all().item())
     err = max(max_err(o, o_ref), max_err(sf, s_ref))
     ok = finite and within(o, o_ref, WKV_TOL) and within(sf, s_ref, WKV_TOL)
+    # the state's columns a block: the whole head (scores once a head), or
+    # half (twice the blocks, each computing the scores); the kernel's own
+    # choice is what ``ops.wkv6`` runs. Timed in turns, each held to the
+    # plain version too
+    tiles = {"head": d, "half": d // 2}
+    tile_ms = {}
+    for name in ("head", "half", "half", "head"):
+        tiled = lambda: ops._wkv6(r, k, v, w, u, chunk, None, False, tiles[name])
+        o_t, s_t = tiled()
+        sync()
+        check(within(o_t, o_ref, WKV_TOL) and within(s_t, s_ref, WKV_TOL),
+              f"wkv6 column tile {tiles[name]}: off the plain version")
+        tile_ms.setdefault(name, []).append(time_ms(tiled, iters))
     ms = time_ms(run, iters)
     launch_ms = host_ms(run, iters)
     plain_ms = time_ms(plain, plain_iters)
@@ -366,6 +385,7 @@ def wkv6_case(b, s, h, d, chunk, regime, iters=10, plain_iters=2) -> dict:
         "host_ms": launch_ms,
         "plain_ms": plain_ms,
         "plain_chunked_ms": chunked_ms,
+        "ms_by_column_tile": tile_ms,
         "library_ms": None,  # no PyTorch call computes WKV6
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -381,6 +401,7 @@ def host_breakdown() -> dict:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.fused_rmsnorm import ops as rms
+    from repro_torch.kernels.rwkv_scan import ops as wkv
 
     lib = _build.library()
     x = torch.randn(64, 4096, device="cuda").bfloat16()
@@ -396,6 +417,13 @@ def host_breakdown() -> dict:
     fa_args = (q.data_ptr(), k.data_ptr(), k.data_ptr(), o.data_ptr(), 4, 16, 16, 32, 8, 128,
                *q.stride()[:3], *k.stride()[:3], *k.stride()[:3], 128 ** -0.5, 1, 0, 0, 1, tma,
                dev, stream)
+    rkvwu = [torch.rand(4, 16, 64, 64, device="cuda") for _ in range(4)]
+    rkvwu.append(torch.rand(64, 64, device="cuda"))
+    wo = torch.empty(4, 16, 64, 64, device="cuda")
+    wst = torch.empty(4, 64, 64, 64, device="cuda")
+    strides = [x for t in rkvwu[:4] for x in t.stride()[:3]]
+    wkv_args = (*(t.data_ptr() for t in rkvwu), None, wo.data_ptr(), wst.data_ptr(),
+                4, 16, 64, 64, 64, 8, *strides, dev, stream)
     pieces = {
         "torch.cuda.current_stream().cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
         "_build.current_stream": lambda: _build.current_stream(dev),
@@ -410,6 +438,8 @@ def host_breakdown() -> dict:
             lambda: lib.flash_attention_fwd(*fa_args),
         "ops.flash_attention (4, 16) 32/8 d 128": lambda: fa.flash_attention(
             q, k, k, block_q=16, block_k=16),
+        "wkv6_fwd through ctypes, arguments ready": lambda: lib.wkv6_fwd(*wkv_args),
+        "ops.wkv6 (4, 16) 64 heads of 64, chunk 8": lambda: wkv.wkv6(*rkvwu, chunk=8),
     }
     res = {"phase": "kernels", "host_us_a_call": {
         name: 1e3 * host_ms(fn, 500) for name, fn in pieces.items()}}

@@ -1,6 +1,8 @@
-// PTX wrappers for Hopper (sm_90a) that the flash-attention kernel builds
-// on: mbarriers, TMA tensor loads into shared memory, and warpgroup matrix
-// multiplies (wgmma) on 128-byte-swizzled shared-memory tiles.
+// PTX wrappers for Hopper (sm_90a) that the port's kernels build on:
+// mbarriers, TMA tensor loads into shared memory and warpgroup matrix
+// multiplies (wgmma) on 128-byte-swizzled shared-memory tiles (flash
+// attention); cp.async copies, TF32 rounding, ex2 and lg2, and warp-level
+// TF32 mma.sync (WKV6).
 //
 // Shared-memory addresses are 32-bit offsets in the shared window
 // (`smem_addr`), as TMA, mbarrier and wgmma take them.
@@ -175,6 +177,76 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
         "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
         "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// cp.async
+// ---------------------------------------------------------------------------
+
+// Copy 16 bytes (16-byte aligned at both ends) or 4 bytes from global to
+// shared memory without passing through registers. With `live` false
+// nothing is read and the destination is zero-filled (src-size 0).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(live ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(live ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait for every committed group of this thread; follow with
+// __syncthreads() before reading another thread's copies.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// TF32 mma.sync
+// ---------------------------------------------------------------------------
+
+// fp32 rounded to TF32 (10-bit mantissa, round to nearest, ties away from
+// zero), as the bits of an fp32 whose low 13 bits are zero: for finite x
+// what cvt.rna.tf32.f32 returns, in two integer instructions (the cvt
+// takes four on sm_90a). Adding half the dropped ulp to the magnitude
+// bits carries into the kept ones exactly when rna rounds up.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// 2^x on the special-function unit (2 ulp; subnormal results flush to 0,
+// 2^-inf = 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// log2(x) on the special-function unit (absolute error below 2^-22 for x
+// in [0.5, 2], relative elsewhere; log2(0) = -inf, subnormal x as 0)
+__device__ __forceinline__ float log2_approx(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d[16 x 8] += A[16 x 8] * B[8 x 8], TF32 operands, fp32 accumulate. For
+// lane l, g = l / 4 and q = l % 4 (PTX ISA, mma.m16n8k8 .tf32 fragments;
+// CUTLASS's SM80_16x8x8_F32TF32TF32F32_TN traits):
+//   a[0] = A[g][q], a[1] = A[g+8][q], a[2] = A[g][q+4], a[3] = A[g+8][q+4]
+//   b[0] = B[q][g], b[1] = B[q+4][g]
+//   d[0] = D[g][2q], d[1] = D[g][2q+1], d[2] = D[g+8][2q], d[3] = D[g+8][2q+1]
+__device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                                 const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 }  // namespace hopper

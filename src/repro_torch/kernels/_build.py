@@ -125,6 +125,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, p,  # device, stream
     ]
     lib.wkv6_fwd.restype = i
+    lib.wkv6_fwd_tiled.argtypes = lib.wkv6_fwd.argtypes[:-2] + [
+        i, i, p,  # state columns a block (0: the kernel's choice), device, stream
+    ]
+    lib.wkv6_fwd_tiled.restype = i
 
 
 def library() -> ctypes.CDLL:

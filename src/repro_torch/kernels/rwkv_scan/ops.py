@@ -15,7 +15,11 @@ from a zero state, as the Pallas kernel does, or from ``s0`` fp32
 the sequence length, and a length it does not divide raises
 ``ValueError``, unless ``ragged=True``, when the last chunk takes what is
 left (the model's prefill serves any prompt length so). The CUDA kernel
-takes chunks of at most 64 steps.
+takes chunks of at most 64 steps, each computed as one of its length
+rounded up to 16: sub-chunks of 16 rows whose scores against earlier rows
+are one 3xTF32 tensor-core product through a reference point, the
+diagonal blocks pair by pair (``csrc/wkv6.cu``; ``ref.wkv6_subchunk_ref``
+rehearses its arithmetic on the CPU).
 
 ``wkv6.launches`` counts kernel launches (never plain-version calls).
 """
@@ -43,6 +47,12 @@ def wkv6(
     s0: Optional[torch.Tensor] = None,  # (b, h, dk, dv) fp32
     ragged: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _wkv6(r, k, v, w, u, chunk, s0, ragged, 0)
+
+
+def _wkv6(r, k, v, w, u, chunk, s0, ragged, column_tile):
+    """``wkv6`` with the kernel's state columns a block: ``dv``, ``dv // 2``,
+    or 0 for the kernel's own choice (chip_smoke.py times both)."""
     b, s, h, dk = r.shape
     dv = v.shape[-1]
     chunk = min(chunk, s)
@@ -82,7 +92,7 @@ def wkv6(
     if o.numel() == 0:
         return o, (state.zero_() if s0 is None else state.copy_(s0))
     dev = r.device.index if r.device.index is not None else torch.cuda.current_device()
-    err = _build.library().wkv6_fwd(
+    err = _build.library().wkv6_fwd_tiled(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         None if s0 is None else s0.data_ptr(), o.data_ptr(), state.data_ptr(),
         b, s, h, dk, dv, chunk,
@@ -90,8 +100,7 @@ def wkv6(
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         w.stride(0), w.stride(1), w.stride(2),
-        dev,
-        torch.cuda.current_stream(r.device).cuda_stream,
+        column_tile, dev, _build.current_stream(dev),
     )
     _build.check(err, "wkv6_fwd")
     wkv6.launches += 1

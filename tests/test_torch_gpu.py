@@ -295,6 +295,22 @@ def test_wkv6_reads_strided_views(cuda):
     _close(sf, s_ref, WKV_TOL)
 
 
+def test_wkv6_reads_unaligned_views(cuda):
+    """Views whose rows do not start 16-byte aligned (a base one element
+    off, a head stride of 33) take the kernel's 4-byte copies."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    flat = torch.randn(4 * 2 * 48 * 3 * 33 + 1, generator=gen, device=cuda)[1:]
+    big = flat.view(2, 48, 4, 3, 33)[..., :32]
+    big[:, :, 3] = torch.sigmoid(big[:, :, 3]) * 0.5 + 0.15
+    r, k, v, w = big.unbind(2)
+    assert r.data_ptr() % 16 != 0 and r.stride(2) == 33
+    u = torch.randn(3, 32, generator=gen, device=cuda) * 0.1
+    o, sf = wkv_ops.wkv6(r, k, v, w, u, chunk=16)
+    o_ref, s_ref = wkv6_ref(r, k, v, w, u)
+    _close(o, o_ref, WKV_TOL)
+    _close(sf, s_ref, WKV_TOL)
+
+
 def test_wkv6_wrapper_refuses(cuda):
     r, k, v, w, u = _wkv_inputs(cuda, 1, 64, 2, 16, 16, "slow")
     with pytest.raises(TypeError):
@@ -338,6 +354,70 @@ def test_wkv6_kernel_ragged_from_a_state(cuda, b, s, h, d, chunk, regime):
         o_ref, s_ref = wkv6_ref(r, k, v, w, u, start)
         _close(o, o_ref, WKV_TOL)
         _close(sf, s_ref, WKV_TOL)
+
+
+def _column_tile(tile, dv):
+    return {"auto": 0, "head": dv, "half": dv // 2 if dv >= 16 else dv}[tile]
+
+
+@pytest.mark.parametrize("tile", ["auto", "head", "half"])
+@pytest.mark.parametrize(
+    "b,s,h,dk,dv,chunk",
+    [
+        (2, 48, 3, 64, 64, 24),  # chunk 24: a sub-chunk and a half
+        (3, 21, 4, 64, 64, 8),  # chunk 8, a last chunk of 5
+        (1, 77, 2, 32, 32, 16),  # a last chunk of 13
+        (2, 64, 2, 8, 8, 64),  # small heads: one k-step of 8 channels
+        (2, 64, 2, 16, 16, 64),
+        (2, 64, 2, 32, 32, 64),
+        (1, 64, 2, 8, 64, 32),  # dk != dv
+        (1, 64, 2, 64, 16, 32),
+    ],
+)
+def test_wkv6_kernel_chunks_heads_and_tiles(cuda, b, s, h, dk, dv, chunk, tile):
+    """Chunks that are not a multiple of the 16-row sub-chunk, every head
+    size, and both column tilings (the whole head a block, or two blocks
+    a head), from a given state."""
+    r, k, v, w, u = _wkv_inputs(cuda, b, s, h, dk, dv, "fast", seed=s + dk)
+    s0 = torch.randn(b, h, dk, dv, generator=torch.Generator(device=cuda).manual_seed(2),
+                     device=cuda)
+    before = wkv_ops.wkv6.launches
+    o, sf = wkv_ops._wkv6(r, k, v, w, u, chunk, s0, True, _column_tile(tile, dv))
+    torch.cuda.synchronize()
+    assert wkv_ops.wkv6.launches == before + 1
+    assert torch.isfinite(o).all() and torch.isfinite(sf).all()
+    o_ref, s_ref = wkv6_ref(r, k, v, w, u, s0)
+    _close(o, o_ref, WKV_TOL)
+    _close(sf, s_ref, WKV_TOL)
+
+
+@pytest.mark.parametrize("low", [0.0, 1e-30])
+def test_wkv6_kernel_decay_underflow(cuda, low):
+    """Decays that underflowed to 0, or below the e^-60 floor on log w, in
+    half the channels: finite, and on the plain version."""
+    r, k, v, w, u = _wkv_inputs(cuda, 2, 128, 4, 64, 64, "fast", seed=8)
+    w[..., ::2] = low
+    o, sf = wkv_ops.wkv6(r, k, v, w, u, chunk=64)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all() and torch.isfinite(sf).all()
+    o_ref, s_ref = wkv6_ref(r, k, v, w, u)
+    _close(o, o_ref, WKV_TOL)
+    _close(sf, s_ref, WKV_TOL)
+
+
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_wkv6_kernel_two_calls_chain_through_s0(cuda, chunk):
+    """Two launches on one stream, the second from the first's state,
+    equal one launch over the whole sequence (split at a chunk boundary,
+    so both do the same arithmetic)."""
+    r, k, v, w, u = _wkv_inputs(cuda, 2, 192, 4, 64, 64, "slow", seed=9)
+    o, sf = wkv_ops.wkv6(r, k, v, w, u, chunk=chunk)
+    cut = 128
+    o1, s1 = wkv_ops.wkv6(r[:, :cut], k[:, :cut], v[:, :cut], w[:, :cut], u, chunk=chunk)
+    o2, s2 = wkv_ops.wkv6(r[:, cut:], k[:, cut:], v[:, cut:], w[:, cut:], u, chunk=chunk, s0=s1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(torch.cat([o1, o2], 1), o, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(s2, sf, rtol=1e-6, atol=1e-6)
 
 
 def test_rwkv_smoke_prefill_kernel_matches_reference(cuda):

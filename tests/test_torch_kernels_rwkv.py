@@ -1,9 +1,13 @@
 """Port WKV6 (CPU path = its plain version) vs the JAX package: the port's
 ``wkv6_ref`` and ``ops.wkv6`` against the JAX oracle and the JAX Pallas
 kernel in interpret mode on the JAX test's cases (tests/test_kernels_rwkv.py)
-x {slow, fast} decay at its 2e-3, state chaining through ``s0``, the
+x {slow, fast, faster} decay at its 2e-3, state chaining through ``s0``, the
 port's ``wkv_chunked`` against the JAX one, and the chunk contract (a
-ragged length raises unless ``ragged=True``)."""
+ragged length raises unless ``ragged=True``). ``wkv6_subchunk_ref``, the
+CUDA kernel's arithmetic (sub-chunks of 16, reference points, 3xTF32) in
+plain torch, is held against the same oracles, at decays that underflow
+to 0 or sit at the kernel's -60 floor on log w, and from a state with a
+ragged last chunk."""
 import numpy as np
 import pytest
 
@@ -15,7 +19,12 @@ from repro.kernels.rwkv_scan.ops import wkv6 as jax_wkv6  # noqa: E402
 from repro.kernels.rwkv_scan.ref import wkv6_ref as jax_wkv6_ref  # noqa: E402
 from repro.models import rwkv as jax_rwkv  # noqa: E402
 from repro_torch.kernels.rwkv_scan import ops  # noqa: E402
-from repro_torch.kernels.rwkv_scan.ref import wkv6_ref  # noqa: E402
+from repro_torch.kernels.rwkv_scan.ref import (  # noqa: E402
+    _mm3,
+    _tf32,
+    wkv6_ref,
+    wkv6_subchunk_ref,
+)
 from repro_torch.models import rwkv  # noqa: E402
 
 CASES = [
@@ -53,20 +62,22 @@ def _j(arrays):
 
 
 @pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("regime", ["slow", "fast"])
+@pytest.mark.parametrize("regime", ["slow", "fast", "faster"])
 def test_wkv6_vs_jax_oracle_and_interpret_kernel(case, regime):
     b, s, h, dk, dv, chunk = case
     arrays = _inputs(b, s, h, dk, dv, regime, seed=CASES.index(case))
     o_ref, s_ref = wkv6_ref(*_t(arrays))
     o, sf = ops.wkv6(*_t(arrays), chunk=chunk)
-    assert o.dtype == sf.dtype == torch.float32
-    assert o.shape == (b, s, h, dv) and sf.shape == (b, h, dk, dv)
+    o_sub, s_sub = wkv6_subchunk_ref(*_t(arrays), chunk=chunk)
+    assert o.dtype == sf.dtype == o_sub.dtype == torch.float32
+    assert o.shape == o_sub.shape == (b, s, h, dv) and sf.shape == s_sub.shape == (b, h, dk, dv)
+    assert torch.isfinite(o_sub).all() and torch.isfinite(s_sub).all()
     jo, js = jax_wkv6_ref(*_j(arrays))
     ko, ks = jax_wkv6(*_j(arrays), chunk=chunk, interpret=True)
-    for ours in (o_ref, o):
+    for ours in (o_ref, o, o_sub):
         np.testing.assert_allclose(ours.numpy(), np.asarray(jo), **TOL)
         np.testing.assert_allclose(ours.numpy(), np.asarray(ko), **TOL)
-    for ours in (s_ref, sf):
+    for ours in (s_ref, sf, s_sub):
         np.testing.assert_allclose(ours.numpy(), np.asarray(js), **TOL)
         np.testing.assert_allclose(ours.numpy(), np.asarray(ks), **TOL)
 
@@ -161,3 +172,58 @@ def test_wkv6_refuses_other_dtypes_and_shapes():
         ops.wkv6(r, k, v, w, u, s0=torch.zeros(1, 2, 16, 16, dtype=torch.float64))
     with pytest.raises(ValueError):
         ops.wkv6(r, k, v, w, u, s0=torch.zeros(1, 2, 16, 8))
+
+
+@pytest.mark.parametrize("low", [0.0, 1e-30])
+def test_wkv6_subchunk_ref_decay_underflow_and_floor(low):
+    """Decays that underflowed to 0 (log w = -inf) and decays below the
+    kernel's e^-60 floor in half the channels, ordinary ones in the rest:
+    finite, and on the oracle."""
+    r, k, v, w, u = _inputs(1, 80, 2, 16, 16, "fast", seed=11)
+    w[..., ::2] = low
+    o, sf = wkv6_subchunk_ref(*_t((r, k, v, w, u)), chunk=64)
+    assert torch.isfinite(o).all() and torch.isfinite(sf).all()
+    jo, js = jax_wkv6_ref(*_j((r, k, v, w, u)))
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), **TOL)
+    np.testing.assert_allclose(sf.numpy(), np.asarray(js), **TOL)
+
+
+@pytest.mark.parametrize("s,chunk", [(100, 64), (13, 8), (70, 24)])
+def test_wkv6_subchunk_ref_ragged_from_a_state(s, chunk):
+    """A last chunk shorter than the rest, and chunks that are not a
+    multiple of 16 rows, from a given state: the JAX oracle from the same
+    state gives the same answer."""
+    arrays = _inputs(2, s, 2, 32, 32, "faster", seed=s)
+    s0 = np.random.default_rng(6).standard_normal((2, 2, 32, 32)).astype(np.float32)
+    o, sf = wkv6_subchunk_ref(*_t(arrays), chunk=chunk, s0=torch.from_numpy(s0))
+    jo, js = jax_wkv6_ref(*_j(arrays), s0=jnp.asarray(s0))
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), **TOL)
+    np.testing.assert_allclose(sf.numpy(), np.asarray(js), **TOL)
+
+
+def test_tf32_split_keeps_fp32_accuracy():
+    """TF32 rounds to nearest with ties away from zero on a 10-bit
+    mantissa; one TF32 product is off by ~1e-3 relative, the 3xTF32 split
+    by fp32's own rounding."""
+    one = torch.tensor([1 + 2.0**-11, -(1 + 2.0**-11), 1 + 2.0**-12, 3.0], dtype=torch.float32)
+    assert _tf32(one).tolist() == [1 + 2.0**-10, -(1 + 2.0**-10), 1.0, 3.0]
+    g = np.random.default_rng(2)
+    a = torch.from_numpy(g.standard_normal((16, 64), dtype=np.float32))
+    b = torch.from_numpy(g.standard_normal((64, 24), dtype=np.float32))
+    exact = a.double() @ b.double()
+    scale = exact.abs().max().item()
+    err3 = (_mm3(a, b).double() - exact).abs().max().item() / scale
+    err1 = ((_tf32(a) @ _tf32(b)).double() - exact).abs().max().item() / scale
+    assert err3 < 1e-6 < 1e-4 < err1
+
+
+@pytest.mark.parametrize("regime", ["slow", "fast", "faster"])
+def test_wkv6_subchunk_ref_keeps_fp32_accuracy(regime):
+    """The kernel's arithmetic (reference points, running decay products,
+    3xTF32) stays as close to a float64 recurrence as plain fp32 does:
+    within 5e-6 relative Frobenius, outputs and state."""
+    arrays = _inputs(1, 256, 2, 64, 64, regime, seed=12)
+    o64, s64 = wkv6_ref(*[torch.from_numpy(a).double() for a in arrays])
+    o, sf = wkv6_subchunk_ref(*_t(arrays), chunk=64)
+    for ours, exact in ((o, o64), (sf, s64)):
+        assert ((ours.double() - exact).norm() / exact.norm()).item() < 5e-6
