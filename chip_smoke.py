@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, at
-first use), then runs five phases, each printing JSON lines:
+first use), then runs eight phases, each printing JSON lines:
 
 1. env      — the card's name and power limit (nvidia-smi), torch/CUDA
               versions, the kernels' build time, and ptxas's registers and
@@ -17,15 +17,17 @@ first use), then runs five phases, each printing JSON lines:
               function, and its bound (bytes or operations at the H100's
               published peaks); the wrapper's host cost a launch (enqueue
               time on the host clock, no synchronise) beside it, and where
-              that cost goes at the serve shapes (``host_us_a_call``).
+              that cost goes at the serve shapes (``host_us_a_call``). The
+              backward kernels (RMSNorm, flash attention) at the training
+              shapes, each held against its plain backward and against
+              autograd of the plain forward (relative Frobenius).
 3. serve    — ``repro_torch.launch.serve`` with its default services,
               gemma-2b, qwen3-8b and rwkv6-7b, at full width and depth
               (random weights from fixed seeds) on one ``SalusExecutor``:
               every request served, no failures, and the kernels' launch
               counters rise by exactly the count the path implies; one
               more request a service under the profiler, where each of
-              its kernels must show device time. Then the
-              ``{"kernels": [...]}`` summary line.
+              its kernels must show device time.
 4. parity   — qwen3-8b and rwkv6-7b at full width and depth, prefill of a
               (1, 512) prompt through the kernels against the plain
               versions, in bf16 and fp32, logits and caches.
@@ -33,6 +35,20 @@ first use), then runs five phases, each printing JSON lines:
               paging on and a capacity that forces the first out to host
               and back; its next tokens after the round trip must equal
               those before.
+6. train    — gemma-2b at full width and depth, a training session on
+              ``SalusExecutor``: three AdamW steps of ``make_train_step``
+              at the runtime tables' settings (4 microbatches of one
+              4096-token sequence, remat, bf16 compute) fed by
+              ``SyntheticLM``, its profile from ``profile_model``; finite
+              losses, the launch counts a step imply, step time, peak
+              memory, and one more step under the profiler.
+7. train_parity — the same model, one (1, 4096) batch: loss and every
+              gradient leaf through the kernels against the plain path, in
+              fp32 (held) and bf16 (beside the plain bf16-fp32 gap).
+8. serve_train — ``repro_torch.launch.serve`` with a gemma-2b service and a
+              gemma-2b background trainer under PRIORITY: every request
+              served, trainer iterations and preemptions, no failure.
+Then the ``{"kernels": [...]}`` summary line.
 
 Any failed check raises and the script exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or run outside the
@@ -64,14 +80,20 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 WKV_TOL = 2e-3  # tests/test_kernels_rwkv.py
+# backward kernels: relative Frobenius, fp32 / bf16 (the JAX tests' bf16)
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 RMS_SRC = "src/repro_torch/csrc/rmsnorm.cu"
 FLASH_SRC = "src/repro_torch/csrc/flash_attention.cu"
+FLASH_BWD_SRC = "src/repro_torch/csrc/flash_attention_bwd.cu"
 WKV_SRC = "src/repro_torch/csrc/wkv6.cu"
 RMS_TPU = "src/repro/kernels/fused_rmsnorm/kernel.py:19"
 RMS_RES_TPU = "src/repro/kernels/fused_rmsnorm/kernel.py:27"
 FLASH_TPU = "src/repro/kernels/flash_attention/kernel.py:35"
 WKV_TPU = "src/repro/kernels/rwkv_scan/kernel.py:31"
 SERVE_ARCHS = ["gemma-2b", "qwen3-8b", "rwkv6-7b"]
+TRAIN_ARCH = "gemma-2b"
+TRAIN_BATCH = 4  # global batch of TRAIN_4K-length sequences
+TRAIN_STEPS = 3
 # w = sigmoid(z) * span + low: the JAX kernel test's slow and fast decay
 # regimes, and a faster one with decays down to 0.05
 DECAY_REGIMES = {"slow": (0.1, 0.88), "fast": (0.5, 0.15), "faster": (0.9, 0.05)}
@@ -182,6 +204,8 @@ def phase_env() -> dict:
         "kernel_build_s": build_s,
         "flash_wgmma_ptxas": {k: v for k, v in regs.items() if "flash_fwd_kernel_wgmma" in k},
         "wkv6_ptxas": {k: v for k, v in regs.items() if "wkv6_fwd_kernel" in k},
+        "backward_ptxas": {k: v for k, v in regs.items()
+                           if "flash_bwd_" in k or "rmsnorm_bwd_kernel" in k},
         "kernels_with_spills": sorted(k for k, v in regs.items() if v.get("spill_stores")),
     }
     emit(info)
@@ -395,6 +419,123 @@ def wkv6_case(b, s, h, d, chunk, regime, iters=10, plain_iters=2) -> dict:
     return res
 
 
+def grad_time_ms(out: torch.Tensor, inputs, grad: torch.Tensor, iters: int) -> float:
+    """Event time of one backward of ``out`` (built once, with its graph
+    retained) with respect to ``inputs``."""
+    return time_ms(lambda: torch.autograd.grad(out, inputs, grad, retain_graph=True), iters)
+
+
+def rmsnorm_bwd_case(rows: int, d: int, dtype, iters: int) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.fused_rmsnorm import ops
+    from repro_torch.kernels.fused_rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(rows + d)
+    x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+    scale = (torch.randn(d, generator=gen, device="cuda") * 0.1 + 1.0).to(dtype)
+    g = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+    run = lambda: ops.rmsnorm_bwd(g, x, scale)
+    dx, ds = run()
+    rdx, rds = rmsnorm_bwd_ref(g, x, scale)
+    xa, sa = x.clone().requires_grad_(), scale.clone().requires_grad_()
+    rmsnorm_ref(xa, sa).backward(g)
+    sync()
+    tol = BWD_TOL[dtype]
+    rel = {"dx": rel_fro(dx, rdx), "dscale": rel_fro(ds, rds)}
+    rel_autograd = {"dx": rel_fro(dx, xa.grad), "dscale": rel_fro(ds, sa.grad)}
+    ok = all(v <= tol for v in (*rel.values(), *rel_autograd.values()))
+    ok = ok and bool(torch.isfinite(dx.float()).all().item() and torch.isfinite(ds.float()).all().item())
+    ms = time_ms(run, iters)
+    launch_ms = host_ms(run, iters)
+    plain_ms = time_ms(lambda: rmsnorm_bwd_ref(g, x, scale), iters)
+    library_ms = None
+    if hasattr(F, "rms_norm"):
+        xl, sl = x.clone().requires_grad_(), scale.clone().requires_grad_()
+        library_ms = grad_time_ms(F.rms_norm(xl, (d,), sl, 1e-6), (xl, sl), g, iters)
+    es = x.element_size()
+    # g and x read once, dx written once; the scale read, its gradient written
+    nbytes = 3 * rows * d * es + 2 * d * scale.element_size()
+    ops_count = 10 * rows * d
+    bound_ms, bound_by = bound(nbytes, ops_count, PEAK_FLOPS[torch.float32])
+    res = {
+        "phase": "kernels", "kernel": "rmsnorm_bwd", "shape": [rows, d],
+        "dtype": str(dtype).removeprefix("torch."),
+        "max_abs_err": max(max_err(dx, rdx), max_err(ds, rds)),
+        "rel_fro": rel, "rel_fro_vs_autograd": rel_autograd, "tol": tol, "ok": ok,
+        "ms": ms, "host_ms": launch_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "launch_shape": ops.bwd_launch_shape(d, es)._asdict(),
+    }
+    emit(res)
+    check(ok, f"rmsnorm_bwd {rows}x{d} {dtype}: {rel} / {rel_autograd} > {tol}")
+    return res
+
+
+def flash_bwd_case(b, sq, sk, hq, hkv, d, dtype, *, window=None, q_offset=0, iters=5) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(sq * 17 + hq + d)
+    q = torch.randn(b, sq, hq, d, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(b, sk, hkv, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, sk, hkv, d, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(b, sq, hq, d, generator=gen, device="cuda").to(dtype)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    out, lse = ops._forward(q, k, v, True, window, q_offset, want_lse=True)
+    run = lambda: ops.flash_attention_bwd(g, q, k, v, out, lse, **kw)
+    got = run()
+    want = attention_bwd_ref(g, q, k, v, out, lse, **kw)
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    attention_ref(qa, ka, va, **kw).backward(g)
+    sync()
+    names = ("dq", "dk", "dv")
+    tol = BWD_TOL[dtype]
+    rel = {n: rel_fro(a, w) for n, a, w in zip(names, got, want)}
+    rel_autograd = {n: rel_fro(a, w) for n, a, w in zip(names, got, (qa.grad, ka.grad, va.grad))}
+    del qa, ka, va
+    finite = all(bool(torch.isfinite(t.float()).all().item()) for t in got)
+    ok = finite and all(v <= tol for v in (*rel.values(), *rel_autograd.values()))
+    ms = time_ms(run, iters)
+    launch_ms = host_ms(run, iters)
+    plain_ms = time_ms(lambda: attention_bwd_ref(g, q, k, v, out, lse, **kw), max(1, iters // 2))
+    library_ms = None
+    if window is None and q_offset == 0 and sq == sk:
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        y = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=hq != hkv)
+        library_ms = grad_time_ms(y, (qt, kt, vt), g.transpose(1, 2), iters)
+        del qt, kt, vt, y
+    qpos = torch.arange(sq, device="cuda")[:, None] + q_offset
+    kpos = torch.arange(sk, device="cuda")[None, :]
+    mask = qpos >= kpos
+    if window:
+        mask &= kpos > qpos - window
+    pairs = int(mask.sum().item())  # the (query, key) pairs this input needs
+    # five products of 2 d multiply-adds a pair and head: S, dP, dV, dK, dQ
+    flops = 10.0 * b * hq * d * pairs
+    es = q.element_size()
+    # q, o, dO read and dq written (b sq hq d each); k, v read and dk, dv
+    # written (b sk hkv d each); lse read
+    nbytes = es * (4 * b * sq * hq * d + 4 * b * sk * hkv * d) + 4 * b * hq * sq
+    bound_ms, bound_by = bound(nbytes, flops, PEAK_FLOPS[dtype])
+    res = {
+        "phase": "kernels", "kernel": "flash_attention_bwd",
+        "shape": {"b": b, "sq": sq, "sk": sk, "hq": hq, "hkv": hkv, "d": d,
+                  "causal": True, "window": window, "q_offset": q_offset},
+        "dtype": str(dtype).removeprefix("torch."),
+        "max_abs_err": max(max_err(a, w) for a, w in zip(got, want)),
+        "rel_fro": rel, "rel_fro_vs_autograd": rel_autograd, "tol": tol, "finite": finite,
+        "ok": ok, "ms": ms, "host_ms": launch_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+    }
+    emit(res)
+    check(ok, f"flash_attention_bwd {res['shape']} {dtype}: {rel} / {rel_autograd} > {tol}")
+    del got, want, out, lse
+    return res
+
+
 def host_breakdown() -> dict:
     """Where a wrapper's host cost a launch goes, at the serve shapes:
     host-clock microseconds a call, no synchronise inside the window."""
@@ -416,7 +557,7 @@ def host_breakdown() -> dict:
     tma = fa._tma_args(q, k, k)
     fa_args = (q.data_ptr(), k.data_ptr(), k.data_ptr(), o.data_ptr(), 4, 16, 16, 32, 8, 128,
                *q.stride()[:3], *k.stride()[:3], *k.stride()[:3], 128 ** -0.5, 1, 0, 0, 1, tma,
-               dev, stream)
+               None, dev, stream)
     rkvwu = [torch.rand(4, 16, 64, 64, device="cuda") for _ in range(4)]
     rkvwu.append(torch.rand(64, 64, device="cuda"))
     wo = torch.empty(4, 16, 64, 64, device="cuda")
@@ -493,6 +634,29 @@ def phase_kernels() -> dict:
         res = wkv6_case(**c)
         s = res["shape"]
         results[("wkv6", s["b"], s["s"], s["chunk"], s["decay"])] = res
+    # backward kernels at the training shapes: gemma-2b's norm rows (one
+    # 4096-token microbatch), qwen3-8b's q-norm rows at (1, 4096), and a
+    # large fp32 case
+    for rows, d, dtype in ((4096, 2048, bf16), (131072, 128, bf16), (8192, 4096, f32)):
+        res = rmsnorm_bwd_case(rows, d, dtype, iters=20)
+        results[("rmsnorm_bwd", rows, d, res["dtype"])] = res
+    bwd_cases = [
+        # (1, 4096): gemma-2b's 8/1 heads of 256, qwen3-8b's 32/8 of 128
+        dict(b=1, sq=4096, sk=4096, hq=8, hkv=1, d=256, dtype=bf16, iters=3),
+        dict(b=1, sq=4096, sk=4096, hq=32, hkv=8, d=128, dtype=bf16, iters=3),
+        dict(b=1, sq=512, sk=512, hq=32, hkv=8, d=128, dtype=f32, iters=3),
+        dict(b=1, sq=1024, sk=1024, hq=8, hkv=2, d=128, dtype=bf16, window=256),
+        dict(b=1, sq=512, sk=1024, hq=8, hkv=2, d=128, dtype=bf16, q_offset=512),
+        dict(b=2, sq=256, sk=256, hq=4, hkv=2, d=16, dtype=f32),
+        dict(b=1, sq=256, sk=256, hq=4, hkv=1, d=32, dtype=bf16),
+    ]
+    for c in bwd_cases:
+        res = flash_bwd_case(**c)
+        s = res["shape"]
+        results[("flash_attention_bwd", s["b"], s["sq"], s["hq"], s["d"], s["window"],
+                 s["q_offset"], res["dtype"])] = res
+    gc.collect()
+    torch.cuda.empty_cache()
     return results
 
 
@@ -512,22 +676,23 @@ def launches_per_request(cfg) -> dict:
     return {"rmsnorm": norms, "flash_attention": cfg.n_layers, "wkv6": 0}
 
 
-def profile_request(sess) -> dict:
-    """One more request of a served session under ``torch.profiler``: wall
-    time, the device time of its kernels grouped by kind, and the device's
-    busy share of the wall time. Runs after the launch counts are read, so
-    it adds nothing to them."""
-    from torch.profiler import ProfilerActivity, profile
+# profiler kernel names -> kinds, first match wins (the backward names
+# first: they share prefixes with the forward ones)
+KERNEL_KINDS = (
+    ("rmsnorm_bwd", ("rmsnorm_bwd_kernel", "rmsnorm_dscale_kernel")),
+    ("rmsnorm", ("rmsnorm_kernel",)),
+    ("flash_attention_bwd", ("flash_bwd_",)),
+    ("flash_attention", ("flash_fwd_kernel",)),
+    ("wkv6", ("wkv6_fwd_kernel",)),
+    ("gemm", ("gemm", "xmma", "nvjet", "cutlass", "sm90_")),
+)
 
-    batch = sess.data_fn(0)
-    sess.step_fn(sess.state, batch)
-    sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sess.step_fn(sess.state, batch)
-        sync()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {"rmsnorm": 0.0, "flash_attention": 0.0, "wkv6": 0.0, "gemm": 0.0, "other": 0.0}
+
+def device_time_by_kind(prof):
+    """Device milliseconds and kernel counts by kind from a profiler run
+    (kinds with no kernel stay at 0), and the total kernel count."""
+    groups = {kind: 0.0 for kind, _ in KERNEL_KINDS}
+    groups["other"] = 0.0
     counts = dict.fromkeys(groups, 0)
     n_kernels = 0
     for evt in prof.key_averages():
@@ -537,19 +702,36 @@ def profile_request(sess) -> dict:
         if us is None:
             us = evt.self_cuda_time_total
         name = evt.key.lower()
-        if "rmsnorm_kernel" in name:
-            key = "rmsnorm"
-        elif "flash_fwd_kernel" in name:
-            key = "flash_attention"
-        elif "wkv6_fwd_kernel" in name:
-            key = "wkv6"
-        elif any(t in name for t in ("gemm", "xmma", "nvjet", "cutlass", "sm90_")):
-            key = "gemm"
-        else:
-            key = "other"
+        key = next((kind for kind, marks in KERNEL_KINDS if any(m in name for m in marks)), "other")
         groups[key] += us / 1e3
         counts[key] += evt.count
         n_kernels += evt.count
+    return groups, counts, n_kernels
+
+
+def profile_request(sess) -> dict:
+    """One more request of a served session under ``torch.profiler``: wall
+    time, the device time of its kernels grouped by kind, and the device's
+    busy share of the wall time. Runs after the launch counts are read, so
+    it adds nothing to them."""
+    batch = sess.data_fn(0)
+    sess.step_fn(sess.state, batch)
+    sync()
+    return profiled(lambda: sess.step_fn(sess.state, batch))
+
+
+def profiled(fn) -> dict:
+    """``fn()`` once under ``torch.profiler``, synchronised: wall time, the
+    device time of its kernels grouped by kind, and the device's busy
+    share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, counts, n_kernels = device_time_by_kind(prof)
     device_ms = sum(groups.values())
     return {
         "wall_ms": wall_ms,
@@ -640,27 +822,35 @@ def phase_serve() -> dict:
     return res
 
 
-def kernels_line(k: dict, serve_res: dict) -> None:
-    """The summary line: each kernel the serve path launches, measured at
-    its largest serve-path shape (bf16 for the norm and attention, whose
-    largest is qwen3-8b's; fp32 for WKV6, rwkv6-7b's prompt at the serve
-    chunk), with the path's count; beside it, the norm at (8192, 4096) and
-    attention at (1, 2048) for qwen3-8b's and gemma-2b's heads."""
+def kernels_line(k: dict, serve_res: dict, train_res: dict) -> None:
+    """The summary line: each kernel the serve and train paths launch. The
+    forward kernels at their largest serve-path shape (bf16 for the norm
+    and attention, whose largest is qwen3-8b's; fp32 for WKV6, rwkv6-7b's
+    prompt at the serve chunk), with the serve path's count; beside it,
+    the norm at (8192, 4096) and attention at (1, 2048) for qwen3-8b's and
+    gemma-2b's heads. The backward kernels (no TPU counterpart: the JAX
+    package trains through jnp) at the training path's shapes, gemma-2b's
+    norm rows and heads at (1, 4096), with the train path's count."""
     rms = k[("rmsnorm", 64, 4096, "bfloat16")]
     rms_res = k[("rmsnorm_residual", 64, 4096, "bfloat16")]
     fa = k[("flash_attention", 4, 16, 32, 128, None, 0, "bfloat16")]
     wkv = k[("wkv6", 4, 16, 8, "slow")]
+    rms_bwd = k[("rmsnorm_bwd", 4096, 2048, "bfloat16")]
+    fa_bwd = k[("flash_attention_bwd", 1, 4096, 8, 256, None, 0, "bfloat16")]
     keys = ("max_abs_err", "ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def at(res):
         return {"shape": res["shape"], **{x: res[x] for x in keys}}
 
+    train = train_res["launches"]
+    per_step = train_res["launches_per_step"]
     emit({"kernels": [
         {"name": "rmsnorm", "route": "cuda", "source": RMS_SRC,
          "replaces": RMS_TPU, "also_replaces": RMS_RES_TPU,
          "launches": serve_res["launches"]["rmsnorm"], "shape": rms["shape"],
          "dtype": "bfloat16", **{x: rms[x] for x in keys},
          "residual_form": {x: rms_res[x] for x in keys},
+         "launches_train": train["rmsnorm"], "launches_a_train_step": per_step["rmsnorm"],
          "at_prefill": [at(k[("rmsnorm", 8192, 4096, "bfloat16")]),
                         {"residual_form": True,
                          **at(k[("rmsnorm_residual", 8192, 4096, "bfloat16")])}]},
@@ -668,12 +858,25 @@ def kernels_line(k: dict, serve_res: dict) -> None:
          "replaces": FLASH_TPU,
          "launches": serve_res["launches"]["flash_attention"], "shape": fa["shape"],
          "dtype": "bfloat16", **{x: fa[x] for x in keys},
+         "launches_train": train["flash_attention"],
+         "launches_a_train_step": per_step["flash_attention"],
          "at_prefill": [at(k[("flash_attention", 1, 2048, 32, 128, None, 0, "bfloat16")]),
                         at(k[("flash_attention", 1, 2048, 8, 256, None, 0, "bfloat16")])]},
         {"name": "wkv6", "route": "cuda", "source": WKV_SRC, "replaces": WKV_TPU,
          "launches": serve_res["launches"]["wkv6"], "shape": wkv["shape"],
          "dtype": "float32", **{x: wkv[x] for x in keys},
          "plain_chunked_ms": wkv["plain_chunked_ms"]},
+        {"name": "rmsnorm_bwd", "route": "cuda", "source": RMS_SRC, "replaces": RMS_TPU,
+         "backward_of": "rmsnorm (K1); no TPU counterpart",
+         "launches": train["rmsnorm_bwd"], "launches_a_train_step": per_step["rmsnorm_bwd"],
+         "shape": rms_bwd["shape"], "dtype": "bfloat16", **{x: rms_bwd[x] for x in keys},
+         "at_qk_norm": at(k[("rmsnorm_bwd", 131072, 128, "bfloat16")])},
+        {"name": "flash_attention_bwd", "route": "cuda", "source": FLASH_BWD_SRC,
+         "replaces": FLASH_TPU, "backward_of": "flash_attention (K3); no TPU counterpart",
+         "launches": train["flash_attention_bwd"],
+         "launches_a_train_step": per_step["flash_attention_bwd"],
+         "shape": fa_bwd["shape"], "dtype": "bfloat16", **{x: fa_bwd[x] for x in keys},
+         "at_qwen3_heads": at(k[("flash_attention_bwd", 1, 4096, 32, 128, None, 0, "bfloat16")])},
     ]})
 
 
@@ -863,6 +1066,272 @@ def phase_paging() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 6-8: training
+# ---------------------------------------------------------------------------
+
+
+def kernel_counters() -> dict:
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.fused_rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rwkv_scan import ops as wkv_ops
+
+    return {"rmsnorm": rms_ops.rmsnorm, "rmsnorm_bwd": rms_ops.rmsnorm_bwd,
+            "flash_attention": fa_ops.flash_attention,
+            "flash_attention_bwd": fa_ops.flash_attention_bwd, "wkv6": wkv_ops.wkv6}
+
+
+def zero_counts(counters: dict) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def launches_per_microbatch(cfg) -> dict:
+    """Kernel launches of one loss-and-gradient pass of a dense model with
+    remat: each layer's norms (and qk-norms) and attention run forward
+    twice (the pass and the checkpoint's recompute) and backward once; the
+    final norm, outside the checkpoints, once each way."""
+    norms = cfg.n_layers * (4 if cfg.qk_norm else 2)
+    return {"rmsnorm": 2 * norms + 1, "rmsnorm_bwd": norms + 1,
+            "flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers, "wkv6": 0}
+
+
+def train_model(kernel_mode: str = "kernel", compute_dtype: str = "bfloat16"):
+    """gemma-2b at full width and depth with the runtime tables' options
+    for TRAIN_4K, its run config at a global batch of TRAIN_BATCH, and its
+    AdamW config."""
+    from repro_torch.configs import TRAIN_4K, get_config
+    from repro_torch.models import build_model
+    from repro_torch.train.runtime import (
+        adamw_config_for,
+        model_options_for,
+        train_run_config_for,
+    )
+
+    cfg = get_config(TRAIN_ARCH)
+    shape = replace(TRAIN_4K, global_batch=TRAIN_BATCH)
+    opts = replace(model_options_for(cfg, shape), kernel_mode=kernel_mode,
+                   compute_dtype=compute_dtype)
+    return cfg, shape, build_model(cfg, opts), train_run_config_for(cfg, shape), adamw_config_for(cfg)
+
+
+def phase_train() -> dict:
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core import GB, SalusExecutor, VirtualDevice, get_policy, profile_model
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import make_train_step
+
+    dev = torch.device("cuda")
+    cfg, shape, model, run, ocfg = train_model()
+    params = model.init(torch.Generator(device=dev).manual_seed(15))
+    opt = AdamW(ocfg)
+    opt_state = opt.init(params)
+    pipe = SyntheticLM(cfg.vocab_size, shape.seq_len, shape.global_batch, seed=0)
+    data_fn = lambda i: {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch(i).items()}
+    step = make_train_step(model, opt, run)
+    step_s = []
+
+    def session_step(state, batch):
+        t0 = time.perf_counter()
+        p, o, metrics = step(state[0], state[1], batch)
+        sync()
+        step_s.append(time.perf_counter() - t0)
+        return (p, o), metrics
+
+    param_gb = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(params)) / 2**30
+    sync()
+    t0 = time.perf_counter()
+    prof = profile_model(model, params, data_fn(0), opt, run)
+    profile_s = time.perf_counter() - t0
+    check(int(opt_state["step"]) == 0, "profiling took an optimizer step")
+    ex = SalusExecutor(int(76 * GB), get_policy("fifo"), device=dev)
+    vdev = VirtualDevice(ex)
+    counters = kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    sess = vdev.create_session(f"train:{cfg.name}", session_step, (params, opt_state), data_fn,
+                               n_iters=TRAIN_STEPS, profile=prof, kind="train")
+    report = vdev.run()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    check(not report.failures, f"train failures: {report.failures}")
+    check(sess.finished and len(sess.metrics_log) == TRAIN_STEPS,
+          f"train ran {len(sess.metrics_log)} of {TRAIN_STEPS} steps")
+    metrics = [{k: float(v) for k, v in m.items()} for m in sess.metrics_log]
+    losses = [m["loss"] for m in metrics]
+    check(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
+    check([int(m["step"]) for m in metrics] == list(range(1, TRAIN_STEPS + 1)),
+          f"optimizer steps {[m['step'] for m in metrics]}: profiling took a hidden step")
+    per_step = {k: run.num_microbatches * v for k, v in launches_per_microbatch(cfg).items()}
+    expected = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    check(launches == expected, f"train launches {launches} != expected {expected}")
+    # one more step under the profiler (after the counts were read)
+    batch = data_fn(TRAIN_STEPS)
+    prof_step = profiled(lambda: step(params, opt_state, batch))
+    for name in ("rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_bwd"):
+        check(prof_step["device_ms_by_kind"][name] > 0, f"no {name} device time in the profiled step")
+    res = {
+        "phase": "train",
+        "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": cfg.param_count(), "param_gb": param_gb,
+        "shape": {"seq_len": shape.seq_len, "global_batch": shape.global_batch,
+                  "microbatches": run.num_microbatches, "accum_dtype": run.accum_dtype},
+        "model_options": {"remat": model.opts.remat, "loss_chunk": model.opts.loss_chunk,
+                          "compute_dtype": model.opts.compute_dtype,
+                          "kernel_mode": model.opts.kernel_mode},
+        "adamw": {"lr": ocfg.lr, "warmup_steps": ocfg.warmup_steps, "state_dtype": ocfg.state_dtype},
+        "losses": losses, "metrics": metrics,
+        "step_s": step_s,
+        "tokens_per_s": [shape.seq_len * shape.global_batch / t for t in step_s],
+        "peak_gb": peak_gb,
+        "profile_gb": {"persistent": prof.persistent / 2**30, "ephemeral": prof.ephemeral / 2**30},
+        # params + m + v; the accumulator, one microbatch's gradients and
+        # <= ~5 GiB of transients
+        "reckoned_gb": {"persistent": 3 * param_gb, "ephemeral_at_most": 2 * param_gb + 5},
+        "profile_s": profile_s,
+        "launches": launches, "launches_per_step": per_step,
+        "profiled_step": prof_step,
+    }
+    emit(res)
+    del sess, ex, report, vdev, params, opt_state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_parity() -> dict:
+    """The training model on one (1, 4096) batch: loss and every gradient
+    leaf through the kernels against the plain path, in fp32 (loss within
+    1e-5 relative, each leaf within 1e-4 relative Frobenius) and in bf16
+    (printed beside the plain bf16 path's gap from the plain fp32 path)."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train.train_step import stack_grads, value_and_grad
+
+    dev = torch.device("cuda")
+    cfg, shape, model, _, _ = train_model()
+    params = model.init(torch.Generator(device=dev).manual_seed(15))
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in SyntheticLM(cfg.vocab_size, shape.seq_len, 1, seed=1).batch(0).items()}
+    counters = kernel_counters()
+    per_mb = launches_per_microbatch(cfg)
+
+    def grads(kernel_mode, dtype):
+        _, _, m, _, _ = train_model(kernel_mode, dtype)
+        zero_counts(counters)
+        sync()
+        t0 = time.perf_counter()
+        loss, g = value_and_grad(m, params, batch)
+        g = stack_grads(g)
+        sync()
+        launched = {name: fn.launches for name, fn in counters.items()}
+        want = per_mb if kernel_mode == "kernel" else dict.fromkeys(per_mb, 0)
+        check(launched == want, f"{kernel_mode} {dtype}: launches {launched} != {want}")
+        return float(loss), g, time.perf_counter() - t0
+
+    def leaf_gaps(a, b):
+        """Relative Frobenius gap of each leaf, by its path."""
+        out = {}
+        for (path, x), y in zip(pytree.tree_flatten_with_path(a)[0], pytree.tree_leaves(b)):
+            out[pytree.keystr(path)] = rel_fro(x, y)
+        return out
+
+    l_r32, g_r32, s_r32 = grads("reference", "float32")
+    l_k32, g_k32, s_k32 = grads("kernel", "float32")
+    gap32 = leaf_gaps(g_k32, g_r32)
+    del g_k32
+    worst32 = max(gap32, key=gap32.get)
+    l_k16, g_k16, s_k16 = grads("kernel", "bfloat16")
+    l_r16, g_r16, s_r16 = grads("reference", "bfloat16")
+    gap_k16_r16 = leaf_gaps(g_k16, g_r16)
+    gap_k16_r32 = leaf_gaps(g_k16, g_r32)
+    gap_r16_r32 = leaf_gaps(g_r16, g_r32)
+    finite16 = all(bool(torch.isfinite(t).all().item()) for t in pytree.tree_leaves(g_k16))
+    del g_k16, g_r16, g_r32
+    loss_rel32 = abs(l_k32 - l_r32) / abs(l_r32)
+    res = {
+        "phase": "train_parity", "arch": cfg.name, "batch": [1, shape.seq_len],
+        "fp32": {"loss_kernel": l_k32, "loss_plain": l_r32, "loss_rel": loss_rel32,
+                 "loss_tol": 1e-5, "grad_rel_fro": gap32, "grad_tol": 1e-4,
+                 "worst_leaf": [worst32, gap32[worst32]]},
+        "bf16": {"loss_kernel": l_k16, "loss_plain": l_r16,
+                 "kernel_vs_plain_bf16": gap_k16_r16, "kernel_vs_plain_fp32": gap_k16_r32,
+                 "plain_bf16_vs_plain_fp32": gap_r16_r32, "finite": finite16},
+        "seconds": {"plain_fp32": s_r32, "kernel_fp32": s_k32, "kernel_bf16": s_k16,
+                    "plain_bf16": s_r16},
+    }
+    emit(res)
+    check(loss_rel32 <= 1e-5, f"fp32 loss kernel {l_k32} vs plain {l_r32}")
+    check(gap32[worst32] <= 1e-4, f"fp32 gradient {worst32}: relative gap {gap32[worst32]}")
+    check(finite16 and math.isfinite(l_k16), "bf16 kernel gradients not finite")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_serve_train() -> dict:
+    """Salus's serve regime: a gemma-2b service and a gemma-2b background
+    trainer on one executor under PRIORITY."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    cfg = get_config(TRAIN_ARCH)
+    argv = [
+        "--archs", TRAIN_ARCH, "--no-smoke", "--device", "cuda",
+        "--train-background", TRAIN_ARCH, "--train-iters", "30",
+        "--capacity-gb", "76", "--rps", "4", "--duration", "4", "--requests", "8",
+        "--policy", "priority", "--seed", "0",
+    ]
+    counters = kernel_counters()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    report, ex = serve.serve(serve.build_parser().parse_args(argv))
+    wall_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check(not report.failures, f"serve_train failures: {report.failures}")
+    out = {"phase": "serve_train", "wall_s": wall_s, "launches": launches}
+    expected = dict.fromkeys(counters, 0)
+    for jid, st in report.stats.items():
+        sess = ex.sessions[jid]
+        if sess.job.kind == "inference":
+            check(st.iterations_done == sess.n_iters,
+                  f"{sess.name}: served {st.iterations_done} of {sess.n_iters} requests")
+            per = launches_per_request(cfg)
+            for name, n in per.items():
+                expected[name] += n * (st.iterations_done + 1)  # + the profiling step
+            out["service"] = {"name": sess.name, "requests": st.iterations_done,
+                              "attempted": sess.n_iters,
+                              "latency_ms": [x * 1e3 for x in st.request_latencies],
+                              "p50_ms": st.p50_latency * 1e3, "p99_ms": st.p99_latency * 1e3,
+                              "profile_gb": {"persistent": sess.job.profile.persistent / 2**30,
+                                             "ephemeral": sess.job.profile.ephemeral / 2**30}}
+        else:
+            losses = [float(m["loss"]) for m in sess.metrics_log]
+            check(st.iterations_done > 0, "the background trainer took no iteration")
+            check(all(math.isfinite(x) for x in losses), f"trainer losses {losses}")
+            for name, n in launches_per_microbatch(cfg).items():
+                expected[name] += n * (st.iterations_done + 1)  # + the profiling step
+            out["trainer"] = {"name": sess.name, "iterations": st.iterations_done,
+                              "preemptions": st.preemptions, "losses": losses,
+                              "iteration_s": [r.end - r.start for r in report.records
+                                              if r.job_id == jid],
+                              "profile_gb": {"persistent": sess.job.profile.persistent / 2**30,
+                                             "ephemeral": sess.job.profile.ephemeral / 2**30}}
+    out["expected_launches"] = expected
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    emit(out)
+    check({"service", "trainer"} <= set(out), "serve_train lacks the service or the trainer")
+    check(launches == expected, f"serve_train launches {launches} != expected {expected}")
+    del report, ex, sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -880,10 +1349,13 @@ def main() -> int:
     phase_env()
     k = phase_kernels()
     serve_res = phase_serve()
-    kernels_line(k, serve_res)
     for arch in ("qwen3-8b", "rwkv6-7b"):
         phase_parity(arch)
     phase_paging()
+    train_res = phase_train()
+    phase_train_parity()
+    phase_serve_train()
+    kernels_line(k, serve_res, train_res)
     emit({"phase": "done", "wall_s": time.perf_counter() - t0})
     emit({"ok": True, "device": {
         "platform": "gpu",

@@ -3,13 +3,14 @@
 Holds the configs the port runs so far, copied from the JAX package's
 ``configs/gemma_2b.py``, ``configs/qwen3_8b.py`` and
 ``configs/rwkv6_7b.py``. Any other arch of the JAX registry raises
-``KeyError`` until it is ported.
+``KeyError`` until it is ported. The workload shapes (``SHAPES``,
+``TRAIN_4K``) are copies of ``configs/base.py``'s.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import SHAPES, TRAIN_4K, ArchConfig, ShapeConfig
 
 # gemma-2b — dense, GeGLU, MQA (kv=1), head_dim=256 [arXiv:2403.08295].
 # Tied embeddings scaled by sqrt(d_model).
@@ -76,4 +77,7 @@ def get_config(name: str) -> ArchConfig:
     return ARCHS[name]
 
 
-__all__ = ["ArchConfig", "ARCHS", "GEMMA_2B", "QWEN3_8B", "RWKV6_7B", "get_config"]
+__all__ = [
+    "ArchConfig", "ARCHS", "GEMMA_2B", "QWEN3_8B", "RWKV6_7B", "SHAPES", "ShapeConfig",
+    "TRAIN_4K", "get_config",
+]

@@ -1,12 +1,40 @@
-"""Architecture configuration (copy of the JAX package's ``ArchConfig``).
+"""Architecture and shape configuration (copies of the JAX package's
+``ArchConfig`` and ``ShapeConfig``).
 
 Every architecture is an :class:`ArchConfig`; the reduced smoke variants
 used by CPU tests are derived with :meth:`ArchConfig.smoke` so they stay
-structurally faithful to the full config.
+structurally faithful to the full config. A :class:`ShapeConfig` is one
+workload shape (train / prefill / decode) with its sequence length and
+global batch.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Dict
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def tokens_per_step(self) -> int:
+        if self.kind == "decode":
+            return self.global_batch  # one new token per sequence
+        return self.seq_len * self.global_batch
+
+
+TRAIN_4K = ShapeConfig("train_4k", "train", 4096, 256)
+PREFILL_32K = ShapeConfig("prefill_32k", "prefill", 32768, 32)
+DECODE_32K = ShapeConfig("decode_32k", "decode", 32768, 128)
+LONG_500K = ShapeConfig("long_500k", "decode", 524288, 1)
+
+SHAPES: Dict[str, ShapeConfig] = {
+    s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+}
 
 
 @dataclass(frozen=True)

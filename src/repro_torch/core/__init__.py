@@ -14,7 +14,7 @@ from repro_torch.core.engine import DecisionLog, ResultSurface, busy_seconds
 from repro_torch.core.executor import ExecutorReport, SalusExecutor
 from repro_torch.core.lanes import Lane, LaneRegistry, SafetyViolation
 from repro_torch.core.memory import MemoryConfig, MemoryManager
-from repro_torch.core.profiles import profile_step, tensor_bytes
+from repro_torch.core.profiles import profile_model, profile_step, tensor_bytes
 from repro_torch.core.scheduler import FAIR, FIFO, PACK, PRIORITY, SRTF, Policy, get_policy
 from repro_torch.core.session import Session
 from repro_torch.core.types import (
@@ -37,6 +37,7 @@ __all__ = [
     "ExecutorReport",
     "VirtualDevice",
     "Session",
+    "profile_model",
     "profile_step",
     "tensor_bytes",
     "MemoryConfig",

@@ -7,7 +7,10 @@ adaptor presents Salus as a virtual device.
 
 PyTorch runs eagerly, so there is nothing to compile: a memory profile
 that is not supplied is measured by running one step on the executor's
-device (``profiles.profile_step``).
+device (``profiles.profile_step``) and discarding its output. That is
+right for a step that returns new state; a step that updates its state in
+place (the AdamW train step) would take a hidden step there, so its
+caller passes a profile from ``profiles.profile_model``.
 """
 from __future__ import annotations
 

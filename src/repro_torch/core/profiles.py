@@ -1,6 +1,14 @@
-"""Measured Salus memory profiles of a live step (the counterpart of the
-JAX package's ``profile_executable``, which reads an XLA executable's
-memory analysis; PyTorch runs eagerly, so the port runs one step)."""
+"""Measured Salus memory profiles (the counterparts of the JAX package's
+``profile_executable`` and ``profile_model``, which read an XLA
+executable's memory analysis; PyTorch runs eagerly, so the port runs the
+work once and reads the caching allocator's peak).
+
+``profile_step`` runs a step and discards its output: right for a step
+that returns new state and leaves its input alone (a service's handle, a
+functional trainer). A step that updates its state in place would take a
+hidden step there, so a training session's profile comes from
+``profile_model``, which runs one loss-and-gradient pass and writes to no
+parameter or optimizer state."""
 from __future__ import annotations
 
 from typing import Any, Callable
@@ -56,4 +64,53 @@ def profile_step(
             for t in pytree.tree_leaves(out)
             if isinstance(t, torch.Tensor) and t.data_ptr() not in held
         )
+    return MemoryProfile(persistent=persistent, ephemeral=max(int(ephemeral), 1))
+
+
+def profile_model(
+    model: Any, params: Any, batch: Any, opt: Any = None, run: Any = None
+) -> MemoryProfile:
+    """The Salus profile of training ``model`` (or, with ``opt=None``, of
+    evaluating its loss), measured without touching ``params`` or any
+    optimizer state:
+
+    * persistent <- bytes of ``params``, plus ``opt.state_bytes(params)``
+      (m, v and the step, reckoned, not allocated) when ``opt`` is given;
+    * ephemeral  <- on CUDA, the allocator's peak over one pass of the
+      train step's loss and gradients (``make_grad_fn(model, run)``,
+      microbatches and accumulator included), less what was allocated
+      before, plus ``opt.update_temp_bytes(params)``; with ``opt=None``,
+      the peak over the loss alone under ``torch.no_grad``. On the CPU,
+      which has no allocator peak, the bytes of the gradients it returns
+      plus the update's temporaries (a lower bound).
+
+    The gradients are dropped; nothing is updated."""
+    from repro_torch.train.train_step import make_grad_fn
+
+    device = pytree.tree_leaves(params)[0].device
+    persistent = tensor_bytes(params)
+    if opt is not None:
+        persistent += opt.state_bytes(params)
+    grad_fn = make_grad_fn(model, run) if opt is not None else None
+
+    def once():
+        if grad_fn is None:
+            with torch.no_grad():
+                return model.loss(params, batch)
+        return grad_fn(params, batch)
+
+    if device.type == "cuda":
+        synchronize(device)
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        out = once()
+        synchronize(device)
+        ephemeral = torch.cuda.max_memory_allocated(device) - base
+        del out
+    else:
+        out = once()
+        ephemeral = tensor_bytes(out)
+        del out
+    if opt is not None:
+        ephemeral += opt.update_temp_bytes(params)
     return MemoryProfile(persistent=persistent, ephemeral=max(int(ephemeral), 1))

@@ -42,6 +42,10 @@
 //   patch of the score tile and a 4 x (d/16) patch of the output. For
 //   d = 256 that is ~146 KB of dynamic shared memory.
 //
+// Both routes can also write each row's log-sum-exp of the scaled scores
+// (fp32 (b, hq, sq), natural units, -inf for a row with no valid key): the
+// input of the backward kernels in flash_attention_bwd.cu.
+//
 // Layout: q (b, sq, hq, d), k/v (b, sk, hkv, d) as the model holds them,
 // read through their batch/sequence/head strides with the last dimension
 // contiguous, so no transpose or copy is needed. The output is written
@@ -114,7 +118,8 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int k0,
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int sq, int sk,
                  int hq, int hkv, int64_t q_sb, int64_t q_ss, int64_t q_sh,
                  int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
                  int64_t v_ss, int64_t v_sh, float scale, int causal,
@@ -266,6 +271,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();  // sL final before every thread reads it
 
+  // log-sum-exp of the scaled scores, natural units, for the backward;
+  // -inf for a row with no valid key
+  if (lse != nullptr && tid < kBQ && q0 + tid < sq)
+    lse[(static_cast<int64_t>(b) * hq + h) * sq + q0 + tid] =
+        sM[tid] > kNegInf / 2 ? sM[tid] + logf(sL[tid]) : -INFINITY;
+
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
@@ -300,9 +311,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
-                       __nv_bfloat16* __restrict__ o, int sq, int sk, int hq,
-                       int hkv, float scale_log2, int causal, int window,
-                       int q_offset) {
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                       int sq, int sk, int hq, int hkv, float scale_log2,
+                       int causal, int window, int q_offset) {
   constexpr int NC = D / 64;  // 64-wide column chunks of d (one box each)
   constexpr uint32_t kTileBytes = NC * kBoxBytes;
   extern __shared__ uint8_t smem_raw[];
@@ -497,6 +508,11 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = l > 0.f ? 1.f / l : 0.f;  // a fully-masked row gives 0
     const int qr = q0 + r_lo + 8 * hr;
+    // log-sum-exp in natural units for the backward (m_run is in log2
+    // units); -inf for a row with no valid key
+    if (lse != nullptr && (lane & 3) == 0 && qr < sq)
+      lse[(static_cast<int64_t>(b) * hq + h) * sq + qr] =
+          l > 0.f ? (m_run[hr] + log2f(l)) * 0.6931471805599453f : -INFINITY;
     if (qr < sq) {
       __nv_bfloat16* orow = ob + qr * row_stride;
 #pragma unroll
@@ -575,7 +591,8 @@ CUresult encode_bf16_map(CUtensorMap* map, const void* base,
 
 // Returns a cudaError_t, or minus a CUresult if a tensor map fails to encode.
 template <int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b, int sq,
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                 int b, int sq,
                  int sk, int hq, int hkv, const unsigned long long* geom,
                  float scale, int causal, int window, int q_offset, int device,
                  cudaStream_t stream) {
@@ -591,13 +608,14 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b, in
   }
   const dim3 grid(hq, b, (sq + kTile - 1) / kTile);
   flash_fwd_kernel_wgmma<D><<<grid, kWgThreads, smem, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), sq, sk, hq, hkv,
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), lse, sq, sk, hq, hkv,
       scale * 1.4426950408889634f, causal, window, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
-int launch_simt(const void* q, const void* k, const void* v, void* o, int b, int sq,
+int launch_simt(const void* q, const void* k, const void* v, void* o, float* lse,
+                int b, int sq,
                 int sk, int hq, int hkv, const long long* qs, const long long* ks,
                 const long long* vs, float scale, int causal, int window,
                 int q_offset, int device, cudaStream_t stream) {
@@ -608,21 +626,22 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int b, int
   dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, hq, hkv, qs[0],
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, hq, hkv, qs[0],
       qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale, causal,
       window, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch_simt(int d, const void* q, const void* k, const void* v, void* o, int b,
-                  int sq, int sk, int hq, int hkv, const long long* qs,
-                  const long long* ks, const long long* vs, float scale, int causal,
-                  int window, int q_offset, int device, cudaStream_t stream) {
-#define REPRO_FLASH_CASE(DIM)                                                   \
-  case DIM:                                                                     \
-    return launch_simt<T, DIM>(q, k, v, o, b, sq, sk, hq, hkv, qs, ks, vs, scale, \
-                               causal, window, q_offset, device, stream);
+int dispatch_simt(int d, const void* q, const void* k, const void* v, void* o,
+                  float* lse, int b, int sq, int sk, int hq, int hkv,
+                  const long long* qs, const long long* ks, const long long* vs,
+                  float scale, int causal, int window, int q_offset, int device,
+                  cudaStream_t stream) {
+#define REPRO_FLASH_CASE(DIM)                                                  \
+  case DIM:                                                                    \
+    return launch_simt<T, DIM>(q, k, v, o, lse, b, sq, sk, hq, hkv, qs, ks, vs, \
+                               scale, causal, window, q_offset, device, stream);
   switch (d) {
     REPRO_FLASH_CASE(16)
     REPRO_FLASH_CASE(32)
@@ -643,14 +662,16 @@ int dispatch_simt(int d, const void* q, const void* k, const void* v, void* o, i
 // takes the tensor-core kernel, which needs `tma` (3 x 11 values: q's, k's
 // and v's tensor-map dims, byte strides and box); everything else takes
 // the SIMT kernel, which reads the strides and ignores `tma`.
-// Returns a cudaError_t (0 = ok), or minus a CUresult if a tensor map
-// fails to encode.
+// `lse` (or null): fp32 (b, hq, sq), each row's log-sum-exp of the scaled
+// scores in natural units, -inf where no key is valid (the backward's
+// input). Returns a cudaError_t (0 = ok), or minus a CUresult if a tensor
+// map fails to encode.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int b, int sq, int sk,
     int hq, int hkv, int d, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, float scale, int causal, int window,
-    int q_offset, int dtype, const unsigned long long* tma, int device,
+    int q_offset, int dtype, const unsigned long long* tma, float* lse, int device,
     void* stream) {
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
@@ -663,13 +684,13 @@ extern "C" int flash_attention_fwd(
     if (tma == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     switch (d) {
       case 64:
-        return launch_wgmma<64>(q, k, v, o, b, sq, sk, hq, hkv, tma, scale, causal,
+        return launch_wgmma<64>(q, k, v, o, lse, b, sq, sk, hq, hkv, tma, scale, causal,
                                 window, q_offset, device, s);
       case 128:
-        return launch_wgmma<128>(q, k, v, o, b, sq, sk, hq, hkv, tma, scale, causal,
+        return launch_wgmma<128>(q, k, v, o, lse, b, sq, sk, hq, hkv, tma, scale, causal,
                                  window, q_offset, device, s);
       default:
-        return launch_wgmma<256>(q, k, v, o, b, sq, sk, hq, hkv, tma, scale, causal,
+        return launch_wgmma<256>(q, k, v, o, lse, b, sq, sk, hq, hkv, tma, scale, causal,
                                  window, q_offset, device, s);
     }
   }
@@ -677,10 +698,10 @@ extern "C" int flash_attention_fwd(
   const long long ks[3] = {k_sb, k_ss, k_sh};
   const long long vs[3] = {v_sb, v_ss, v_sh};
   if (dtype == 0)
-    return dispatch_simt<float>(d, q, k, v, o, b, sq, sk, hq, hkv, qs, ks, vs, scale,
+    return dispatch_simt<float>(d, q, k, v, o, lse, b, sq, sk, hq, hkv, qs, ks, vs, scale,
                                 causal, window, q_offset, device, s);
   if (dtype == 1)
-    return dispatch_simt<__nv_bfloat16>(d, q, k, v, o, b, sq, sk, hq, hkv, qs, ks, vs,
+    return dispatch_simt<__nv_bfloat16>(d, q, k, v, o, lse, b, sq, sk, hq, hkv, qs, ks, vs,
                                         scale, causal, window, q_offset, device, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -110,14 +110,29 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, p,  # device, stream
     ]
     lib.rmsnorm_fwd.restype = i
+    lib.rmsnorm_bwd.argtypes = [
+        p, p, p, p, p, p, ll, i, f,  # g, x, scale, dx, dscale, partials, rows, d, eps
+        i, i,  # x and scale dtypes
+        i, i, i, i,  # elements a vector, threads a row, vectors a thread, blocks
+        i, p,  # device, stream
+    ]
+    lib.rmsnorm_bwd.restype = i
     lib.flash_attention_fwd.argtypes = [
         p, p, p, p,  # q, k, v, o
         i, i, i, i, i, i,  # b, sq, sk, hq, hkv, d
         ll, ll, ll, ll, ll, ll, ll, ll, ll,  # q/k/v (batch, seq, head) strides
         f, i, i, i,  # scale, causal, window, q_offset
-        i, p, i, p,  # dtype, tensor-map geometry (or null), device, stream
+        i, p, p, i, p,  # dtype, tensor-map geometry (or null), lse (or null), device, stream
     ]
     lib.flash_attention_fwd.restype = i
+    lib.flash_attention_bwd.argtypes = [
+        p, p, p, p, p, p, p,  # q, k, v, o, dO, lse, D (scratch)
+        p, p, p,  # dq, dk, dv
+        i, i, i, i, i, i,  # b, sq, sk, hq, hkv, d
+        f, i, i, i,  # scale, causal, window, q_offset
+        i, i, p,  # dtype, device, stream
+    ]
+    lib.flash_attention_bwd.restype = i
     lib.wkv6_fwd.argtypes = [
         p, p, p, p, p, p, p, p,  # r, k, v, w, u, s0 (or null), o, state
         i, i, i, i, i, i,  # b, s, h, dk, dv, chunk

@@ -25,20 +25,26 @@ output is a new contiguous ``(b, s_q, hq, d)`` tensor.
 lengths must divide them, else ``ValueError`` — on both paths. The CUDA
 kernels tile by 64 x 64 internally whatever they are.
 
-``flash_attention.launches`` counts kernel launches (never plain-version
-calls).
+Under autograd (grad enabled and q, k or v requiring grad) a CUDA call
+goes through ``FlashAttentionFunction``: the forward kernel also writes
+each row's log-sum-exp, and the backward is the hand-written kernel
+``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``), which is also
+public, with the plain ``ref.attention_bwd_ref`` on the CPU.
+
+``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
+kernel launches (never plain-version calls).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 WGMMA_HEAD_DIMS = (64, 128, 256)
@@ -154,10 +160,22 @@ def flash_attention(
         raise ValueError(f"head_dim {d} not supported; kernel takes {HEAD_DIMS}")
     if k.shape[0] != b or v.shape[:3] != k.shape[:3] or hq % hkv:
         raise ValueError("k/v must be (b, s_k, hkv, d) with hq divisible by hkv")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, causal, window, q_offset)
+    return _forward(q, k, v, causal, window, q_offset, want_lse=False)[0]
+
+
+def _forward(q, k, v, causal, window, q_offset, want_lse):
+    """Launch the forward kernel on checked CUDA tensors; returns ``(out,
+    lse or None)``."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    device = q.device
     tma = _tma_args(q, k, v) if route(q.dtype, d) == "wgmma" else None
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=device) if want_lse else None
     if out.numel() == 0:
-        return out
+        return out, lse
     qs, ks, vs = q.stride(), k.stride(), v.stride()
     err = _build.library().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -169,12 +187,90 @@ def flash_attention(
         int(q_offset),
         _build.DTYPE_CODES[q.dtype],
         tma,
+        None if lse is None else lse.data_ptr(),
         device.index,
         _build.current_stream(device.index),
     )
     _build.check(err, "flash_attention_fwd")
     flash_attention.launches += 1
-    return out
+    return out, lse
 
 
 flash_attention.launches = 0
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The forward kernel with its backward kernel. Saves ``(q, k, v, out,
+    lse)``; the backward reads the stream current on its own thread."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        out, lse = _forward(q, k, v, causal, window, q_offset, want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, q_offset = ctx.mask
+        dq, dk, dv = flash_attention_bwd(
+            dout, q, k, v, out, lse, causal=causal, window=window, q_offset=q_offset
+        )
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_bwd(
+    dout: torch.Tensor,  # (b, s_q, hq, d)
+    q: torch.Tensor,
+    k: torch.Tensor,  # (b, s_k, hkv, d)
+    v: torch.Tensor,
+    out: torch.Tensor,  # the forward's output
+    lse: torch.Tensor,  # (b, hq, s_q) fp32, the forward's log-sum-exp
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` in the inputs' dtype. A CPU tensor takes
+    ``ref.attention_bwd_ref``; a CUDA tensor launches the backward kernel
+    (three launches: D = rowsum(dO O), dK/dV, dQ) on contiguous copies of
+    any strided input."""
+    device = q.device
+    if device.type == "cpu":
+        return attention_bwd_ref(
+            dout, q, k, v, out, lse, causal=causal, window=window, q_offset=q_offset
+        )
+    if device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device {device}")
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
+    for name, t, shape in (("k", k, (b, sk, hkv, d)), ("v", v, (b, sk, hkv, d)),
+                           ("out", out, (b, sq, hq, d)), ("dout", dout, (b, sq, hq, d))):
+        if t.device != device or t.dtype != q.dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {q.dtype} {shape} on {device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if q.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"dtype {q.dtype} not supported (float32, bfloat16)")
+    if d not in HEAD_DIMS or hq % hkv:
+        raise ValueError(f"head_dim {d} (kernel takes {HEAD_DIMS}) or heads {hq}/{hkv}")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, sq) or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous float32 ({b}, {hq}, {sq})")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    dvec = torch.empty((b, hq, sq), dtype=torch.float32, device=device)
+    err = _build.library().flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, sq, sk, hq, hkv, d, 1.0 / math.sqrt(d), int(causal), int(window or 0),
+        int(q_offset), _build.DTYPE_CODES[q.dtype], device.index,
+        _build.current_stream(device.index),
+    )
+    _build.check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -7,18 +7,26 @@ The kernel's launch shape — elements a vector, threads a row, vectors a
 thread — is chosen here (``launch_shape``), from d, the element size and
 the pointers' alignment, never on failure.
 
-``rmsnorm.launches`` counts kernel launches (never plain-version calls),
-so a run can show that its path went through the kernel.
+Under autograd (grad enabled and an input that requires grad) a CUDA
+call goes through ``RMSNormFunction``, whose backward is the hand-written
+kernel ``rmsnorm_bwd`` (``csrc/rmsnorm.cu``); ``rmsnorm_bwd`` is also
+public, with the plain ``ref.rmsnorm_bwd_ref`` on the CPU. The residual
+form (K2) has no backward kernel yet and raises under autograd on CUDA
+rather than cut the gradient.
+
+``rmsnorm.launches`` and ``rmsnorm_bwd.launches`` count kernel launches
+(never plain-version calls), so a run can show that its path went through
+the kernels.
 """
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fused_rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.fused_rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 BLOCK = 256  # threads a block (csrc/rmsnorm.cu kBlock)
 VECTOR_BYTES = 16
@@ -49,6 +57,32 @@ def launch_shape(d: int, element_size: int, aligned: bool = True) -> LaunchShape
     return LaunchShape(vec, tpr, vpt, BLOCK // tpr)
 
 
+BWD_REGISTER_VALUES = 32  # csrc/rmsnorm.cu kBwdRegisterValues
+
+
+def bwd_launch_shape(d: int, element_size: int, aligned: bool = True) -> LaunchShape:
+    """The backward kernel's launch shape: the forward's, except that a row
+    whose thread would hold more than 32 values of each of x, g, the scale
+    and its sums (rows of 16k elements or more) takes the looping form,
+    which reads the row twice, rather than spill registers."""
+    shape = launch_shape(d, element_size, aligned)
+    if shape.vectors_per_thread * shape.vec > BWD_REGISTER_VALUES:
+        shape = shape._replace(vectors_per_thread=0)
+    return shape
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def bwd_blocks(rows: int, rows_per_block: int, sm_count: int) -> int:
+    """Blocks of the backward kernel: one a row group, at most two an SM
+    (each writes ``rows_per_block`` partial rows of the scale's gradient,
+    which a second kernel sums)."""
+    return max(1, min(-(-rows // rows_per_block), 2 * sm_count))
+
+
 def _check(t: torch.Tensor, name: str, device: torch.device) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -70,6 +104,20 @@ def rmsnorm(
         return rmsnorm_ref(x, scale, residual, eps)
     if device.type != "cuda":
         raise ValueError(f"rmsnorm: unsupported device {device}")
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, scale, residual)
+    ):
+        if residual is not None:
+            raise NotImplementedError(
+                "rmsnorm: the residual form has no backward kernel yet; "
+                "call it without autograd"
+            )
+        return RMSNormFunction.apply(x, scale, eps)
+    return _forward(x, scale, residual, eps)
+
+
+def _forward(x, scale, residual, eps):
+    device = x.device
     d = x.shape[-1]
     _check(x, "x", device)
     _check(scale, "scale", device)
@@ -108,3 +156,70 @@ def rmsnorm(
 
 
 rmsnorm.launches = 0
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """The no-residual RMSNorm kernel with its backward kernel. Saves x and
+    the scale; the backward reads the stream current on its own thread."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _forward(x, scale, None, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd(g, x, scale, eps=ctx.eps)
+        return dx, dscale, None
+
+
+def rmsnorm_bwd(
+    g: torch.Tensor,  # (..., d), the output's gradient
+    x: torch.Tensor,  # (..., d)
+    scale: torch.Tensor,  # (d,)
+    *,
+    eps: float = 1e-6,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dx, dscale)`` of the no-residual RMSNorm: dx in x's dtype, dscale
+    in the scale's. A CPU tensor takes ``ref.rmsnorm_bwd_ref``; a CUDA
+    tensor launches the backward kernel (``g`` is made contiguous)."""
+    device = x.device
+    if device.type == "cpu":
+        return rmsnorm_bwd_ref(g, x, scale, eps)
+    if device.type != "cuda":
+        raise ValueError(f"rmsnorm_bwd: unsupported device {device}")
+    d = x.shape[-1]
+    g = g.contiguous()
+    _check(x, "x", device)
+    _check(scale, "scale", device)
+    _check(g, "g", device)
+    if g.shape != x.shape or g.dtype != x.dtype:
+        raise ValueError("g must match x in shape and dtype")
+    if scale.shape != (d,):
+        raise ValueError(f"scale shape {tuple(scale.shape)} != ({d},)")
+    dx = torch.empty_like(x)
+    dscale = torch.empty_like(scale)
+    rows = x.numel() // d
+    if rows == 0:
+        return dx, dscale.zero_()
+    aligned = all(t.data_ptr() % VECTOR_BYTES == 0 for t in (g, x, scale, dx))
+    shape = bwd_launch_shape(d, x.element_size(), aligned)
+    blocks = bwd_blocks(rows, shape.rows_per_block, _sm_count(device.index))
+    partials = torch.empty(
+        (blocks * shape.rows_per_block, d), dtype=torch.float32, device=device
+    )
+    err = _build.library().rmsnorm_bwd(
+        g.data_ptr(), x.data_ptr(), scale.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+        partials.data_ptr(), rows, d, float(eps),
+        _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[scale.dtype],
+        shape.vec, shape.threads_per_row, shape.vectors_per_thread, blocks,
+        device.index, _build.current_stream(device.index),
+    )
+    _build.check(err, "rmsnorm_bwd")
+    rmsnorm_bwd.launches += 1
+    return dx, dscale
+
+
+rmsnorm_bwd.launches = 0

@@ -21,6 +21,11 @@ are one 3xTF32 tensor-core product through a reference point, the
 diagonal blocks pair by pair (``csrc/wkv6.cu``; ``ref.wkv6_subchunk_ref``
 rehearses its arithmetic on the CPU).
 
+There is no WKV6 backward kernel yet: on CUDA tensors under autograd
+(grad enabled and an input that requires grad) ``wkv6`` raises
+``NotImplementedError`` rather than return an output that cuts the
+gradient. CPU tensors keep the plain version, with autograd through it.
+
 ``wkv6.launches`` counts kernel launches (never plain-version calls).
 """
 from __future__ import annotations
@@ -78,6 +83,13 @@ def _wkv6(r, k, v, w, u, chunk, s0, ragged, column_tile):
         return wkv6_ref(r, k, v, w, u, s0)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: unsupported device {r.device}")
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (r, k, v, w, u, s0)
+    ):
+        raise NotImplementedError(
+            "wkv6: the WKV6 kernel has no backward yet (rwkv training waits for "
+            "it); call it under torch.no_grad() or with inputs that need no grad"
+        )
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: last dimension must be contiguous")

@@ -12,7 +12,7 @@ wrapper (the CUDA kernel for CUDA tensors, the plain version on the CPU),
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -139,3 +139,25 @@ def mlp_apply(params: Params, x: torch.Tensor, act: str = "silu") -> torch.Tenso
     else:
         raise ValueError(f"unknown activation {act}")
     return (gate * up) @ params["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Softmax cross entropy (fp32, stable)
+# ---------------------------------------------------------------------------
+
+
+def softmax_cross_entropy(
+    logits: torch.Tensor,  # (..., vocab)
+    labels: torch.Tensor,  # (...)
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Mean negative log-likelihood in fp32; with a mask, the masked sum
+    over the mask's sum (at least 1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

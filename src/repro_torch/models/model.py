@@ -1,7 +1,8 @@
 """Model: ``build_model(cfg)`` -> a :class:`Model` with init / apply /
-prefill for the dense decoder and the rwkv (``ssm``) families (the JAX
-package's ``models/model.py``, forward only: training, decode and the
-other families come in later slices).
+loss / prefill for the dense decoder and the rwkv (``ssm``) families (the
+JAX package's ``models/model.py``; decode and the other families come in
+later slices). ``loss`` is the causal LM loss with a seq-chunked head that
+never materializes the full logits.
 """
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, rwkv, transformer
@@ -30,6 +32,9 @@ class ModelOptions:
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
     wkv_chunk: int = 64  # rwkv: time steps per WKV chunk
+    remat: bool = True  # checkpoint each layer when a gradient is taken
+    loss_chunk: int = 512  # sequence positions a chunk of the loss head
+    aux_coeff: float = 0.01
 
 
 class Model:
@@ -85,7 +90,7 @@ class Model:
         return transformer.stack_apply(
             params["layers"], self.cfg, x, positions,
             compute_dtype=self._compute_dtype(), kernel_mode=self.opts.kernel_mode,
-            wkv_chunk=self.opts.wkv_chunk, on_cache=on_cache,
+            wkv_chunk=self.opts.wkv_chunk, on_cache=on_cache, remat=self.opts.remat,
         )
 
     def apply(self, params: Params, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -96,6 +101,34 @@ class Model:
         table = self._head_table(params).to(self._compute_dtype())
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x @ table.T, aux
+
+    def loss(self, params: Params, batch: Dict) -> torch.Tensor:
+        """Causal LM loss, fp32: the mean over ``(b, s)`` of ``logsumexp -
+        gold logit``, plus ``aux_coeff`` times the aux loss (0 here). The
+        head runs over sequence chunks of ``min(loss_chunk, s)`` positions
+        (``s`` when that does not divide it); each chunk's logits are the
+        compute-dtype product cast to fp32, and under a gradient each chunk
+        is checkpointed, so no more than one chunk's logits are live."""
+        x = self._trunk(params, batch)
+        x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps, kernel_mode=self.opts.kernel_mode)
+        labels = batch["labels"]
+        table = self._head_table(params).to(self._compute_dtype())
+        b, s, _ = x.shape
+        chunk = min(self.opts.loss_chunk, s)
+        if s % chunk:
+            chunk = s
+        grad = torch.is_grad_enabled() and (x.requires_grad or table.requires_grad)
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(0, s, chunk):
+            xc, lc = x[:, i : i + chunk], labels[:, i : i + chunk]
+            if grad:
+                total = total + checkpoint(
+                    _chunk_nll, xc, lc, table, use_reentrant=False, preserve_rng_state=False
+                )
+            else:
+                total = total + _chunk_nll(xc, lc, table)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return total / (b * s) + self.opts.aux_coeff * aux
 
     # ------------------------------------------------------------------
     # Serving: prefill
@@ -160,6 +193,15 @@ class Model:
             cache["v"][i, :, :n] = v
 
         return self._trunk(params, batch, on_cache=keep_kv), cache
+
+
+def _chunk_nll(x: torch.Tensor, labels: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Summed negative log-likelihood of one chunk: ``(b, c, d) @ tableᵀ``
+    in the compute dtype, then fp32."""
+    logits = (x @ table.T).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (logz - gold).sum()
 
 
 def build_model(cfg: ArchConfig, opts: Optional[ModelOptions] = None) -> Model:

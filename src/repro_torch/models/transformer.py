@@ -1,11 +1,19 @@
-"""Decoder blocks and the layer stack (forward only), for the dense and
-the rwkv (``family == "ssm"``) families.
+"""Decoder blocks and the layer stack, for the dense and the rwkv
+(``family == "ssm"``) families.
 
 Layer params are a dict whose leaves carry a leading ``n_layers`` axis,
 as in the JAX package's ``models/transformer.py``; ``stack_apply`` is a
 Python loop over that axis in place of ``lax.scan``. Each layer's leaves
 are cast to the compute dtype inside the loop, one layer at a time, so a
-request never holds a second, cast copy of the whole stack.
+request never holds a second, cast copy of the whole stack. A leaf may
+also be a sequence of per-layer tensors: the train step passes per-layer
+views of the stacked leaves, so that each layer's gradient comes out on
+its own.
+
+With ``remat`` and a gradient to take, each layer runs under
+``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` with
+``nothing_saveable``): only its input is kept, and the backward recomputes
+the layer, its cast to the compute dtype included.
 
 Every block also hands back its layer's cache entries, which
 ``stack_apply`` passes to an optional sink: ``k``/``v`` (rotated keys and
@@ -17,6 +25,9 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+
+from torch.utils import _pytree as pytree
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, rwkv
@@ -83,14 +94,31 @@ def block_apply(
 def stack_apply(
     layers: Params, cfg: ArchConfig, x: torch.Tensor, positions: Optional[torch.Tensor], *,
     compute_dtype: torch.dtype, kernel_mode: str = "kernel", wkv_chunk: int = 64,
-    on_cache: Optional[CacheSink] = None,
+    on_cache: Optional[CacheSink] = None, remat: bool = False,
 ) -> torch.Tensor:
-    """Run all layers in order."""
+    """Run all layers in order. ``remat`` checkpoints each layer when a
+    gradient is to be taken (grad enabled, and ``x`` or a layer leaf
+    requires grad) and no cache sink is given; otherwise it changes
+    nothing."""
+    kw = dict(kernel_mode=kernel_mode, wkv_chunk=wkv_chunk)
+    if remat and on_cache is None and _needs_grad(layers, x):
+        for i in range(cfg.n_layers):
+
+            def layer(h, i=i):
+                return block_apply(layer_slice(layers, i, compute_dtype), cfg, h, positions, **kw)[0]
+
+            # the blocks draw no random numbers: no RNG state to keep
+            x = checkpoint(layer, x, use_reentrant=False, preserve_rng_state=False)
+        return x
     for i in range(cfg.n_layers):
         p = layer_slice(layers, i, compute_dtype)
-        x, entries = block_apply(
-            p, cfg, x, positions, kernel_mode=kernel_mode, wkv_chunk=wkv_chunk
-        )
+        x, entries = block_apply(p, cfg, x, positions, **kw)
         if on_cache is not None:
             on_cache(i, entries)
     return x
+
+
+def _needs_grad(layers: Params, x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in pytree.tree_leaves((layers, x))
+    )

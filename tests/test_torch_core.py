@@ -5,6 +5,8 @@ port sessions), with paging off and on. Plus an exact pager round trip
 and failure isolation (tests/test_serving.py)."""
 import time
 
+import numpy as np
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -202,3 +204,97 @@ def test_failure_in_data_fn_also_isolated():
 def test_executor_requires_a_device():
     with pytest.raises(TypeError):
         SalusExecutor(GB, get_policy("fifo"))
+
+
+# ---------------------------------------------------------------------------
+# two real training sessions sharing one device (ROADMAP queue A item 7)
+# ---------------------------------------------------------------------------
+
+
+def _trainer_pair(engine):
+    """Two gemma-2b-smoke AdamW trainers, "A" and "B" (params from JAX
+    seeds 1 and 2, SyntheticLM seeds 3 and 4), fp32 compute, as (name,
+    step, state, data_fn) on the JAX package (``engine="jax"``) or the
+    port."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as jax_get_config
+    from repro.data.pipeline import SyntheticLM as JaxSyntheticLM
+    from repro.models import ModelOptions as JaxModelOptions
+    from repro.models import build_model as jax_build_model
+    from repro.train.optimizer import AdamW as JaxAdamW
+    from repro.train.optimizer import AdamWConfig as JaxAdamWConfig
+    from repro.train.train_step import make_train_step as jax_make_train_step
+    from repro_torch.configs import get_config
+    from repro_torch.models import ModelOptions, build_model
+    from repro_torch.train.optimizer import AdamW, AdamWConfig
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.weights import from_jax
+
+    opt_cfg = dict(lr=3e-4, warmup_steps=200, total_steps=50_000)
+    jm = jax_build_model(jax_get_config("gemma-2b").smoke(),
+                         JaxModelOptions(loss_chunk=8, compute_dtype="float32"))
+    out = []
+    for name, seed in (("A", 1), ("B", 2)):
+        jparams = jm.init(jax.random.PRNGKey(seed))
+        pipe = JaxSyntheticLM(256, 16, 4, seed=seed + 2)
+        if engine == "jax":
+            opt = JaxAdamW(JaxAdamWConfig(**opt_cfg))
+            step = jax_make_train_step(jm, opt)
+            state = (jparams, opt.init(jparams))
+            data_fn = lambda i, pipe=pipe: {k: jnp.asarray(v) for k, v in pipe.batch(i).items()}
+        else:
+            model = build_model(get_config("gemma-2b").smoke(),
+                                ModelOptions(loss_chunk=8, compute_dtype="float32"))
+            opt = AdamW(AdamWConfig(**opt_cfg))
+            step = make_train_step(model, opt)
+            params = from_jax(jax.tree_util.tree_map(np.asarray, jparams), CPU)
+            state = (params, opt.init(params))
+            data_fn = lambda i, pipe=pipe: {k: torch.from_numpy(v) for k, v in pipe.batch(i).items()}
+
+        def session_step(st, batch, step=step):
+            p, o, metrics = step(st[0], st[1], batch)
+            return (p, o), metrics
+
+        out.append((name, session_step, state, data_fn))
+    return out
+
+
+def test_two_training_sessions_share_a_device_like_jax():
+    """FAIR, paging forced (the capacity holds one trainer's persistent
+    state beside the shared lane, not both): each session's per-step
+    losses match the same sessions on the JAX ``SalusExecutor`` (rtol
+    1e-5), and the two decision logs are identical."""
+    from repro.core import MemoryConfig as JaxMemoryConfig
+    from repro.core import MemoryProfile as JaxMemoryProfile
+    from repro.core import SalusExecutor as JaxSalusExecutor
+    from repro.core import VirtualDevice as JaxVirtualDevice
+    from repro.core import get_policy as jax_get_policy
+    from repro_torch.core import VirtualDevice
+
+    p_b, e_b, cap, iters = 40 * MB, 60 * MB, 130 * MB, 3
+    runs = {}
+    for engine in ("jax", "port"):
+        if engine == "jax":
+            ex = JaxSalusExecutor(cap, jax_get_policy("fair"),
+                                  memory=JaxMemoryConfig(paging=True, **MEMCFG), accounting="nominal")
+            vdev, prof = JaxVirtualDevice(ex), JaxMemoryProfile(p_b, e_b)
+        else:
+            ex = SalusExecutor(cap, get_policy("fair"), memory=MemoryConfig(paging=True, **MEMCFG),
+                               accounting="nominal", device=CPU)
+            vdev, prof = VirtualDevice(ex), MemoryProfile(p_b, e_b)
+        sessions = [vdev.create_session(name, step, state, data_fn, n_iters=iters, profile=prof,
+                                        iter_time=0.002)
+                    for name, step, state, data_fn in _trainer_pair(engine)]
+        rep = vdev.run()
+        assert not rep.failures
+        runs[engine] = (rep, {s.name: [float(m["loss"]) for m in s.metrics_log] for s in sessions})
+    (jrep, jloss), (prep, ploss) = runs["jax"], runs["port"]
+    kinds = {k for k, *_ in prep.decision_log}
+    assert {"page_out", "page_in"} <= kinds
+    assert prep.decision_log == jrep.decision_log
+    assert set(ploss) == {"A", "B"}
+    for name in ploss:
+        assert len(ploss[name]) == iters
+        np.testing.assert_allclose(ploss[name], jloss[name], rtol=1e-5)

@@ -458,3 +458,152 @@ def test_rwkv_smoke_prefill_any_length_through_the_kernel(cuda, seq):
     _close(logits_k, logits_r, 1e-4)
     for name in ("tmix_shift", "cmix_shift", "wkv"):
         _close(cache_k[name], cache_r[name], 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# backward kernels (B1: RMSNorm, B2: flash attention) and autograd through
+# the wrappers
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_bwd_ref,
+    attention_lse_ref,
+)
+from repro_torch.kernels.fused_rmsnorm.ref import rmsnorm_bwd_ref  # noqa: E402
+
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # relative Frobenius
+
+
+def _rel(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def _noncontiguous(t):
+    """The same values as a strided view (every other element of the last
+    dimension of a buffer twice as wide)."""
+    buf = torch.empty((*t.shape[:-1], 2 * t.shape[-1]), dtype=t.dtype, device=t.device)
+    view = buf[..., ::2]
+    view.copy_(t)
+    assert not view.is_contiguous()
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "shape",
+    [(3, 5, 128), (4096, 2048), (7, 4096), (5, 16384), (2, 20001), (1, 100), (300, 64)],
+)
+def test_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, shape):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    scale = (torch.randn(shape[-1], generator=gen, device=cuda) * 0.1 + 1).to(dtype)
+    g = _noncontiguous(torch.randn(shape, generator=gen, device=cuda).to(dtype))
+    before = rms_ops.rmsnorm_bwd.launches
+    dx, ds = rms_ops.rmsnorm_bwd(g, x, scale)
+    torch.cuda.synchronize()
+    assert rms_ops.rmsnorm_bwd.launches == before + 1
+    rdx, rds = rmsnorm_bwd_ref(g, x, scale)
+    assert dx.dtype == dtype and ds.dtype == dtype
+    assert _rel(dx, rdx) <= BWD_TOL[dtype] and _rel(ds, rds) <= BWD_TOL[dtype]
+    # through autograd: the Function's backward is the kernel
+    xa, sa = x.clone().requires_grad_(), scale.clone().requires_grad_()
+    before = rms_ops.rmsnorm_bwd.launches
+    rms_ops.rmsnorm(xa, sa).backward(g)
+    assert rms_ops.rmsnorm_bwd.launches == before + 1
+    xb, sb = x.clone().requires_grad_(), scale.clone().requires_grad_()
+    rmsnorm_ref(xb, sb).backward(g)
+    assert _rel(xa.grad, xb.grad) <= BWD_TOL[dtype] and _rel(sa.grad, sb.grad) <= BWD_TOL[dtype]
+
+
+def test_rmsnorm_residual_form_refuses_autograd(cuda):
+    x = torch.randn(4, 64, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="residual"):
+        rms_ops.rmsnorm(x, torch.ones(64, device=cuda), torch.randn(4, 64, device=cuda))
+    with torch.no_grad():
+        rms_ops.rmsnorm(x, torch.ones(64, device=cuda), torch.randn(4, 64, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize(
+    "b,sq,sk,hq,hkv,window,q_offset",
+    [
+        (2, 128, 128, 4, 2, None, 0),
+        (1, 100, 100, 8, 1, None, 0),  # ragged tiles, GQA 8
+        (1, 130, 130, 4, 4, 40, 0),  # sliding window
+        (1, 64, 192, 4, 2, None, 128),  # query suffix
+        (1, 64, 64, 2, 1, None, -16),  # fully-masked rows
+    ],
+)
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, d, b, sq, sk, hq, hkv, window, q_offset):
+    gen = torch.Generator(device=cuda).manual_seed(d + sq)
+    q = torch.randn(b, sq, hq, d, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, sk, hkv, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, sk, hkv, d, generator=gen, device=cuda).to(dtype)
+    g = _noncontiguous(torch.randn(b, sq, hq, d, generator=gen, device=cuda).to(dtype))
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    out, lse = fa_ops._forward(q, k, v, True, window, q_offset, want_lse=True)
+    ro, rl = attention_lse_ref(q, k, v, **kw)
+    assert torch.equal(torch.isinf(lse), torch.isinf(rl))
+    torch.testing.assert_close(lse.nan_to_num(neginf=0), rl.nan_to_num(neginf=0), rtol=1e-5, atol=1e-5)
+    before = fa_ops.flash_attention_bwd.launches
+    got = fa_ops.flash_attention_bwd(g, q, k, v, out, lse, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention_bwd.launches == before + 1
+    want = attention_bwd_ref(g, q, k, v, out, lse, **kw)
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and torch.isfinite(a.float()).all()
+        assert _rel(a, w) <= BWD_TOL[dtype]
+    if q_offset < 0:  # no valid key: zero gradient
+        assert (got[0][:, : -q_offset] == 0).all()
+    # through autograd against autograd of the plain forward
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    fa_ops.flash_attention(qa, ka, va, block_q=sq, block_k=sk, **kw).backward(g)
+    qb, kb, vb = (t.clone().requires_grad_() for t in (q, k, v))
+    attention_ref(qb, kb, vb, **kw).backward(g)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, w in ((qa.grad, qb.grad), (ka.grad, kb.grad), (va.grad, vb.grad)):
+        assert _rel(a, w) <= tol
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-8b"])
+def test_smoke_model_grads_kernel_match_reference(cuda, arch):
+    """Every gradient leaf of a smoke model through the kernels equals the
+    plain path's (fp32): the CUDA wrappers carry gradients to the weights
+    upstream of a norm or of attention (wq, wk, wv, the norm scales)."""
+    from repro_torch.train.train_step import stack_grads, value_and_grad
+
+    cfg = get_config(arch).smoke()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = build_model(cfg).init(gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen, device=cuda)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=-1)}
+    grads = {}
+    for mode in ("kernel", "reference"):
+        model = build_model(cfg, ModelOptions(kernel_mode=mode, compute_dtype="float32", loss_chunk=16))
+        before = (rms_ops.rmsnorm_bwd.launches, fa_ops.flash_attention_bwd.launches)
+        loss, g = value_and_grad(model, params, batch)
+        grads[mode] = (float(loss), stack_grads(g))
+        launched = (rms_ops.rmsnorm_bwd.launches - before[0],
+                    fa_ops.flash_attention_bwd.launches - before[1])
+        norms = cfg.n_layers * (4 if cfg.qk_norm else 2) + 1
+        assert launched == ((norms, cfg.n_layers) if mode == "kernel" else (0, 0))
+    (lk, gk), (lr_, gr) = grads["kernel"], grads["reference"]
+    assert lk == pytest.approx(lr_, rel=1e-5)
+    for a, b in zip(torch.utils._pytree.tree_leaves(gk), torch.utils._pytree.tree_leaves(gr)):
+        assert b.norm() > 0
+        assert _rel(a, b) <= 1e-4
+
+
+def test_wkv6_refuses_autograd(cuda):
+    r = torch.randn(1, 16, 2, 16, device=cuda, requires_grad=True)
+    w = torch.rand(1, 16, 2, 16, device=cuda) * 0.5 + 0.4
+    u = torch.zeros(2, 16, device=cuda)
+    before = wkv_ops.wkv6.launches
+    with pytest.raises(NotImplementedError, match="backward"):
+        wkv_ops.wkv6(r, r, r, w, u)
+    assert wkv_ops.wkv6.launches == before
+    with torch.no_grad():
+        wkv_ops.wkv6(r, r, r, w, u)
+    assert wkv_ops.wkv6.launches == before + 1

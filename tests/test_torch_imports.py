@@ -53,6 +53,10 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.kernels.rwkv_scan",
         "repro_torch.kernels.rwkv_scan.ops",
         "repro_torch.kernels.rwkv_scan.ref",
+        "repro_torch.data.pipeline",
+        "repro_torch.train.optimizer",
+        "repro_torch.train.train_step",
+        "repro_torch.train.runtime",
     } <= set(mods)
     code = (
         "import importlib, sys\n"

@@ -147,3 +147,116 @@ def test_tma_geometry_size_one_dims_take_inner_extent():
 def test_tma_geometry_refuses_misaligned(shape, strides, ptr, match):
     with pytest.raises(ValueError, match=match):
         ops.tma_geometry(shape, strides, ptr, 2)
+
+
+# ---------------------------------------------------------------------------
+# the backward: the plain versions against jax.grad of the JAX oracle and
+# against torch.autograd of the port's forward
+# ---------------------------------------------------------------------------
+
+import jax  # noqa: E402
+
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_bwd_ref,
+    attention_lse_ref,
+    attention_ref,
+)
+
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _grads_inputs(case, dtype, seed):
+    b, s, hq, hkv, d = case[:5]
+    jdt, tdt, _ = DTYPES[dtype]
+    (jq, jk, jv), (tq, tk, tv) = _qkv(b, s, s, hq, hkv, d, jdt, tdt, seed=seed)
+    g = np.random.default_rng(seed + 100).standard_normal((b, s, hq, d)).astype(np.float32)
+    jg = jnp.asarray(g).astype(jdt)
+    tg = torch.from_numpy(np.array(jg.astype(jnp.float32))).to(tdt)
+    return (jq, jk, jv, jg), (tq, tk, tv, tg)
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_attention_bwd_ref_vs_jax_grad(case, dtype):
+    """``attention_lse_ref`` + ``attention_bwd_ref`` against ``jax.vjp`` of
+    the JAX package's ``attention_ref`` (no fully-masked rows here, where
+    the two oracles differ by design)."""
+    b, s, hq, hkv, d, causal, window, _, _ = case
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _grads_inputs(case, dtype, CASES.index(case))
+    kw = dict(causal=causal, window=window)
+    grads = jax.jit(lambda q, k, v, g: jax.vjp(lambda *a: jax_ref(*a, **kw), q, k, v)[1](g))
+    jdq, jdk, jdv = grads(jq, jk, jv, jg)
+    out, lse = attention_lse_ref(tq, tk, tv, **kw)
+    assert lse.dtype == torch.float32 and lse.shape == (b, hq, s)
+    assert torch.isfinite(lse).all()
+    dq, dk, dv = attention_bwd_ref(tg, tq, tk, tv, out, lse, **kw)
+    tol = GRAD_TOL[dtype]
+    for ours, theirs in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        assert ours.dtype == tq.dtype
+        a, b_ = ours.float().numpy(), np.asarray(theirs, np.float32)
+        # held as a whole: || ours - jax || / || jax ||
+        assert np.linalg.norm(a - b_) <= tol * np.linalg.norm(b_)
+
+
+@pytest.mark.parametrize(
+    "case",
+    CASES + [
+        (1, 64, 2, 1, 16, True, None, 64, 64),  # the suffix and fully-masked cases below
+    ],
+)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("q_offset", [0, 32, -16])
+def test_attention_bwd_ref_vs_torch_autograd(case, dtype, q_offset):
+    """The explicit formulas against autograd of the port's ``attention_ref``
+    (which gives 0 for a query with no valid key), with a query offset: a
+    suffix of the sequence (32) and leading fully-masked rows (-16)."""
+    b, s, hq, hkv, d, causal, window, _, _ = case
+    _, (tq, tk, tv, tg) = _grads_inputs(case, dtype, 7)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    q, k, v = (t.clone().requires_grad_() for t in (tq, tk, tv))
+    attention_ref(q, k, v, **kw).backward(tg)
+    out, lse = attention_lse_ref(tq, tk, tv, **kw)
+    dq, dk, dv = attention_bwd_ref(tg, tq, tk, tv, out, lse, **kw)
+    tol = GRAD_TOL[dtype]
+    for ours, theirs in ((dq, q.grad), (dk, k.grad), (dv, v.grad)):
+        assert torch.isfinite(ours.float()).all()
+        assert (ours.float() - theirs.float()).norm() <= tol * theirs.float().norm() + 1e-6
+    # the CPU wrapper is the plain version, and counts no launch
+    before = ops.flash_attention_bwd.launches
+    got = ops.flash_attention_bwd(tg, tq, tk, tv, out, lse, **kw)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, (dq, dk, dv)))
+    assert ops.flash_attention_bwd.launches == before
+
+
+def test_attention_fully_masked_rows_give_zero_gradients():
+    """Queries with no valid key (a negative offset): lse is -inf there,
+    their dq is 0 and nothing is NaN."""
+    _, (tq, tk, tv, tg) = _grads_inputs((1, 64, 2, 1, 16), "float32", 5)
+    kw = dict(causal=True, q_offset=-16)
+    out, lse = attention_lse_ref(tq, tk, tv, **kw)
+    assert torch.isinf(lse[:, :, :16]).all() and (lse[:, :, :16] < 0).all()
+    assert torch.isfinite(lse[:, :, 16:]).all()
+    dq, dk, dv = attention_bwd_ref(tg, tq, tk, tv, out, lse, **kw)
+    for t in (dq, dk, dv):
+        assert not torch.isnan(t).any()
+    assert (dq[:, :16] == 0).all() and (dq[:, 16:] != 0).any()
+
+
+def test_attention_lse_matches_jax_logsumexp():
+    b, s, hq, hkv, d = 2, 64, 4, 2, 32
+    (jq, jk, _), (tq, tk, tv) = _qkv(b, s, s, hq, hkv, d, jnp.float32, torch.float32, seed=11)
+    _, lse = attention_lse_ref(tq, tk, tv, causal=True, window=16)
+    qg = jq.reshape(b, s, hkv, hq // hkv, d)
+    logits = jnp.einsum("bqhrd,bkhd->bhrqk", qg, jk) * d ** -0.5
+    pos = jnp.arange(s)
+    mask = (pos[:, None] >= pos[None, :]) & (pos[None, :] > pos[:, None] - 16)
+    want = jax.scipy.special.logsumexp(jnp.where(mask, logits, -jnp.inf), axis=-1)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want).reshape(b, hq, s), rtol=1e-5, atol=1e-5)
+
+
+def test_flash_cpu_autograd_goes_through_the_plain_version():
+    _, (tq, tk, tv, tg) = _grads_inputs(CASES[0], "float32", 3)
+    q = tq.clone().requires_grad_()
+    out = ops.flash_attention(q, tk, tv, block_q=64, block_k=64)
+    out.backward(tg)
+    assert q.grad is not None and torch.isfinite(q.grad).all()

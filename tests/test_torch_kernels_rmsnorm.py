@@ -100,3 +100,101 @@ def test_rmsnorm_launch_shape_covers_every_row(element_size):
             assert s.threads_per_row * s.vectors_per_thread < 2 * n_vec + ops.BLOCK
         else:
             assert n_vec > 16 * ops.BLOCK
+
+
+# ---------------------------------------------------------------------------
+# the backward: the plain version (explicit formula) against jax.grad of the
+# JAX package's jnp norms and against torch.autograd of the port's forward
+# ---------------------------------------------------------------------------
+
+import jax  # noqa: E402
+
+from repro.models.layers import rmsnorm as jax_layer_rmsnorm  # noqa: E402
+from repro.models.layers import rmsnorm_head as jax_rmsnorm_head  # noqa: E402
+from repro_torch.kernels.fused_rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref  # noqa: E402
+
+
+def _jax_vjp(fn, x, scale, g):
+    _, vjp = jax.vjp(fn, x, scale)
+    return vjp(g)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("form", ["layer", "head"])
+def test_rmsnorm_bwd_ref_vs_jax_grad(shape, dtype, form):
+    """``rmsnorm_bwd_ref`` against ``jax.vjp`` of ``layers.rmsnorm`` (the
+    block norms) and ``layers.rmsnorm_head`` (qk-norm)."""
+    jdt, tdt, tol = DTYPES[dtype]
+    x, scale, _ = _inputs(shape, False)
+    g = np.random.default_rng(2).standard_normal(shape).astype(np.float32)
+    jx, tx = _pair(x, jdt, tdt)
+    js, ts = _pair(scale, jdt, tdt)
+    jg, tg = _pair(g, jdt, tdt)
+    if form == "layer":
+        fn = lambda a, s: jax_layer_rmsnorm({"scale": s}, a)
+    else:
+        fn = lambda a, s: jax_rmsnorm_head(s, a)
+    jdx, jds = _jax_vjp(fn, jx, js, jg)
+    dx, ds = rmsnorm_bwd_ref(tg, tx, ts)
+    assert dx.dtype == tdt and ds.dtype == tdt and dx.shape == tx.shape
+    np.testing.assert_allclose(dx.float().numpy(), np.asarray(jdx, np.float32), rtol=tol, atol=tol)
+    # dscale sums over every row: scale the tolerance by the row count
+    rows = int(np.prod(shape[:-1]))
+    np.testing.assert_allclose(ds.float().numpy(), np.asarray(jds, np.float32),
+                               rtol=tol, atol=tol * np.sqrt(rows))
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(3, 5, 128), (2, 20001)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rmsnorm_bwd_ref_vs_torch_autograd(shape, dtype):
+    _, tdt, tol = DTYPES[dtype]
+    x, scale, _ = _inputs(shape, False)
+    g = torch.from_numpy(np.random.default_rng(3).standard_normal(shape).astype(np.float32)).to(tdt)
+    tx = torch.from_numpy(x).to(tdt).requires_grad_()
+    ts = torch.from_numpy(scale).to(tdt).requires_grad_()
+    rmsnorm_ref(tx, ts).backward(g)
+    dx, ds = rmsnorm_bwd_ref(g, tx.detach(), ts.detach())
+    torch.testing.assert_close(dx.float(), tx.grad.float(), rtol=tol, atol=tol)
+    rows = int(np.prod(shape[:-1]))
+    torch.testing.assert_close(ds.float(), ts.grad.float(), rtol=tol, atol=tol * np.sqrt(rows))
+    # the CPU wrapper is the plain version, and counts no launch
+    before = ops.rmsnorm_bwd.launches
+    dx2, ds2 = ops.rmsnorm_bwd(g, tx.detach(), ts.detach())
+    assert torch.equal(dx2, dx) and torch.equal(ds2, ds)
+    assert ops.rmsnorm_bwd.launches == before
+
+
+def test_rmsnorm_cpu_autograd_goes_through_the_plain_version():
+    x, scale, r = _inputs((4, 64), True)
+    tx = torch.from_numpy(x).requires_grad_()
+    ts = torch.from_numpy(scale).requires_grad_()
+    out = ops.rmsnorm(tx, ts, torch.from_numpy(r))  # the residual form too, on the CPU
+    out.sum().backward()
+    assert tx.grad is not None and ts.grad is not None
+
+
+@pytest.mark.parametrize(
+    "d,element_size,expected",
+    [
+        (2048, 2, (8, 256, 1, 1)),  # gemma-2b's rows: the forward's shape
+        (128, 2, (8, 16, 1, 16)),  # qk-norm rows
+        (4096, 4, (4, 256, 4, 1)),
+        (8192, 4, (4, 256, 8, 1)),  # 32 values a thread: still in registers
+        (16384, 2, (8, 256, 0, 1)),  # 64 values a thread would spill: the loop
+        (16384, 4, (4, 256, 0, 1)),
+        (20001, 2, (1, 256, 0, 1)),
+    ],
+)
+def test_rmsnorm_bwd_launch_shape(d, element_size, expected):
+    shape = ops.bwd_launch_shape(d, element_size)
+    assert tuple(shape) == expected
+    assert shape.vectors_per_thread * shape.vec <= ops.BWD_REGISTER_VALUES
+    if shape.vectors_per_thread == 0:
+        assert shape.threads_per_row == ops.BLOCK
+
+
+def test_rmsnorm_bwd_blocks():
+    assert ops.bwd_blocks(4096, 1, 132) == 264  # two an SM
+    assert ops.bwd_blocks(5, 16, 132) == 1  # one row group
+    assert ops.bwd_blocks(0, 1, 132) == 1

@@ -36,8 +36,60 @@ def test_serve_main_serves_every_request():
 
 
 def test_train_background_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        serve.main(ARGV + ["--train-background", "gemma-2b"])
+    """It is now: ``--train-background`` co-locates a trainer with the
+    services; every request is served, the trainer takes gradient steps
+    and nothing fails."""
+    # a long window: the run ends when the sessions finish, not at the
+    # serve loop's wall cap (duration + 5 s), however loaded the host
+    report, ex = serve.serve(serve.build_parser().parse_args(
+        ARGV + ["--train-background", "gemma-2b", "--train-iters", "4", "--duration", "60"]))
+    assert not report.failures
+    trainer = [s for s in ex.sessions.values() if s.job.kind == "train"]
+    assert [s.name for s in trainer] == ["train:gemma-2b"]
+    assert report.stats[trainer[0].job.job_id].iterations_done == 4
+    losses = [float(m["loss"]) for m in trainer[0].metrics_log]
+    assert len(losses) == 4 and all(np.isfinite(losses))
+    for jid, st in report.stats.items():
+        assert st.iterations_done == ex.sessions[jid].n_iters
+
+
+def test_train_background_report_prints_iterations(capsys):
+    serve.main(ARGV + ["--archs", "gemma-2b", "--train-background", "qwen3-8b",
+                       "--train-iters", "2", "--duration", "60"])
+    out = capsys.readouterr().out
+    assert "+ background training qwen3-8b" in out
+    assert "train:qwen3-8b: 2 training iterations (" in out and "boundary preemptions)" in out
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_trainer_step_matches_jax(arch, monkeypatch):
+    """The trainer's step on the JAX trainer's params and batch gives JAX's
+    loss and new params (fp32 compute on both sides)."""
+    monkeypatch.setattr(
+        jax_serve, "_MODEL_OPTS", dataclasses.replace(jax_serve._MODEL_OPTS, compute_dtype="float32")
+    )
+    jstep, jparams, jdata = jax_serve.make_trainer(arch, smoke=True)
+    step, _, data_fn = serve.make_trainer(
+        arch, smoke=True, device="cpu",
+        opts=dataclasses.replace(serve.TRAIN_OPTS, compute_dtype="float32"),
+    )
+    params = from_jax(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    batch = jdata(1)
+    jnew, jm = jax.jit(jstep)(jparams, batch)
+    new, m = step(params, {k: torch.from_numpy(np.array(v)).long() for k, v in batch.items()})
+    assert float(m["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-5)
+    for path, a in jax.tree_util.tree_leaves_with_path(jnew):
+        t = new
+        for k in path:
+            t = t[k.key]
+        np.testing.assert_allclose(t.numpy(), np.asarray(a), rtol=1e-5, atol=1e-7)
+    # functional: the old params are untouched, labels are the rolled tokens
+    assert all(torch.equal(a, b) for a, b in zip(jax.tree_util.tree_leaves(params), jax.tree_util.tree_leaves(
+        from_jax(jax.tree_util.tree_map(np.asarray, jparams), "cpu"))))
+    b = data_fn(3)
+    assert b["tokens"].shape == serve.TRAIN_SHAPE
+    assert torch.equal(b["labels"], torch.roll(b["tokens"], -1, dims=-1))
+    assert serve.TRAIN_OPTS.loss_chunk == jax_serve._MODEL_OPTS.loss_chunk
 
 
 @pytest.mark.parametrize("arch", ARCHS)
