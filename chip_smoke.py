@@ -8,8 +8,9 @@ first use), then runs eight phases, each printing JSON lines:
 
 1. env      — the card's name and power limit (nvidia-smi), torch/CUDA
               versions, the kernels' build time, and ptxas's registers and
-              spills of the tensor-core flash kernels and the WKV6 kernel
-              (a spill in the WKV6 kernel fails the run).
+              spills of the tensor-core flash kernels, the backward kernels
+              and the WKV6 kernel (a spill in the WKV6 kernel or in a
+              flash-attention backward kernel fails the run).
 2. kernels  — every kernel at the serve path's shapes and at prefill
               sizes, held against its plain PyTorch version on the card
               (tolerance stated per line), timed beside the plain version,
@@ -20,7 +21,10 @@ first use), then runs eight phases, each printing JSON lines:
               that cost goes at the serve shapes (``host_us_a_call``). The
               backward kernels (RMSNorm, flash attention) at the training
               shapes, each held against its plain backward and against
-              autograd of the plain forward (relative Frobenius).
+              autograd of the plain forward (relative Frobenius); the
+              flash-attention backward also with its route, its launch
+              plan, a bit-for-bit repeat and, at the training shapes, its
+              kernels' device time.
 3. serve    — ``repro_torch.launch.serve`` with its default services,
               gemma-2b, qwen3-8b and rwkv6-7b, at full width and depth
               (random weights from fixed seeds) on one ``SalusExecutor``:
@@ -210,7 +214,10 @@ def phase_env() -> dict:
     }
     emit(info)
     check(bool(info["wkv6_ptxas"]), "no ptxas report of the WKV6 kernel")
-    for name, v in info["wkv6_ptxas"].items():
+    check(any("flash_bwd_dkdv_kernel_wgmma" in k for k in info["backward_ptxas"]),
+          "no ptxas report of the tensor-core flash backward")
+    for name, v in (*info["wkv6_ptxas"].items(),
+                    *((k, v) for k, v in info["backward_ptxas"].items() if "flash_bwd_" in k)):
         check(not v.get("spill_stores") and not v.get("spill_loads"),
               f"{name} spills: {v}")
     return info
@@ -472,6 +479,29 @@ def rmsnorm_bwd_case(rows: int, d: int, dtype, iters: int) -> dict:
     return res
 
 
+def kernel_device_us(fn, calls: int = 3) -> dict:
+    """Device microseconds a call of each kernel ``fn`` launches, from
+    ``torch.profiler`` over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync()
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        name = re.sub(r"^(void )?\(anonymous namespace\)::", "", evt.key).split("(")[0]
+        out[name] = out.get(name, 0.0) + us / calls
+    return out
+
+
 def flash_bwd_case(b, sq, sk, hq, hkv, d, dtype, *, window=None, q_offset=0, iters=5) -> dict:
     import torch.nn.functional as F
 
@@ -487,6 +517,11 @@ def flash_bwd_case(b, sq, sk, hq, hkv, d, dtype, *, window=None, q_offset=0, ite
     out, lse = ops._forward(q, k, v, True, window, q_offset, want_lse=True)
     run = lambda: ops.flash_attention_bwd(g, q, k, v, out, lse, **kw)
     got = run()
+    again = run()
+    sync()
+    # no atomics: a second call gives the same bits
+    repeat = all(torch.equal(a, c) for a, c in zip(got, again))
+    del again
     want = attention_bwd_ref(g, q, k, v, out, lse, **kw)
     qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
     attention_ref(qa, ka, va, **kw).backward(g)
@@ -497,21 +532,27 @@ def flash_bwd_case(b, sq, sk, hq, hkv, d, dtype, *, window=None, q_offset=0, ite
     rel_autograd = {n: rel_fro(a, w) for n, a, w in zip(names, got, (qa.grad, ka.grad, va.grad))}
     del qa, ka, va
     finite = all(bool(torch.isfinite(t.float()).all().item()) for t in got)
-    ok = finite and all(v <= tol for v in (*rel.values(), *rel_autograd.values()))
+    ok = finite and repeat and all(v <= tol for v in (*rel.values(), *rel_autograd.values()))
     ms = time_ms(run, iters)
     launch_ms = host_ms(run, iters)
     plain_ms = time_ms(lambda: attention_bwd_ref(g, q, k, v, out, lse, **kw), max(1, iters // 2))
-    library_ms = None
-    if window is None and q_offset == 0 and sq == sk:
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-        y = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=hq != hkv)
-        library_ms = grad_time_ms(y, (qt, kt, vt), g.transpose(1, 2), iters)
-        del qt, kt, vt, y
     qpos = torch.arange(sq, device="cuda")[:, None] + q_offset
     kpos = torch.arange(sk, device="cuda")[None, :]
     mask = qpos >= kpos
     if window:
         mask &= kpos > qpos - window
+    # the library call: SDPA's backward under autograd, the causal flag
+    # where that is the whole mask, else the same mask as a boolean
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    if window is None and q_offset == 0 and sq == sk:
+        y = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=hq != hkv)
+    else:
+        y = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=hq != hkv)
+    library_ms = grad_time_ms(y, (qt, kt, vt), g.transpose(1, 2), iters)
+    del qt, kt, vt, y
+    route = ops.route(dtype, d)
+    plan = ops.bwd_plan(b, sq, sk, hq, hkv, d, True)._asdict() if route == "wgmma" else None
+    by_kernel = kernel_device_us(run) if route == "wgmma" and sq >= 4096 else None
     pairs = int(mask.sum().item())  # the (query, key) pairs this input needs
     # five products of 2 d multiply-adds a pair and head: S, dP, dV, dK, dQ
     flops = 10.0 * b * hq * d * pairs
@@ -524,14 +565,17 @@ def flash_bwd_case(b, sq, sk, hq, hkv, d, dtype, *, window=None, q_offset=0, ite
         "phase": "kernels", "kernel": "flash_attention_bwd",
         "shape": {"b": b, "sq": sq, "sk": sk, "hq": hq, "hkv": hkv, "d": d,
                   "causal": True, "window": window, "q_offset": q_offset},
-        "dtype": str(dtype).removeprefix("torch."),
+        "dtype": str(dtype).removeprefix("torch."), "route": route, "plan": plan,
         "max_abs_err": max(max_err(a, w) for a, w in zip(got, want)),
         "rel_fro": rel, "rel_fro_vs_autograd": rel_autograd, "tol": tol, "finite": finite,
+        "repeat_bit_for_bit": repeat,
         "ok": ok, "ms": ms, "host_ms": launch_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+        "device_us_by_kernel": by_kernel,
     }
     emit(res)
-    check(ok, f"flash_attention_bwd {res['shape']} {dtype}: {rel} / {rel_autograd} > {tol}")
+    check(ok, f"flash_attention_bwd {res['shape']} {dtype}: {rel} / {rel_autograd} > {tol}"
+              f" or repeat {repeat}")
     del got, want, out, lse
     return res
 
@@ -875,6 +919,7 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict) -> None:
          "replaces": FLASH_TPU, "backward_of": "flash_attention (K3); no TPU counterpart",
          "launches": train["flash_attention_bwd"],
          "launches_a_train_step": per_step["flash_attention_bwd"],
+         "kernel_route": fa_bwd["route"],
          "shape": fa_bwd["shape"], "dtype": "bfloat16", **{x: fa_bwd[x] for x in keys},
          "at_qwen3_heads": at(k[("flash_attention_bwd", 1, 4096, 32, 128, None, 0, "bfloat16")])},
     ]})

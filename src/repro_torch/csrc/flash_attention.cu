@@ -54,7 +54,7 @@
 // Host cost a launch: the device is set only when it differs from the
 // current one, the shared-memory attribute once per kernel and device,
 // and the driver's tensor-map encoder is looked up once
-// (cudaGetDriverEntryPoint; the library does not link libcuda).
+// (hopper.cuh's encode_tiled; the library does not link libcuda).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -544,51 +544,6 @@ cudaError_t set_smem_once(Kernel kernel, size_t bytes, int device,
   return err;
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled through the runtime, looked up once;
-// null if the driver does not have it.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                                    cudaEnableDefault, &status);
-#endif
-    return err == cudaSuccess && status == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// geom: dims[4] (innermost first), byte strides[3], box[4] — as
-// ops.tma_geometry computes them. Returns a CUresult.
-CUresult encode_bf16_map(CUtensorMap* map, const void* base,
-                         const unsigned long long* geom) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[4] = {geom[0], geom[1], geom[2], geom[3]};
-  const cuuint64_t strides[3] = {geom[4], geom[5], geom[6]};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(geom[7]),
-                             static_cast<cuuint32_t>(geom[8]),
-                             static_cast<cuuint32_t>(geom[9]),
-                             static_cast<cuuint32_t>(geom[10])};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-            strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 // Returns a cudaError_t, or minus a CUresult if a tensor map fails to encode.
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
@@ -603,7 +558,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
   CUtensorMap maps[3];
   const void* bases[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
-    const CUresult r = encode_bf16_map(&maps[i], bases[i], geom + 11 * i);
+    const CUresult r = hopper::encode_bf16_map(&maps[i], bases[i], geom + 11 * i);
     if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   }
   const dim3 grid(hq, b, (sq + kTile - 1) / kTile);

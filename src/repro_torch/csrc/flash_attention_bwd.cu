@@ -16,38 +16,86 @@
 // keys past sk, and whole tiles outside the band skipped. GQA: query head
 // h reads kv head h / n_rep.
 //
-// Three launches, no atomics, so the result is deterministic:
-// (a) `flash_bwd_dot_kernel`: D, one warp a (batch, query, head) row;
-// (b) `flash_bwd_dkdv_kernel`: one block per (key tile, kv head, batch)
-//     holds its K and V tiles and the dK and dV accumulators, and loops
-//     over the group's n_rep query heads and the query tiles of the band,
-//     so the GQA sum stays inside the block;
-// (c) `flash_bwd_dq_kernel`: one block per (query tile, query head,
-//     batch) loops over the key tiles of the band.
-// (b) and (c) both recompute S and dP: seven products of s^2 d a head
-// where five would do with dQ summed by atomics across key tiles.
+// Bound on the H100: operations (five products of s^2 d a head against
+// ~8 s d elements moved). No atomic operation on the device (the one
+// `std::atomic` is the host's once-a-device flag for the shared-memory
+// attribute), so two calls give the same bits. Two routes, chosen by dtype and head size only (never because
+// another failed), as the forward's; kernels/flash_attention/ops.py
+// mirrors the choice (`route`) and the launch plan (`bwd_plan`):
 //
-// Bound on the H100: operations. This first kernel is SIMT fp32 (plain
-// FMAs on tiles staged as fp32 in shared memory, fp32 accumulators in
-// registers), for both fp32 and bf16 inputs; each of the 256 threads of a
-// block computes a patch of each product from shared memory, which bounds
-// it by shared-memory reads long before the FMA rate. Tiles are 64 x 64
-// (32 x 32 for d = 256, whose fp32 tiles would not fit): 165 KB of dynamic
-// shared memory at d = 128, 140 KB at d = 256. Gradients are written in the
-// inputs' dtype.
+// * bf16, d in {64, 128, 256}: the tensor-core kernels, four launches.
+//   (a) `flash_bwd_stats_kernel`: D in fp32, one warp a (batch, head,
+//       query) row, written with the lse in log2 units into a layout of
+//       one 512-byte record a 64-query tile, padded past sq.
+//   (b) `flash_bwd_dkdv_kernel_wgmma`: a block holds a 64-key tile of K
+//       and V in shared memory (TMA, 128-byte swizzle) and streams the
+//       query tiles of the band through a TMA ring of two stages: Q, dO
+//       and the tile's statistics record (one bulk copy), so no step
+//       waits on a global load. Keys are the wgmma M: S^T = K Q^T and
+//       dP^T = V dO^T are m64n64k16 with K-major operands (the forward's
+//       call with the roles swapped); P^T = exp2(S^T scale log2 e - lse),
+//       with lse = -inf and the padding stored as +inf, so such a query
+//       gives P = 0 and exp2 never sees +inf. Rounded to bf16 in
+//       registers, P^T and dS^T = P^T (dP^T - D) already are the A
+//       fragments of dV += P^T dO and dK += dS^T Q, with dO and Q
+//       MN-major through the transpose bit: no shared-memory transpose.
+//       At d <= 128 one warpgroup runs all four products (S^T and dP^T as
+//       two commit groups, P^T formed while dP^T finishes, dV issued while
+//       dS^T is formed), two blocks an SM (241 registers at d = 128, 98
+//       KB of shared memory). At d = 256 dK plus dV would need 256 fp32
+//       registers a thread, so two warpgroups split the work: warpgroup 0
+//       computes S^T, P^T and dV, warpgroup 1 dP^T, dS^T and dK, with P^T
+//       handed over through 16 KB of shared memory in the accumulator's
+//       own thread order (a named barrier); 218 registers, 210 KB.
+//       The launch fills the card (`bwd_plan`): under the causal mask a
+//       block takes key tiles p and n - 1 - p, so every block walks
+//       about n + 1 query tiles; and the group's query heads are split
+//       over `splits` blocks when b x hkv x tiles is under 128 blocks
+//       (gemma-2b's single kv head: 32 pairs x 4 splits at (1, 4096)).
+//       With splits > 1 each block writes fp32 partial dK and dV
+//       (splits, b, sk, hkv, d) into scratch the wrapper allocates.
+//   (c) `flash_bwd_sum_kernel` (splits > 1 only): dK and dV as the sum
+//       of the partials in split order 0, 1, ..., in bf16.
+//   (d) `flash_bwd_dq_kernel_wgmma`: one warpgroup a 64-query tile of one
+//       head, Q and dO resident, K and V through a TMA ring of two
+//       stages: S = Q K^T and dP = dO V^T (K-major, two commit groups, P
+//       computed while dP finishes), dS rounded to bf16 in registers,
+//       dQ += dS K with K MN-major. Longest causal query tiles first.
+//       dQ is recomputed from S and dP rather than summed across key
+//       tiles in the dK/dV pass: seven products where five would do,
+//       since that sum needs atomics or a partial per key tile (2 GiB
+//       at gemma-2b's (1, 4096)).
+//   Masks are applied only on tiles that cross an edge; TMA's zero fill
+//   covers rows past sq and sk, and stores are masked.
+// * fp32 (any d; held to 1e-5, which bf16 products cannot meet) and bf16
+//   with d in {16, 32} (narrower than the swizzle): the SIMT fp32
+//   kernels, three launches: D; `flash_bwd_dkdv_kernel`, one block per
+//   (key tile, kv head, batch) that loops over the group's query heads
+//   and the band's query tiles, so the GQA sum stays inside the block;
+//   `flash_bwd_dq_kernel`, one block per (query tile, query head,
+//   batch). Tiles staged as fp32 in shared memory, each of 256 threads
+//   computes a patch of each product (64 x 64 tiles, 32 x 32 at d =
+//   256: 165 KB at d = 128, 140 KB at d = 256); bound by shared-memory
+//   reads.
 //
 // Layout: q, o, dO, dq (b, sq, hq, d); k, v, dk, dv (b, sk, hkv, d); all
-// contiguous (the wrapper makes them so). lse and D are fp32 (b, hq, sq).
+// contiguous: the wrapper copies a strided view (a copy of b s h d
+// elements each, none on the training path, whose q, k, v and dO are
+// contiguous already), and builds the tensor maps of the copies. lse and
+// D are fp32 (b, hq, sq). Gradients are written in the inputs' dtype.
 //
 // Plain C interface, built with nvcc into a shared library and called
 // through ctypes (src/repro_torch/kernels/flash_attention/ops.py).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <atomic>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -393,6 +441,628 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 tensor-core route
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 128;           // one warpgroup
+constexpr int kTile = 64;                 // queries or keys a tile (the wgmma M and N)
+constexpr uint32_t kBoxBytes = 64 * 128;  // one TMA box: 64 rows of 64 bf16
+constexpr int kStages = 2;                // ring depth
+constexpr int kBarP = 1;                  // named barrier: P^T handed to warpgroup 1
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Tiles [lo, hi) of a band, the same arithmetic as the forward's.
+struct Band {
+  int lo;
+  int hi;
+  __device__ __forceinline__ int size() const { return hi > lo ? hi - lo : 0; }
+};
+
+// Key tiles a query tile [q0, q0 + 64) sees.
+__device__ __forceinline__ Band key_band(int q0, int sq, int sk, int causal, int window,
+                                         int q_offset) {
+  const int qa_first = q0 + q_offset;
+  const int qa_last = min(q0 + kTile, sq) - 1 + q_offset;
+  int k_lo = 0;
+  int k_hi = sk;
+  if (causal) k_hi = min(k_hi, qa_last + 1);
+  if (window > 0) k_lo = max(k_lo, qa_first - window + 1);
+  return {k_lo / kTile, k_hi > k_lo ? (k_hi + kTile - 1) / kTile : 0};
+}
+
+// Query tiles that see a key tile [k0, k0 + 64).
+__device__ __forceinline__ Band query_band(int k0, int sq, int sk, int causal, int window,
+                                           int q_offset) {
+  const int k_last = min(k0 + kTile, sk) - 1;
+  int q_lo = 0;
+  int q_hi = sq;
+  if (causal) q_lo = max(q_lo, k0 - q_offset);
+  if (window > 0) q_hi = min(q_hi, k_last + window - q_offset);
+  return {q_lo / kTile, q_hi > q_lo ? (q_hi + kTile - 1) / kTile : 0};
+}
+
+// Does the (query tile, key tile) pair cross an edge of the mask or of sk?
+__device__ __forceinline__ bool crosses_edge(int q0, int k0, int sq, int sk, int causal,
+                                             int window, int q_offset) {
+  const int qa_first = q0 + q_offset;
+  const int qa_last = min(q0 + kTile, sq) - 1 + q_offset;
+  return (k0 + kTile > sk) || (causal && k0 + kTile - 1 > qa_first) ||
+         (window > 0 && k0 <= qa_last - window);
+}
+
+__device__ __forceinline__ bool pair_valid(int qa, int ka, int sk, int causal, int window) {
+  bool ok = ka < sk;
+  if (causal) ok = ok && qa >= ka;
+  if (window > 0) ok = ok && ka > qa - window;
+  return ok;
+}
+
+// The per-query statistics of the tensor-core route, (b, hq, n_qt, 2, 64)
+// fp32: for each 64-query tile, lse in log2 units, then D. An lse of
+// -inf (no valid key) and the padding past sq are stored as +inf, so
+// exp2(s - lse) is 0 for every s and never exp2(+inf); the padding's D is
+// 0. One tile's 512 bytes arrive with its Q and dO by one bulk copy.
+constexpr int kStatFloats = 2 * kTile;
+
+// (a) D = rowsum(dO O) and the lse in log2 units, one warp a (batch,
+// head, padded query) row.
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_stats_kernel(const __nv_bfloat16* __restrict__ o,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse, float* __restrict__ stats,
+                       int64_t rows, int sq, int n_qt, int hq, int d) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;  // whole warps leave together
+  const int sp = static_cast<int>(row % (static_cast<int64_t>(n_qt) * kTile));
+  const int64_t bh = row / (static_cast<int64_t>(n_qt) * kTile);  // b * hq + h
+  float acc = 0.f;
+  if (sp < sq) {
+    const int64_t off = ((bh / hq * sq + sp) * hq + bh % hq) * d;
+    for (int c = lane; c < d; c += 32)
+      acc = fmaf(__bfloat162float(o[off + c]), __bfloat162float(dout[off + c]), acc);
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
+  }
+  if (lane == 0) {
+    const float l = sp < sq ? lse[bh * sq + sp] : -INFINITY;
+    float* tile = stats + (bh * n_qt + sp / kTile) * kStatFloats;
+    tile[sp % kTile] = l == -INFINITY ? INFINITY : l * kLog2e;
+    tile[kTile + sp % kTile] = acc;
+  }
+}
+
+// Warpgroups of a dK/dV block: two at d = 256, where one warpgroup cannot
+// hold both d-wide fp32 accumulators (256 registers a thread); one below,
+// which keeps two blocks an SM.
+template <int D>
+constexpr int kDkdvWarpgroups = D == 256 ? 2 : 1;
+
+template <int D>
+constexpr size_t dkdv_smem_bytes() {
+  // K, V and kStages x (Q, dO), D / 64 boxes each; kStages x one tile's
+  // statistics; with two warpgroups the P^T exchange (64 x 64 fp32); the
+  // barriers (K/V, one a stage); 1 KB of slack to put the tiles on the
+  // 1024-byte swizzle boundary
+  return 1024 + static_cast<size_t>(2 + 2 * kStages) * (D / 64) * kBoxBytes +
+         sizeof(float) * kStages * kStatFloats +
+         (kDkdvWarpgroups<D> == 2 ? sizeof(float) * kTile * kTile : 0) +
+         8 * (1 + kStages);
+}
+
+// An accumulator tile (rows: keys r_lo and r_lo + 8; 8-column groups of
+// d) times `mult`: bf16 into dst (row stride rs elements) or fp32 into the
+// partials; rows past sk are not written.
+template <int NC, typename T>
+__device__ __forceinline__ void store_rows(const float (&acc)[NC][32], T* dst, int64_t rs,
+                                           int r0, int r_lo, int cq, int sk, float mult) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int kr = r0 + r_lo + 8 * hr;
+    if (kr >= sk) continue;
+    T* row = dst + kr * rs;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int i8 = 0; i8 < 8; ++i8) {
+        const int i = 4 * i8 + 2 * hr;
+        const float x = acc[c][i] * mult;
+        const float y = acc[c][i + 1] * mult;
+        if constexpr (sizeof(T) == 4)
+          *reinterpret_cast<float2*>(row + c * 64 + 8 * i8 + cq) = make_float2(x, y);
+        else
+          *reinterpret_cast<uint32_t*>(row + c * 64 + 8 * i8 + cq) = hopper::pack_bf16(x, y);
+      }
+  }
+}
+
+// (b) dK and dV of one or two key tiles of one kv head, summed over a
+// split of the group's query heads and the query tiles of the band. Two
+// warpgroups (d = 256): warpgroup 0 S^T, P^T, dV; warpgroup 1 dP^T, dS^T,
+// dK. One warpgroup: all four products.
+template <int D>
+__global__ void __launch_bounds__(kDkdvWarpgroups<D> * kWgThreads, 3 - kDkdvWarpgroups<D>)
+flash_bwd_dkdv_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_do,
+                            const float* __restrict__ stats,
+                            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                            float* __restrict__ part, int nb, int sq, int sk, int hq,
+                            int hkv, int n_kt, int splits, int paired, float scale,
+                            float scale_log2, int causal, int window, int q_offset) {
+  constexpr int NWG = kDkdvWarpgroups<D>;
+  constexpr int NC = D / 64;  // 64-wide column chunks of d (one box each)
+  constexpr uint32_t kTileBytes = NC * kBoxBytes;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sK = (hopper::smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sV = sK + kTileBytes;
+  auto sQ = [&](int s) { return sK + (2u + 2u * s) * kTileBytes; };
+  auto sdO = [&](int s) { return sQ(s) + kTileBytes; };
+  auto sSt = [&](int s) {  // the stage's query statistics
+    return sK + (2u + 2u * kStages) * kTileBytes + sizeof(float) * kStatFloats * s;
+  };
+  const uint32_t sX = sSt(kStages);  // P^T exchange (NWG = 2)
+  auto generic = [&](uint32_t a) {
+    return reinterpret_cast<const float*>(smem_raw + (a - hopper::smem_addr(smem_raw)));
+  };
+  float* xbuf = const_cast<float*>(generic(sX));
+  const uint32_t bar_kv = sX + (NWG == 2 ? sizeof(float) * kTile * kTile : 0);
+  auto bar_qdo = [&](int s) { return bar_kv + 8u * (1 + s); };
+
+  const int tid = threadIdx.x;
+  const int wg = tid / kWgThreads;  // NWG = 2: 0 S, P, dV; 1 dP, dS, dK
+  const int wtid = tid % kWgThreads;
+  const int warp = wtid >> 5;
+  const int lane = wtid & 31;
+  const int p = blockIdx.x;
+  const int g = blockIdx.y;
+  const int b = blockIdx.z / hkv;
+  const int hk = blockIdx.z % hkv;
+  const int n_rep = hq / hkv;
+  const int heads = n_rep / splits;  // query heads this block sums over
+  const int h0 = hk * n_rep + g * heads;
+  const int n_mine = paired && n_kt - 1 - p != p ? 2 : 1;
+  const int n_qt = (sq + kTile - 1) / kTile;
+
+  if (tid == 0) {
+    hopper::mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) hopper::mbar_init(bar_qdo(s), 1);
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+
+  // this thread's accumulator rows (keys) r_lo and r_lo + 8 of the tile;
+  // in each 8-column group (queries, or columns of d) cq and cq + 1
+  const int r_lo = warp * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+
+  int step = 0;  // Q/dO tiles consumed by this block so far: the ring's phase
+  for (int t = 0; t < n_mine; ++t) {
+    const int kt = t == 0 ? p : n_kt - 1 - p;
+    const int k0 = kt * kTile;
+    const Band qb = query_band(k0, sq, sk, causal, window, q_offset);
+    const int n_q = qb.size();
+    const int n_steps = heads * n_q;
+    auto load_qdo = [&](int stage, int j) {
+      const int h = h0 + j / n_q;
+      const int qt = qb.lo + j % n_q;
+      const int q0 = qt * kTile;
+      constexpr uint32_t kStatBytes = sizeof(float) * kStatFloats;
+      hopper::mbar_arrive_expect_tx(bar_qdo(stage), 2 * kTileBytes + kStatBytes);
+      hopper::bulk_load(sSt(stage),
+                        stats + ((static_cast<int64_t>(b) * hq + h) * n_qt + qt) * kStatFloats,
+                        kStatBytes, bar_qdo(stage));
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        hopper::tma_load_4d(sQ(stage) + c * kBoxBytes, &tm_q, bar_qdo(stage), c * 64, h,
+                            q0, b);
+        hopper::tma_load_4d(sdO(stage) + c * kBoxBytes, &tm_do, bar_qdo(stage), c * 64, h,
+                            q0, b);
+      }
+    };
+    __syncthreads();  // every thread is past the previous key tile's waits
+    if (tid == 0) {
+      hopper::mbar_arrive_expect_tx(bar_kv, 2 * kTileBytes);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        hopper::tma_load_4d(sK + c * kBoxBytes, &tm_k, bar_kv, c * 64, hk, k0, b);
+        hopper::tma_load_4d(sV + c * kBoxBytes, &tm_v, bar_kv, c * 64, hk, k0, b);
+      }
+      for (int s = 0; s < kStages && s < n_steps; ++s) load_qdo((step + s) % kStages, s);
+    }
+
+    // NWG = 2: acc is dV (warpgroup 0) or dK (warpgroup 1); NWG = 1: acc
+    // is dV and acc2 dK
+    float acc[NC][32];
+    float acc2[NWG == 1 ? NC : 1][32];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < (NWG == 1 ? NC : 1); ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc2[c][i] = 0.f;
+    hopper::mbar_wait(bar_kv, t & 1);
+
+    for (int j = 0; j < n_steps; ++j, ++step) {
+      const int stage = step % kStages;
+      const uint32_t parity = (step / kStages) & 1;
+      const int q0 = (qb.lo + j % n_q) * kTile;
+      const float* st = generic(sSt(stage));  // lse (log2 units), then D
+      const bool edge = crosses_edge(q0, k0, sq, sk, causal, window, q_offset);
+      // element i's query (column) within the tile
+      auto col = [&](int i) { return 8 * (i >> 2) + cq + (i & 1); };
+      // P^T from S^T and the queries' lse (log2 units), masked only on a
+      // tile that crosses an edge
+      auto probs = [&](float (&x)[32]) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          float y = x[i] * scale_log2;
+          if (edge) {
+            const int ka = k0 + r_lo + 8 * ((i >> 1) & 1);
+            if (!pair_valid(q0 + col(i) + q_offset, ka, sk, causal, window)) y = -INFINITY;
+          }
+          x[i] = exp2f(y - st[col(i)]);
+        }
+      };
+      // S^T = K Q^T or dP^T = V dO^T: keys are M, queries N, both K-major
+      auto scores = [&](float (&x)[32], uint32_t sA, uint32_t sB) {
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int kq = 0; kq < 4; ++kq) {
+            const uint32_t off = c * kBoxBytes + kq * 32;
+            hopper::wgmma_m64n64k16_ss(x, hopper::sw128_desc(sA + off, 16, 1024),
+                                       hopper::sw128_desc(sB + off, 16, 1024),
+                                       (c | kq) != 0);
+          }
+      };
+      // a (keys x queries) tile as bf16 A fragments, 16 queries a step
+      auto frags = [&](uint32_t (&fa)[4][4], const float (&x)[32]) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            fa[kk][r] = hopper::pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+      };
+      // acc += fa B, B MN-major (d contiguous): a 16-query step is two
+      // 8-row groups of a box, 1024 bytes apart, the next step 2048 on
+      auto accumulate = [&](float (&a)[NC][32], const uint32_t (&fa)[4][4], uint32_t sB) {
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            hopper::wgmma_m64n64k16_rs_tb(
+                a[c], fa[kk], hopper::sw128_desc(sB + c * kBoxBytes + kk * 2048, 1024, 1024));
+      };
+
+      hopper::mbar_wait(bar_qdo(stage), parity);
+      if constexpr (NWG == 2) {
+        float s[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = 0.f;
+        hopper::fence_regs(s);
+        hopper::wgmma_fence();
+        scores(s, wg == 0 ? sK : sV, wg == 0 ? sQ(stage) : sdO(stage));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait_all();
+        hopper::fence_regs(s);
+        if (wg == 0) {
+          probs(s);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) xbuf[i * kWgThreads + wtid] = s[i];
+          hopper::bar_arrive(kBarP, 2 * kWgThreads);
+        } else {
+          // dS^T = P^T (dP^T - D), P^T from warpgroup 0's thread of the
+          // same index, which holds the same (key, query) elements
+          hopper::bar_sync(kBarP, 2 * kWgThreads);
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            s[i] = xbuf[i * kWgThreads + wtid] * (s[i] - st[kTile + col(i)]);
+        }
+        uint32_t fa[4][4];
+        frags(fa, s);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) hopper::fence_regs(acc[c]);
+        hopper::wgmma_fence();
+        accumulate(acc, fa, wg == 0 ? sdO(stage) : sQ(stage));  // dV or dK
+        hopper::wgmma_commit();
+        hopper::wgmma_wait_all();
+#pragma unroll
+        for (int c = 0; c < NC; ++c) hopper::fence_regs(acc[c]);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) hopper::fence_regs(fa[kk]);
+      } else {
+        // S^T and dP^T as two commit groups; P^T while dP^T finishes, then
+        // dV += P^T dO while dS^T is formed, then dK += dS^T Q
+        float s[32], dp[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          s[i] = 0.f;
+          dp[i] = 0.f;
+        }
+        hopper::fence_regs(s);
+        hopper::fence_regs(dp);
+        hopper::wgmma_fence();
+        scores(s, sK, sQ(stage));
+        hopper::wgmma_commit();
+        scores(dp, sV, sdO(stage));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait_1();
+        hopper::fence_regs(s);
+        probs(s);
+        uint32_t fp[4][4], fd[4][4];
+        frags(fp, s);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) hopper::fence_regs(acc[c]);
+        hopper::wgmma_fence();
+        accumulate(acc, fp, sdO(stage));  // dV += P^T dO
+        hopper::wgmma_commit();
+        hopper::wgmma_wait_1();  // dP^T is done; dV may still run
+        hopper::fence_regs(dp);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - st[kTile + col(i)]);
+        frags(fd, dp);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) hopper::fence_regs(acc2[c]);
+        hopper::wgmma_fence();
+        accumulate(acc2, fd, sQ(stage));  // dK += dS^T Q
+        hopper::wgmma_commit();
+        hopper::wgmma_wait_all();
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          hopper::fence_regs(acc[c]);
+          hopper::fence_regs(acc2[c]);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          hopper::fence_regs(fp[kk]);
+          hopper::fence_regs(fd[kk]);
+        }
+      }
+
+      __syncthreads();  // every warp is done with this stage (and the exchange)
+      if (tid == 0 && j + kStages < n_steps) load_qdo(stage, j + kStages);
+    }
+
+    // store: dK carries the scale; with splits, fp32 partials (2, splits,
+    // b, sk, hkv, D), dK first, then dV
+    const int64_t rs = static_cast<int64_t>(hkv) * D;
+    const int64_t off = static_cast<int64_t>(b) * sk * rs + static_cast<int64_t>(hk) * D;
+    const int64_t n = static_cast<int64_t>(nb) * sk * rs;
+    const bool is_dk = NWG == 2 && wg == 1;
+    if (splits == 1) {
+      store_rows(acc, (is_dk ? dk : dv) + off, rs, k0, r_lo, cq, sk, is_dk ? scale : 1.f);
+      if constexpr (NWG == 1) store_rows(acc2, dk + off, rs, k0, r_lo, cq, sk, scale);
+    } else {
+      float* pk = part + g * n + off;  // this split's dK partial
+      float* pv = pk + splits * n;
+      store_rows(acc, is_dk ? pk : pv, rs, k0, r_lo, cq, sk, is_dk ? scale : 1.f);
+      if constexpr (NWG == 1) store_rows(acc2, pk, rs, k0, r_lo, cq, sk, scale);
+    }
+  }
+}
+
+// (c) dK and dV from the splits' fp32 partials, summed in split order;
+// n4 = b sk hkv d / 4 (d is a multiple of 64).
+__global__ void __launch_bounds__(256)
+flash_bwd_sum_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int64_t n4, int splits) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= 2 * n4) return;
+  const int which = idx >= n4;  // 0: dK, 1: dV
+  const int64_t i = idx - which * n4;
+  const float4* src = reinterpret_cast<const float4*>(part) + which * splits * n4 + i;
+  float4 a = src[0];
+  for (int g = 1; g < splits; ++g) {
+    const float4 x = src[g * n4];
+    a.x += x.x;
+    a.y += x.y;
+    a.z += x.z;
+    a.w += x.w;
+  }
+  uint2 out;
+  out.x = hopper::pack_bf16(a.x, a.y);
+  out.y = hopper::pack_bf16(a.z, a.w);
+  reinterpret_cast<uint2*>(which ? dv : dk)[i] = out;
+}
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  // Q, dO and kStages x (K, V), D / 64 boxes each, then the barriers
+  return 1024 + static_cast<size_t>(2 + 2 * kStages) * (D / 64) * kBoxBytes +
+         8 * (1 + kStages);
+}
+
+// (d) dQ of one query tile of one query head, over the key tiles of the
+// band.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const float* __restrict__ stats,
+                          __nv_bfloat16* __restrict__ dq, int sq, int sk, int hq, int hkv,
+                          float scale, float scale_log2, int causal, int window,
+                          int q_offset) {
+  constexpr int NC = D / 64;
+  constexpr uint32_t kTileBytes = NC * kBoxBytes;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (hopper::smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sdO = sQ + kTileBytes;
+  auto sK = [&](int s) { return sQ + (2u + 2u * s) * kTileBytes; };
+  auto sV = [&](int s) { return sK(s) + kTileBytes; };
+  const uint32_t bar_qdo = sQ + (2 + 2 * kStages) * kTileBytes;
+  auto bar_kv = [&](int s) { return bar_qdo + 8u * (1 + s); };
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTile;  // longest tiles first
+  const int hk = h / (hq / hkv);
+  const Band kb = key_band(q0, sq, sk, causal, window, q_offset);
+  const int n_tiles = kb.size();
+
+  if (tid == 0) {
+    hopper::mbar_init(bar_qdo, 1);
+    for (int s = 0; s < kStages; ++s) hopper::mbar_init(bar_kv(s), 1);
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+
+  auto load_kv = [&](int stage, int tile) {
+    const int k0 = tile * kTile;
+    hopper::mbar_arrive_expect_tx(bar_kv(stage), 2 * kTileBytes);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      hopper::tma_load_4d(sK(stage) + c * kBoxBytes, &tm_k, bar_kv(stage), c * 64, hk, k0,
+                          b);
+      hopper::tma_load_4d(sV(stage) + c * kBoxBytes, &tm_v, bar_kv(stage), c * 64, hk, k0,
+                          b);
+    }
+  };
+  if (tid == 0 && n_tiles > 0) {
+    hopper::mbar_arrive_expect_tx(bar_qdo, 2 * kTileBytes);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      hopper::tma_load_4d(sQ + c * kBoxBytes, &tm_q, bar_qdo, c * 64, h, q0, b);
+      hopper::tma_load_4d(sdO + c * kBoxBytes, &tm_do, bar_qdo, c * 64, h, q0, b);
+    }
+    for (int s = 0; s < kStages && s < n_tiles; ++s) load_kv(s, kb.lo + s);
+  }
+
+  // rows (queries) r_lo and r_lo + 8; columns (keys, or d) cq, cq + 1 of
+  // each 8-column group
+  const int r_lo = warp * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  const float* st = stats + ((static_cast<int64_t>(b) * hq + h) * gridDim.z +
+                              q0 / kTile) * kStatFloats;
+  float m[2], dd[2];  // lse in log2 units and D of the two rows
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    m[hr] = __ldg(st + r_lo + 8 * hr);
+    dd[hr] = __ldg(st + kTile + r_lo + 8 * hr);
+  }
+  float acc[NC][32];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+
+  if (n_tiles > 0) hopper::mbar_wait(bar_qdo, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int stage = j % kStages;
+    const uint32_t parity = (j / kStages) & 1;
+    const int k0 = (kb.lo + j) * kTile;
+
+    // S = Q K^T and dP = dO V^T, K-major, one commit group each
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = 0.f;
+      dp[i] = 0.f;
+    }
+    hopper::mbar_wait(bar_kv(stage), parity);
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq) {
+        const uint32_t off = c * kBoxBytes + kq * 32;
+        hopper::wgmma_m64n64k16_ss(s, hopper::sw128_desc(sQ + off, 16, 1024),
+                                   hopper::sw128_desc(sK(stage) + off, 16, 1024),
+                                   (c | kq) != 0);
+      }
+    hopper::wgmma_commit();
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq) {
+        const uint32_t off = c * kBoxBytes + kq * 32;
+        hopper::wgmma_m64n64k16_ss(dp, hopper::sw128_desc(sdO + off, 16, 1024),
+                                   hopper::sw128_desc(sV(stage) + off, 16, 1024),
+                                   (c | kq) != 0);
+      }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_1();  // S is done; dP may still run
+    hopper::fence_regs(s);
+
+    // P, masked only on a tile that crosses an edge
+    const bool edge = crosses_edge(q0, k0, sq, sk, causal, window, q_offset);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = s[i] * scale_log2;
+      if (edge) {
+        const int qa = q0 + r_lo + 8 * ((i >> 1) & 1) + q_offset;
+        const int ka = k0 + 8 * (i >> 2) + cq + (i & 1);
+        if (!pair_valid(qa, ka, sk, causal, window)) x = -INFINITY;
+      }
+      s[i] = exp2f(x - m[(i >> 1) & 1]);
+    }
+    hopper::wgmma_wait_all();
+    hopper::fence_regs(dp);
+
+    // dS = P (dP - D) as bf16 A fragments, 16 keys a step
+    uint32_t fa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 8 * kk + 2 * r;
+        const float d0 = dd[(i >> 1) & 1];
+        fa[kk][r] = hopper::pack_bf16(s[i] * (dp[i] - d0), s[i + 1] * (dp[i + 1] - d0));
+      }
+
+    // dQ += dS K: K is MN-major (d contiguous)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) hopper::fence_regs(acc[c]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_m64n64k16_rs_tb(
+            acc[c], fa[kk],
+            hopper::sw128_desc(sK(stage) + c * kBoxBytes + kk * 2048, 1024, 1024));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) hopper::fence_regs(acc[c]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hopper::fence_regs(fa[kk]);
+
+    __syncthreads();  // every warp is done with this stage
+    if (tid == 0 && j + kStages < n_tiles) load_kv(stage, kb.lo + j + kStages);
+  }
+
+  // store, scaled: rows past sq are not written
+  const int64_t row_stride = static_cast<int64_t>(hq) * D;
+  __nv_bfloat16* qb = dq + static_cast<int64_t>(b) * sq * row_stride +
+                      static_cast<int64_t>(h) * D;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qr = q0 + r_lo + 8 * hr;
+    if (qr >= sq) continue;
+    __nv_bfloat16* drow = qb + qr * row_stride;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int i8 = 0; i8 < 8; ++i8) {
+        const int i = 4 * i8 + 2 * hr;
+        *reinterpret_cast<uint32_t*>(drow + c * 64 + 8 * i8 + cq) =
+            hopper::pack_bf16(acc[c][i] * scale, acc[c][i + 1] * scale);
+      }
+  }
+}
+
 // cudaFuncSetAttribute for a kernel's dynamic shared memory, once per
 // device (a bit of `done` each).
 template <typename Kernel>
@@ -404,6 +1074,18 @@ cudaError_t set_smem_once(Kernel kernel, size_t bytes, int device,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
   return err;
+}
+
+// (a) D = rowsum(dO O) for every (batch, query, head) row.
+template <typename T>
+cudaError_t launch_dot(const void* o, const void* dout, float* dvec, int b, int sq, int hq,
+                       int d, cudaStream_t stream) {
+  const int64_t rows = static_cast<int64_t>(b) * sq * hq;
+  const unsigned int blocks =
+      static_cast<unsigned int>((rows + kThreads / 32 - 1) / (kThreads / 32));
+  flash_bwd_dot_kernel<T><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), dvec, rows, sq, hq, d);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
@@ -423,12 +1105,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   const T* vp = static_cast<const T*>(v);
   const T* gp = static_cast<const T*>(dout);
 
-  const int64_t rows = static_cast<int64_t>(b) * sq * hq;
-  const unsigned int dot_blocks =
-      static_cast<unsigned int>((rows + kThreads / 32 - 1) / (kThreads / 32));
-  flash_bwd_dot_kernel<T><<<dot_blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(o), gp, dvec, rows, sq, hq, D);
-  err = cudaGetLastError();
+  err = launch_dot<T>(o, dout, dvec, b, sq, hq, D, stream);
   if (err != cudaSuccess) return err;
 
   const dim3 kv_grid((sk + Tl::BK - 1) / Tl::BK, hkv, b);
@@ -445,6 +1122,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   return cudaGetLastError();
 }
 
+// The SIMT route: fp32 at every head size, bf16 at d 16 and 32.
 template <typename T>
 cudaError_t dispatch(int d, const void* q, const void* k, const void* v, const void* o,
                      const void* dout, const float* lse, float* dvec, void* dq, void* dk,
@@ -455,30 +1133,104 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v, const v
   case DIM:                                                                        \
     return launch<T, DIM>(q, k, v, o, dout, lse, dvec, dq, dk, dv, b, sq, sk, hq, hkv, \
                           scale, causal, window, q_offset, device, stream);
+  constexpr bool kF32 = sizeof(T) == 4;
   switch (d) {
     REPRO_FLASH_BWD_CASE(16)
     REPRO_FLASH_BWD_CASE(32)
-    REPRO_FLASH_BWD_CASE(64)
-    REPRO_FLASH_BWD_CASE(128)
-    REPRO_FLASH_BWD_CASE(256)
     default:
-      return cudaErrorInvalidValue;
+      break;
   }
+  if constexpr (kF32) {
+    switch (d) {
+      REPRO_FLASH_BWD_CASE(64)
+      REPRO_FLASH_BWD_CASE(128)
+      REPRO_FLASH_BWD_CASE(256)
+      default:
+        break;
+    }
+  }
+  return cudaErrorInvalidValue;
 #undef REPRO_FLASH_BWD_CASE
+}
+
+// The tensor-core route (bf16, d 64/128/256). Returns a cudaError_t, or
+// minus a CUresult if a tensor map fails to encode.
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, float* dvec, void* dq, void* dk,
+                 void* dv, float* part, int b, int sq, int sk, int hq, int hkv,
+                 const unsigned long long* geom, int splits, int paired, float scale,
+                 int causal, int window, int q_offset, int device, cudaStream_t stream) {
+  static std::atomic<uint64_t> smem_kv{0};
+  static std::atomic<uint64_t> smem_q{0};
+  constexpr size_t kv_smem = dkdv_smem_bytes<D>();
+  constexpr size_t q_smem = dq_smem_bytes<D>();
+  cudaError_t err = set_smem_once(flash_bwd_dkdv_kernel_wgmma<D>, kv_smem, device, smem_kv);
+  if (err == cudaSuccess)
+    err = set_smem_once(flash_bwd_dq_kernel_wgmma<D>, q_smem, device, smem_q);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap maps[4];
+  const void* bases[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i) {
+    const CUresult r = hopper::encode_bf16_map(&maps[i], bases[i], geom + 11 * i);
+    if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  }
+  const int n_qt = (sq + kTile - 1) / kTile;
+  const int64_t rows = static_cast<int64_t>(b) * hq * n_qt * kTile;
+  const unsigned int stat_blocks =
+      static_cast<unsigned int>((rows + kThreads / 32 - 1) / (kThreads / 32));
+  flash_bwd_stats_kernel<<<stat_blocks, kThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), lse,
+      dvec, rows, sq, n_qt, hq, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  auto* dk_p = static_cast<__nv_bfloat16*>(dk);
+  auto* dv_p = static_cast<__nv_bfloat16*>(dv);
+  const float scale_log2 = scale * kLog2e;
+  const int n_kt = (sk + kTile - 1) / kTile;
+  const dim3 kv_grid(paired ? (n_kt + 1) / 2 : n_kt, splits, b * hkv);
+  constexpr int kv_threads = kDkdvWarpgroups<D> * kWgThreads;
+  flash_bwd_dkdv_kernel_wgmma<D><<<kv_grid, kv_threads, kv_smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], dvec, dk_p, dv_p, part, b, sq, sk, hq, hkv,
+      n_kt, splits, paired, scale, scale_log2, causal, window, q_offset);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (splits > 1) {
+    const int64_t n4 = static_cast<int64_t>(b) * sk * hkv * D / 4;
+    const unsigned int blocks = static_cast<unsigned int>((2 * n4 + 255) / 256);
+    flash_bwd_sum_kernel<<<blocks, 256, 0, stream>>>(part, dk_p, dv_p, n4, splits);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 q_grid(hq, b, n_qt);
+  flash_bwd_dq_kernel_wgmma<D><<<q_grid, kWgThreads, q_smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], dvec, static_cast<__nv_bfloat16*>(dq), sq,
+      sk, hq, hkv, scale, scale_log2, causal, window, q_offset);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // All tensors contiguous: q, o, dout, dq (b, sq, hq, d); k, v, dk, dv
-// (b, sk, hkv, d); lse (from flash_attention_fwd) and the scratch `dvec`
-// fp32 (b, hq, sq). dtype: 0 = float32, 1 = bfloat16; window <= 0 means
-// none. Returns a cudaError_t (0 = ok).
+// (b, sk, hkv, d); lse (from flash_attention_fwd) fp32 (b, hq, sq); the
+// fp32 scratch `dvec` is (b, hq, sq) on the SIMT route and (b, hq,
+// ceil(sq / 64), 2, 64) on the tensor-core route (its statistics). dtype: 0 = float32, 1 = bfloat16; window <= 0 means
+// none. The route is chosen by dtype and d alone: bf16 with d in {64,
+// 128, 256} takes the tensor-core kernels, which need `tma` (4 x 11
+// values: q's, k's, v's and dout's tensor-map dims, byte strides and
+// box), the plan's `splits` (a divisor of hq / hkv) and `paired` (key
+// tiles p and n - 1 - p a block), and with splits > 1 the fp32 scratch
+// `part` (2 x splits x b x sk x hkv x d); everything else takes the SIMT
+// kernels, which ignore those four. Returns a cudaError_t (0 = ok), or
+// minus a CUresult if a tensor map fails to encode.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const void* dout, const float* lse,
                                    float* dvec, void* dq, void* dk, void* dv, int b,
                                    int sq, int sk, int hq, int hkv, int d, float scale,
                                    int causal, int window, int q_offset, int dtype,
-                                   int device, void* stream) {
+                                   const unsigned long long* tma, float* part, int splits,
+                                   int paired, int device, void* stream) {
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
@@ -486,6 +1238,24 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
   if (b <= 0 || sq <= 0 || sk <= 0 || hq <= 0) return static_cast<int>(cudaSuccess);
   if (hkv <= 0 || hq % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && (d == 64 || d == 128 || d == 256)) {
+    if (tma == nullptr || splits < 1 || (hq / hkv) % splits != 0 ||
+        (splits > 1 && part == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_FLASH_BWD_WGMMA(DIM)                                                    \
+  return launch_wgmma<DIM>(q, k, v, o, dout, lse, dvec, dq, dk, dv, part, b, sq, sk, hq, \
+                           hkv, tma, splits, paired, scale, causal, window, q_offset,    \
+                           device, s);
+    switch (d) {
+      case 64:
+        REPRO_FLASH_BWD_WGMMA(64)
+      case 128:
+        REPRO_FLASH_BWD_WGMMA(128)
+      default:
+        REPRO_FLASH_BWD_WGMMA(256)
+    }
+#undef REPRO_FLASH_BWD_WGMMA
+  }
   if (dtype == 0)
     err = dispatch<float>(d, q, k, v, o, dout, lse, dvec, dq, dk, dv, b, sq, sk, hq, hkv,
                           scale, causal, window, q_offset, device, s);

@@ -6,11 +6,16 @@
 //
 // Shared-memory addresses are 32-bit offsets in the shared window
 // (`smem_addr`), as TMA, mbarrier and wgmma take them.
+//
+// Host side: the bf16 TMA tensor-map encoder both flash-attention files
+// use (`encode_bf16_map`), through the driver entry point the runtime
+// looks up once (the library does not link libcuda).
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap (the type only; nothing here calls the driver)
+#include <cuda.h>  // CUtensorMap and the encoder's types; no driver call is linked
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -79,6 +84,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// Copy `bytes` (a multiple of 16, both ends 16-byte aligned) of contiguous
+// global memory into shared memory at `dst`; completion is counted in
+// bytes on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -103,6 +120,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most one committed group is still in flight (the older
+// ones are done).
+__device__ __forceinline__ void wgmma_wait_1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 // Keep the compiler from moving reads or writes of registers that an
@@ -180,6 +202,20 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
 }
 
 // ---------------------------------------------------------------------------
+// named barriers (id 0 is __syncthreads)
+// ---------------------------------------------------------------------------
+
+// Wait until `n` threads (a multiple of 32) have arrived at barrier `id`;
+// the shared-memory writes of the arriving threads are then visible.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+// Arrive at barrier `id` of `n` threads without waiting.
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// ---------------------------------------------------------------------------
 // cp.async
 // ---------------------------------------------------------------------------
 
@@ -247,6 +283,56 @@ __device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4], const uint32_t (
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ---------------------------------------------------------------------------
+// host: TMA tensor maps
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled through the runtime, looked up once;
+// null if the driver does not have it.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                    cudaEnableDefault, &status);
+#endif
+    return err == cudaSuccess && status == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A rank-4 bf16 map, 128-byte swizzle, zero fill out of bounds. geom:
+// dims[4] (innermost first), byte strides[3], box[4] — as the wrapper's
+// ops.tma_geometry computes them. Returns a CUresult.
+inline CUresult encode_bf16_map(CUtensorMap* map, const void* base,
+                                const unsigned long long* geom) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {geom[0], geom[1], geom[2], geom[3]};
+  const cuuint64_t strides[3] = {geom[4], geom[5], geom[6]};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(geom[7]),
+                             static_cast<cuuint32_t>(geom[8]),
+                             static_cast<cuuint32_t>(geom[9]),
+                             static_cast<cuuint32_t>(geom[10])};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+            strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace hopper

@@ -130,7 +130,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p,  # dq, dk, dv
         i, i, i, i, i, i,  # b, sq, sk, hq, hkv, d
         f, i, i, i,  # scale, causal, window, q_offset
-        i, i, p,  # dtype, device, stream
+        i, p, p, i, i,  # dtype, tensor-map geometry, partials (or nulls), splits, paired
+        i, p,  # device, stream
     ]
     lib.flash_attention_bwd.restype = i
     lib.wkv6_fwd.argtypes = [

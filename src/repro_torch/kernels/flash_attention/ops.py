@@ -29,7 +29,11 @@ Under autograd (grad enabled and q, k or v requiring grad) a CUDA call
 goes through ``FlashAttentionFunction``: the forward kernel also writes
 each row's log-sum-exp, and the backward is the hand-written kernel
 ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``), which is also
-public, with the plain ``ref.attention_bwd_ref`` on the CPU.
+public, with the plain ``ref.attention_bwd_ref`` on the CPU. It takes
+the same two routes by the same rule (``route``): ``"wgmma"`` runs the
+tensor-core kernels on the launch plan ``bwd_plan`` computes, which
+spreads a kv head's key tiles over enough blocks to fill the card;
+``"simt"`` the SIMT fp32 kernels.
 
 ``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
 kernel launches (never plain-version calls).
@@ -55,8 +59,9 @@ TMA_ALIGN = 16  # bytes: the base address and every stride
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
-    """``"wgmma"`` (bf16 tensor-core kernel) or ``"simt"`` (fp32 SIMT
-    kernel), by dtype and head size only."""
+    """``"wgmma"`` (bf16 tensor-core kernels) or ``"simt"`` (fp32 SIMT
+    kernels), by dtype and head size only; the forward and the backward
+    take the same route."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "simt"
@@ -103,13 +108,14 @@ def _geometry(shape: tuple, strides: tuple, element_size: int) -> TmaGeometry:
     return TmaGeometry((d, h, s, b), tuple(byte_strides), TMA_BOX)
 
 
-def _tma_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """q's, k's and v's geometry as the C entry point takes it: 3 x 11
-    unsigned 64-bit values (dims, byte strides, box)."""
-    for t in (q, k, v):
+def _tma_args(*tensors: torch.Tensor):
+    """The tensors' geometry as the C entry points take it: 11 unsigned
+    64-bit values a tensor (dims, byte strides, box)."""
+    args = []
+    for t in tensors:
         _check_base(t.data_ptr())
-    return _packed(q.shape, q.stride(), k.shape, k.stride(), v.shape, v.stride(),
-                   q.element_size())
+        args += [t.shape, t.stride()]
+    return _packed(*args, tensors[0].element_size())
 
 
 @functools.lru_cache(maxsize=256)
@@ -122,6 +128,58 @@ def _packed(*shapes_strides_size):
         g = _geometry(tuple(shape), tuple(strides), element_size)
         vals.extend((*g.dims, *g.strides, *g.box))
     return (ctypes.c_ulonglong * len(vals))(*vals)
+
+
+# the backward's tensor-core launch plan (csrc/flash_attention_bwd.cu)
+BWD_TILE = 64  # queries or keys a tile
+BWD_MIN_BLOCKS = 128  # dK/dV blocks wanted: about one a streaming multiprocessor
+
+
+class BwdPlan(NamedTuple):
+    key_tiles: int
+    query_tiles: int
+    paired: bool  # a dK/dV block takes key tiles p and key_tiles - 1 - p
+    splits: int  # dK/dV blocks a GQA group's query heads are spread over
+    dkdv_blocks: int
+    dq_blocks: int
+    scratch_bytes: int  # fp32 partial dK and dV, (2, splits, b, sk, hkv, d)
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(b: int, sq: int, sk: int, hq: int, hkv: int, d: int, causal: bool = True) -> BwdPlan:
+    """The tensor-core backward's launch plan. Under the causal mask a key
+    tile ``p`` is seen by about ``n - p`` query tiles, so a dK/dV block
+    takes tiles ``p`` and ``n - 1 - p`` and every block walks about
+    ``n + 1``. Where ``b x hkv x`` those blocks are fewer than
+    ``BWD_MIN_BLOCKS`` (MQA: one kv head), the group's query heads are
+    split over the smallest divisor of ``hq / hkv`` that reaches it; each
+    split writes fp32 partial dK and dV, summed in split order by a second
+    kernel. dQ takes a block per (query tile, query head, batch)."""
+    n_kt = -(-sk // BWD_TILE)
+    n_qt = -(-sq // BWD_TILE)
+    n_rep = hq // hkv
+    per_split = b * hkv * (-(-n_kt // 2) if causal else n_kt)
+    splits = next((s for s in range(1, n_rep + 1)
+                   if n_rep % s == 0 and per_split * s >= BWD_MIN_BLOCKS), n_rep)
+    scratch = 2 * splits * b * sk * hkv * d * 4 if splits > 1 else 0
+    return BwdPlan(n_kt, n_qt, causal, splits, per_split * splits, n_qt * hq * b, scratch)
+
+
+def bwd_blocks(plan: BwdPlan, b: int, hq: int, hkv: int):
+    """The dK/dV blocks in the kernel's grid order (x: key-tile pair, y:
+    split, z: batch and kv head), each as ``(batch, kv head, split, key
+    tiles, query heads)``: the tiles in the order the block walks them,
+    the heads in the order it sums them."""
+    n_kt, n_rep = plan.key_tiles, hq // hkv
+    heads = n_rep // plan.splits
+    n_x = -(-n_kt // 2) if plan.paired else n_kt
+    for z in range(b * hkv):
+        bi, hk = divmod(z, hkv)
+        for g in range(plan.splits):
+            for p in range(n_x):
+                tiles = (p, n_kt - 1 - p) if plan.paired and n_kt - 1 - p != p else (p,)
+                h0 = hk * n_rep + g * heads
+                yield bi, hk, g, tiles, tuple(range(h0, h0 + heads))
 
 
 def flash_attention(
@@ -233,9 +291,10 @@ def flash_attention_bwd(
     q_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` in the inputs' dtype. A CPU tensor takes
-    ``ref.attention_bwd_ref``; a CUDA tensor launches the backward kernel
-    (three launches: D = rowsum(dO O), dK/dV, dQ) on contiguous copies of
-    any strided input."""
+    ``ref.attention_bwd_ref``; a CUDA tensor launches the backward kernels
+    of its ``route`` (D = rowsum(dO O), dK/dV, the sum of the splits'
+    partials where ``bwd_plan`` splits, dQ) on contiguous copies of any
+    strided input."""
     device = q.device
     if device.type == "cpu":
         return attention_bwd_ref(
@@ -260,12 +319,24 @@ def flash_attention_bwd(
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    dvec = torch.empty((b, hq, sq), dtype=torch.float32, device=device)
+    tma, part, plan = None, None, None
+    if route(q.dtype, d) == "wgmma":
+        tma = _tma_args(q, k, v, dout)
+        plan = bwd_plan(b, sq, sk, hq, hkv, d, bool(causal))
+        # each 64-query tile's lse (log2 units) and D, padded
+        dvec = torch.empty((b, hq, plan.query_tiles, 2, BWD_TILE), dtype=torch.float32,
+                           device=device)
+        if plan.scratch_bytes:
+            part = torch.empty(plan.scratch_bytes // 4, dtype=torch.float32, device=device)
+    else:
+        dvec = torch.empty((b, hq, sq), dtype=torch.float32, device=device)
     err = _build.library().flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, sq, sk, hq, hkv, d, 1.0 / math.sqrt(d), int(causal), int(window or 0),
-        int(q_offset), _build.DTYPE_CODES[q.dtype], device.index,
+        int(q_offset), _build.DTYPE_CODES[q.dtype], tma,
+        None if part is None else part.data_ptr(),
+        plan.splits if plan else 1, int(plan.paired) if plan else 0, device.index,
         _build.current_stream(device.index),
     )
     _build.check(err, "flash_attention_bwd")

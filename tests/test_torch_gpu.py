@@ -567,6 +567,123 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, d, b, sq, sk, hq, hkv, wind
         assert _rel(a, w) <= tol
 
 
+def _bwd_inputs(cuda, b, sq, sk, hq, hkv, d, seed, dtype=torch.bfloat16):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(b, sq, hq, d, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, sk, hkv, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, sk, hkv, d, generator=gen, device=cuda).to(dtype)
+    g = torch.randn(b, sq, hq, d, generator=gen, device=cuda).to(dtype)
+    return q, k, v, g
+
+
+def _check_wgmma_bwd(q, k, v, g, *, causal=True, window=None, q_offset=0):
+    """The tensor-core backward against ``attention_bwd_ref`` and against
+    autograd of ``attention_ref``, 2e-2 relative Frobenius each; returns
+    the kernel's gradients."""
+    sq, sk = q.shape[1], k.shape[1]
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out, lse = fa_ops._forward(q, k, v, causal, window, q_offset, want_lse=True)
+    before = fa_ops.flash_attention_bwd.launches
+    got = fa_ops.flash_attention_bwd(g, q, k, v, out, lse, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention_bwd.launches == before + 1
+    want = attention_bwd_ref(g, q, k, v, out, lse, **kw)
+    qb, kb, vb = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    attention_ref(qb, kb, vb, **kw).backward(g)
+    for a, w, w2 in zip(got, want, (qb.grad, kb.grad, vb.grad)):
+        assert a.dtype == torch.bfloat16 and a.is_contiguous() and torch.isfinite(a.float()).all()
+        assert _rel(a, w) <= 2e-2 and _rel(a, w2) <= 2e-2
+    if q_offset < 0:  # no valid key: zero gradient
+        assert (got[0][:, : -q_offset] == 0).all()
+    # through autograd: the Function's backward is the same kernel
+    qa, ka, va = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    fa_ops.flash_attention(qa, ka, va, block_q=sq, block_k=sk, **kw).backward(g)
+    for a, w in zip((qa.grad, ka.grad, va.grad), got):
+        assert torch.equal(a, w)
+    return got
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize(
+    "b,sq,sk,hq,hkv,window,q_offset",
+    [
+        (2, 128, 128, 4, 4, None, 0),  # GQA 1
+        (1, 100, 100, 8, 2, None, 0),  # GQA 4, ragged last tiles
+        (1, 13, 13, 8, 1, None, 0),  # GQA 8, 13 rows
+        (1, 1, 512, 8, 1, None, 511),  # one query, at the end of 512 keys
+        (1, 300, 300, 4, 1, 100, 0),  # sliding window
+        (1, 64, 192, 8, 2, None, 128),  # query suffix
+        (1, 64, 64, 4, 1, None, -16),  # fully-masked rows
+    ],
+)
+def test_flash_bwd_wgmma_route_matches_plain(cuda, d, b, sq, sk, hq, hkv, window, q_offset):
+    """bf16 with d 64/128/256 takes the tensor-core backward (wgmma +
+    TMA), split over the GQA group's query heads where the plan says so."""
+    assert fa_ops.route(torch.bfloat16, d) == "wgmma"
+    q, k, v, g = _bwd_inputs(cuda, b, sq, sk, hq, hkv, d, seed=d + sq + hq)
+    _check_wgmma_bwd(q, k, v, g, window=window, q_offset=q_offset)
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_bwd_wgmma_bidirectional(cuda, d):
+    """No causal mask: one key tile a block, ragged keys."""
+    q, k, v, g = _bwd_inputs(cuda, 1, 128, 100, 4, 2, d, seed=9)
+    _check_wgmma_bwd(q, k, v, g, causal=False)
+
+
+@pytest.mark.parametrize("hq,hkv,d", [(8, 1, 256), (32, 8, 128)])
+def test_flash_bwd_wgmma_training_shapes_repeat_bit_for_bit(cuda, hq, hkv, d):
+    """(1, 4096) with gemma-2b's and qwen3-8b's heads: within tolerance of
+    both references, and two calls give the same bits (no atomics)."""
+    q, k, v, g = _bwd_inputs(cuda, 1, 4096, 4096, hq, hkv, d, seed=11)
+    got = _check_wgmma_bwd(q, k, v, g)
+    out, lse = fa_ops._forward(q, k, v, True, None, 0, want_lse=True)
+    again = fa_ops.flash_attention_bwd(g, q, k, v, out, lse)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_bwd_wgmma_strided_views(cuda, d):
+    """q/k/v as views of one projection and a strided dO: the wrapper's
+    contiguous copies go to the tensor maps."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    qkv = torch.randn(2, 100, 3, 4, d, generator=gen, device=cuda).bfloat16()
+    q, k, v = qkv.unbind(2)
+    g = _noncontiguous(torch.randn(2, 100, 4, d, generator=gen, device=cuda).bfloat16())
+    assert not q.is_contiguous() and not g.is_contiguous()
+    _check_wgmma_bwd(q, k, v, g)
+
+
+def test_smoke_model_grads_wgmma_route_bf16(cuda):
+    """gemma-2b smoke with heads of 256 in bf16: the attention backward
+    takes the tensor-core route, and every gradient leaf through the
+    kernels is within 2e-2 relative Frobenius of the plain path's."""
+    from dataclasses import replace
+
+    from repro_torch.train.train_step import stack_grads, value_and_grad
+
+    cfg = replace(get_config("gemma-2b").smoke(), head_dim=256)
+    assert fa_ops.route(torch.bfloat16, cfg.head_dim) == "wgmma"
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    params = build_model(cfg).init(gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen, device=cuda)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=-1)}
+    grads = {}
+    for mode in ("kernel", "reference"):
+        model = build_model(cfg, ModelOptions(kernel_mode=mode, compute_dtype="bfloat16",
+                                              loss_chunk=32))
+        before = fa_ops.flash_attention_bwd.launches
+        loss, g = value_and_grad(model, params, batch)
+        grads[mode] = (float(loss), stack_grads(g))
+        launched = fa_ops.flash_attention_bwd.launches - before
+        assert launched == (cfg.n_layers if mode == "kernel" else 0)
+    (lk, gk), (lr_, gr) = grads["kernel"], grads["reference"]
+    assert lk == pytest.approx(lr_, rel=1e-2)
+    for a, b in zip(torch.utils._pytree.tree_leaves(gk), torch.utils._pytree.tree_leaves(gr)):
+        assert torch.isfinite(a).all() and b.norm() > 0
+        assert _rel(a, b) <= 2e-2
+
+
 @pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-8b"])
 def test_smoke_model_grads_kernel_match_reference(cuda, arch):
     """Every gradient leaf of a smoke model through the kernels equals the

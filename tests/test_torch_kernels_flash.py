@@ -105,6 +105,121 @@ def test_flash_route_by_dtype_and_head_dim(dtype, d, expected):
     assert ops.route(dtype, d) == expected
 
 
+@pytest.mark.parametrize(
+    "dtype,d,expected",
+    [
+        (torch.bfloat16, 64, "wgmma"),
+        (torch.bfloat16, 128, "wgmma"),
+        (torch.bfloat16, 256, "wgmma"),
+        (torch.bfloat16, 16, "simt"),
+        (torch.bfloat16, 32, "simt"),
+        (torch.float32, 64, "simt"),
+        (torch.float32, 128, "simt"),
+        (torch.float32, 256, "simt"),
+    ],
+)
+def test_flash_bwd_route_by_dtype_and_head_dim(dtype, d, expected):
+    """The backward takes the forward's rule: bf16 d 64/128/256 on the
+    tensor cores; fp32 (held to 1e-5) and bf16 d 16/32 on the SIMT
+    kernels. The C entry point applies the same test (`dtype == 1 && d in
+    {64, 128, 256}`) and asks for the plan only on that route."""
+    assert ops.route(dtype, d) == expected
+    src = (ops._build.CSRC / "flash_attention_bwd.cu").read_text()
+    assert "if (dtype == 1 && (d == 64 || d == 128 || d == 256)) {" in src
+
+
+# (b, sq, sk, hq, hkv, d, causal): gemma-2b and qwen3-8b at (1, 4096),
+# ragged tiles, an odd number of key tiles, MQA and GQA, no causal mask
+PLAN_CASES = [
+    (1, 4096, 4096, 8, 1, 256, True),
+    (1, 4096, 4096, 32, 8, 128, True),
+    (2, 100, 100, 8, 2, 64, True),
+    (1, 64, 320, 4, 1, 128, True),
+    (3, 13, 13, 8, 1, 256, True),
+    (1, 128, 100, 4, 2, 64, False),
+]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_flash_bwd_plan_covers_each_key_tile_and_head_once(case):
+    """Every (batch, key tile, query head) falls in exactly one dK/dV
+    block, whose kv head is that query head's, and the plan's block count
+    is the grid's."""
+    b, sq, sk, hq, hkv, d, causal = case
+    plan = ops.bwd_plan(b, sq, sk, hq, hkv, d, causal)
+    blocks = list(ops.bwd_blocks(plan, b, hq, hkv))
+    assert len(blocks) == plan.dkdv_blocks
+    seen = [(bi, t, h) for bi, hk, _, tiles, heads in blocks for t in tiles for h in heads
+            if h // (hq // hkv) == hk]
+    want = [(bi, t, h) for bi in range(b) for t in range(-(-sk // 64)) for h in range(hq)]
+    assert len(seen) == sum(len(tl) * len(hs) for _, _, _, tl, hs in blocks)
+    assert sorted(seen) == want
+    assert plan.dq_blocks == -(-sq // 64) * hq * b
+
+
+def test_flash_bwd_plan_balances_the_causal_triangle():
+    """Under the causal mask a block takes key tiles p and n - 1 - p: at
+    (1, 4096) every block walks 65 query tiles a head."""
+    plan = ops.bwd_plan(1, 4096, 4096, 8, 1, 256, True)
+    n = plan.key_tiles
+    for *_, tiles, _ in ops.bwd_blocks(plan, 1, 8, 1):
+        assert sum(n - t for t in tiles) == n + 1
+
+
+def test_flash_bwd_plan_fills_the_card_at_gemma_2b():
+    """gemma-2b's single kv head at (1, 4096): 32 key-tile pairs, so the 8
+    query heads are split 4 ways for 128 dK/dV blocks; qwen3-8b's 8 kv
+    heads need no split."""
+    gemma = ops.bwd_plan(1, 4096, 4096, 8, 1, 256, True)
+    assert gemma.splits == 4 and gemma.dkdv_blocks >= 128
+    qwen = ops.bwd_plan(1, 4096, 4096, 32, 8, 128, True)
+    assert qwen.splits == 1 and qwen.dkdv_blocks == 256 and qwen.scratch_bytes == 0
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_flash_bwd_plan_scratch_bytes(case):
+    """fp32 partial dK and dV, one of each a split, only when split: 32 MiB
+    at gemma-2b's (1, 4096)."""
+    b, sq, sk, hq, hkv, d, causal = case
+    plan = ops.bwd_plan(b, sq, sk, hq, hkv, d, causal)
+    assert (hq // hkv) % plan.splits == 0
+    want = 2 * plan.splits * b * sk * hkv * d * 4 if plan.splits > 1 else 0
+    assert plan.scratch_bytes == want
+    if case[:6] == (1, 4096, 4096, 8, 1, 256):
+        assert plan.scratch_bytes == 32 * 2**20
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_flash_bwd_plan_fixes_the_summation_order(case):
+    """A key tile's dK and dV sum its query heads in ascending order inside
+    a block and the splits in ascending order after, whatever the launch
+    order: the plan is a function of the shapes alone, so two calls give
+    the same bits."""
+    b, sq, sk, hq, hkv, d, causal = case
+    plan = ops.bwd_plan(b, sq, sk, hq, hkv, d, causal)
+    order = {}
+    for bi, hk, g, tiles, heads in ops.bwd_blocks(plan, b, hq, hkv):
+        assert list(heads) == sorted(heads)
+        for t in tiles:
+            order.setdefault((bi, hk, t), []).append((g, heads))
+    for parts in order.values():
+        assert [g for g, _ in parts] == list(range(plan.splits))
+        flat = [h for _, hs in parts for h in hs]
+        assert flat == sorted(flat)
+    ops.bwd_plan.cache_clear()
+    assert ops.bwd_plan(b, sq, sk, hq, hkv, d, causal) == plan
+
+
+def test_flash_bwd_source_has_no_device_atomics():
+    """Runs repeat bit for bit: no atomic operation in the backward's
+    kernels (the source's only `std::atomic` is a host flag)."""
+    import re
+
+    src = (ops._build.CSRC / "flash_attention_bwd.cu").read_text()
+    assert not re.search(r"\batomic(Add|Sub|Max|Min|Inc|Dec|CAS|Exch|And|Or|Xor)|\batom\.|\bred\.", src)
+    assert "std::atomic<uint64_t>" in src
+
+
 @pytest.mark.parametrize("d", [64, 128, 256])
 def test_tma_geometry_contiguous(d):
     t = torch.zeros((2, 100, 8, d), dtype=torch.bfloat16)

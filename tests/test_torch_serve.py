@@ -35,10 +35,10 @@ def test_serve_main_serves_every_request():
     assert serve.main(ARGV).failures == {}
 
 
-def test_train_background_is_not_ported_yet():
-    """It is now: ``--train-background`` co-locates a trainer with the
-    services; every request is served, the trainer takes gradient steps
-    and nothing fails."""
+def test_train_background_runs():
+    """``--train-background`` co-locates a trainer with the services;
+    every request is served, the trainer takes gradient steps and nothing
+    fails."""
     # a long window: the run ends when the sessions finish, not at the
     # serve loop's wall cap (duration + 5 s), however loaded the host
     report, ex = serve.serve(serve.build_parser().parse_args(
