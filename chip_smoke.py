@@ -21,10 +21,11 @@ first use), then runs eight phases, each printing JSON lines:
               that cost goes at the serve shapes (``host_us_a_call``). The
               backward kernels (RMSNorm, flash attention) at the training
               shapes, each held against its plain backward and against
-              autograd of the plain forward (relative Frobenius); the
-              flash-attention backward also with its route, its launch
-              plan, a bit-for-bit repeat and, at the training shapes, its
-              kernels' device time.
+              autograd of the plain forward (relative Frobenius), with
+              each kernel's device time; the flash-attention backward also
+              with its route (bf16 and fp32 on the tensor cores), its
+              launch plan and a bit-for-bit repeat. fp32 attention's bound
+              is at the 3xTF32 line (the TF32 peak over three).
 3. serve    — ``repro_torch.launch.serve`` with its default services,
               gemma-2b, qwen3-8b and rwkv6-7b, at full width and depth
               (random weights from fixed seeds) on one ``SalusExecutor``:
@@ -76,10 +77,15 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # H100 SXM published peaks (dense), the bound's denominators: bf16 on the
-# tensor cores; fp32 outside them (the kernels do fp32 arithmetic on the
-# plain ALUs, and fp32 attention may not use TF32)
+# tensor cores; fp32 outside them (the norms' and WKV6's elementwise fp32
+# arithmetic)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# fp32-accurate products on the tensor cores: three TF32 products each
+# (3xTF32), so the TF32 line over three. fp32 attention (forward and
+# backward) may not use plain TF32, but this is the least time the card
+# could take for its products.
+PEAK_FLOPS_FP32_ATTENTION = 494.7e12 / 3
 # the JAX kernel tests' tolerances (tests/test_kernels_rmsnorm.py, _flash.py)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -173,6 +179,10 @@ def within(a: torch.Tensor, b: torch.Tensor, tol: float) -> bool:
     """|a - b| <= tol + tol * |b| everywhere (the JAX tests' rtol = atol)."""
     a, b = a.float(), b.float()
     return bool(((a - b).abs() <= tol + tol * b.abs()).all().item())
+
+
+def attention_peak_flops(dtype) -> float:
+    return PEAK_FLOPS_FP32_ATTENTION if dtype == torch.float32 else PEAK_FLOPS[dtype]
 
 
 def bound(nbytes: float, ops: float, flops_per_s: float):
@@ -337,7 +347,7 @@ def flash_case(b, sq, sk, hq, hkv, d, dtype, *, causal=True, window=None,
     flops = 4.0 * b * hq * d * pairs
     es = q.element_size()
     nbytes = es * (2 * b * sq * hq * d + 2 * b * sk * hkv * d)
-    bound_ms, bound_by = bound(nbytes, flops, PEAK_FLOPS[dtype])
+    bound_ms, bound_by = bound(nbytes, flops, attention_peak_flops(dtype))
     res = {
         "phase": "kernels",
         "kernel": "flash_attention",
@@ -460,6 +470,7 @@ def rmsnorm_bwd_case(rows: int, d: int, dtype, iters: int) -> dict:
     if hasattr(F, "rms_norm"):
         xl, sl = x.clone().requires_grad_(), scale.clone().requires_grad_()
         library_ms = grad_time_ms(F.rms_norm(xl, (d,), sl, 1e-6), (xl, sl), g, iters)
+    by_kernel = kernel_device_us(run)
     es = x.element_size()
     # g and x read once, dx written once; the scale read, its gradient written
     nbytes = 3 * rows * d * es + 2 * d * scale.element_size()
@@ -473,6 +484,7 @@ def rmsnorm_bwd_case(rows: int, d: int, dtype, iters: int) -> dict:
         "ms": ms, "host_ms": launch_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "launch_shape": ops.bwd_launch_shape(d, es)._asdict(),
+        "device_us_by_kernel": by_kernel, "device_us": sum(by_kernel.values()),
     }
     emit(res)
     check(ok, f"rmsnorm_bwd {rows}x{d} {dtype}: {rel} / {rel_autograd} > {tol}")
@@ -550,9 +562,9 @@ def flash_bwd_case(b, sq, sk, hq, hkv, d, dtype, *, window=None, q_offset=0, ite
         y = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=hq != hkv)
     library_ms = grad_time_ms(y, (qt, kt, vt), g.transpose(1, 2), iters)
     del qt, kt, vt, y
-    route = ops.route(dtype, d)
-    plan = ops.bwd_plan(b, sq, sk, hq, hkv, d, True)._asdict() if route == "wgmma" else None
-    by_kernel = kernel_device_us(run) if route == "wgmma" and sq >= 4096 else None
+    route = ops.bwd_route(dtype, d)
+    plan = ops.bwd_plan(b, sq, sk, hq, hkv, d, True)._asdict() if route != "simt" else None
+    by_kernel = kernel_device_us(run) if route != "simt" and sq >= 512 else None
     pairs = int(mask.sum().item())  # the (query, key) pairs this input needs
     # five products of 2 d multiply-adds a pair and head: S, dP, dV, dK, dQ
     flops = 10.0 * b * hq * d * pairs
@@ -560,7 +572,7 @@ def flash_bwd_case(b, sq, sk, hq, hkv, d, dtype, *, window=None, q_offset=0, ite
     # q, o, dO read and dq written (b sq hq d each); k, v read and dk, dv
     # written (b sk hkv d each); lse read
     nbytes = es * (4 * b * sq * hq * d + 4 * b * sk * hkv * d) + 4 * b * hq * sq
-    bound_ms, bound_by = bound(nbytes, flops, PEAK_FLOPS[dtype])
+    bound_ms, bound_by = bound(nbytes, flops, attention_peak_flops(dtype))
     res = {
         "phase": "kernels", "kernel": "flash_attention_bwd",
         "shape": {"b": b, "sq": sq, "sk": sk, "hq": hq, "hkv": hkv, "d": d,
@@ -689,6 +701,10 @@ def phase_kernels() -> dict:
         dict(b=1, sq=4096, sk=4096, hq=8, hkv=1, d=256, dtype=bf16, iters=3),
         dict(b=1, sq=4096, sk=4096, hq=32, hkv=8, d=128, dtype=bf16, iters=3),
         dict(b=1, sq=512, sk=512, hq=32, hkv=8, d=128, dtype=f32, iters=3),
+        # fp32 (3xTF32) at the training shapes: gemma-2b's (train_parity's)
+        # and qwen3-8b's heads
+        dict(b=1, sq=4096, sk=4096, hq=8, hkv=1, d=256, dtype=f32, iters=3),
+        dict(b=1, sq=4096, sk=4096, hq=32, hkv=8, d=128, dtype=f32, iters=3),
         dict(b=1, sq=1024, sk=1024, hq=8, hkv=2, d=128, dtype=bf16, window=256),
         dict(b=1, sq=512, sk=1024, hq=8, hkv=2, d=128, dtype=bf16, q_offset=512),
         dict(b=2, sq=256, sk=256, hq=4, hkv=2, d=16, dtype=f32),
@@ -874,7 +890,10 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict) -> None:
     the norm at (8192, 4096) and attention at (1, 2048) for qwen3-8b's and
     gemma-2b's heads. The backward kernels (no TPU counterpart: the JAX
     package trains through jnp) at the training path's shapes, gemma-2b's
-    norm rows and heads at (1, 4096), with the train path's count."""
+    norm rows and heads at (1, 4096), with the train path's count; the
+    attention backward's fp32 route (3xTF32, the train_parity phase's) at
+    gemma-2b's and qwen3-8b's heads at (1, 4096) and at the (1, 512)
+    parity prompt."""
     rms = k[("rmsnorm", 64, 4096, "bfloat16")]
     rms_res = k[("rmsnorm_residual", 64, 4096, "bfloat16")]
     fa = k[("flash_attention", 4, 16, 32, 128, None, 0, "bfloat16")]
@@ -921,7 +940,11 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict) -> None:
          "launches_a_train_step": per_step["flash_attention_bwd"],
          "kernel_route": fa_bwd["route"],
          "shape": fa_bwd["shape"], "dtype": "bfloat16", **{x: fa_bwd[x] for x in keys},
-         "at_qwen3_heads": at(k[("flash_attention_bwd", 1, 4096, 32, 128, None, 0, "bfloat16")])},
+         "at_qwen3_heads": at(k[("flash_attention_bwd", 1, 4096, 32, 128, None, 0, "bfloat16")]),
+         "fp32_route": {
+             "kernel_route": k[("flash_attention_bwd", 1, 4096, 8, 256, None, 0, "float32")]["route"],
+             "at": [at(k[("flash_attention_bwd", 1, s, hq, d, None, 0, "float32")])
+                    for s, hq, d in ((4096, 8, 256), (4096, 32, 128), (512, 32, 128))]}},
     ]})
 
 

@@ -19,9 +19,10 @@
 // Bound on the H100: operations (five products of s^2 d a head against
 // ~8 s d elements moved). No atomic operation on the device (the one
 // `std::atomic` is the host's once-a-device flag for the shared-memory
-// attribute), so two calls give the same bits. Two routes, chosen by dtype and head size only (never because
-// another failed), as the forward's; kernels/flash_attention/ops.py
-// mirrors the choice (`route`) and the launch plan (`bwd_plan`):
+// attribute), so two calls give the same bits. Three routes, chosen by
+// dtype and head size only (never because another failed);
+// kernels/flash_attention/ops.py mirrors the choice (`bwd_route`) and the
+// launch plan (`bwd_plan`), which the two tensor-core routes share:
 //
 // * bf16, d in {64, 128, 256}: the tensor-core kernels, four launches.
 //   (a) `flash_bwd_stats_kernel`: D in fp32, one warp a (batch, head,
@@ -67,16 +68,46 @@
 //       at gemma-2b's (1, 4096)).
 //   Masks are applied only on tiles that cross an edge; TMA's zero fill
 //   covers rows past sq and sk, and stores are masked.
-// * fp32 (any d; held to 1e-5, which bf16 products cannot meet) and bf16
-//   with d in {16, 32} (narrower than the swizzle): the SIMT fp32
+// * fp32, d in {64, 128, 256} (held to 1e-5, which bf16 products cannot
+//   meet): 3xTF32 `mma.sync` (m16n8k8; each fp32 operand split into two
+//   TF32 parts, big*big + big*small + small*big accumulated in fp32, as
+//   wkv6.cu does), the same four launches on the same plan: the stats
+//   kernel (the lse in natural units, since P = exp(S scale - lse) as the
+//   fp32 forward's lse and the SIMT route have it), a dK/dV pass, the
+//   split sum in fp32 and a dQ pass. wgmma's tf32 form needs both operands
+//   K-major, so P^T dO, dS^T Q and dS K would need transposed tiles;
+//   mma.sync takes them as they lie. Tiles are staged in fp32 in shared
+//   memory by cp.async, two stages deep, rows padded to d + 4 floats so
+//   every fragment load is free of bank conflicts. The register budget: a
+//   block is two warpgroups (256 threads) at every d, and warp w of each
+//   shares 16 keys (dK/dV pass) or 16 queries (dQ pass). In the dK/dV pass
+//   warp w of warpgroup 0 computes S^T, P^T and dV, warp w of warpgroup 1
+//   dP^T, dS^T and dK, P^T handed over in shared memory in the
+//   accumulator's thread order, each holding d / 2 accumulator registers
+//   for its keys. At d = 256 those 128 beside the products' fragments
+//   spilled, so there two warps of a warpgroup share 16 keys and split d:
+//   each computes its half of S^T (dP^T), the halves are exchanged through
+//   shared memory and summed in column order (both warps hold the same
+//   bits), and each accumulates its half of dV's (dK's) columns; a walk
+//   of the band then covers 32 keys, and the band is walked twice. In the
+//   dQ pass warpgroup 0 forms P, warpgroup 1 dS, handed back, and each
+//   accumulates half of dQ's columns. The products'
+//   inner index over queries (keys) is taken in the order the accumulator
+//   holds them, so P^T and dS^T (dS) go from accumulator registers
+//   straight into A fragments. Each mma chain spans at most 32 inner rows
+//   and is then added to its accumulator by fp32 adds: the tensor cores'
+//   accumulation does not round to nearest, and one chain over a (1,
+//   4096) band missed 1e-5. A step streams 64 queries (keys) at d = 64, 32
+//   at d = 128 and 16 at d = 256, so a step's score tiles stay in
+//   registers (and the resident 64-row fp32 tiles take 130 KB at d = 256).
+// * d in {16, 32} (smoke widths only), fp32 and bf16: the SIMT fp32
 //   kernels, three launches: D; `flash_bwd_dkdv_kernel`, one block per
 //   (key tile, kv head, batch) that loops over the group's query heads
 //   and the band's query tiles, so the GQA sum stays inside the block;
 //   `flash_bwd_dq_kernel`, one block per (query tile, query head,
 //   batch). Tiles staged as fp32 in shared memory, each of 256 threads
-//   computes a patch of each product (64 x 64 tiles, 32 x 32 at d =
-//   256: 165 KB at d = 128, 140 KB at d = 256); bound by shared-memory
-//   reads.
+//   computes a patch of each product (64 x 64 tiles); bound by
+//   shared-memory reads.
 //
 // Layout: q, o, dO, dq (b, sq, hq, d); k, v, dk, dv (b, sk, hkv, d); all
 // contiguous: the wrapper copies a strided view (a copy of b s h d
@@ -119,11 +150,11 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// Query rows (BQ) and keys (BK) a tile, by head size.
+// Query rows (BQ) and keys (BK) a tile of the SIMT route (d 16 and 32).
 template <int D>
 struct Tile {
-  static constexpr int BQ = D == 256 ? 32 : 64;
-  static constexpr int BK = D == 256 ? 32 : 64;
+  static constexpr int BQ = 64;
+  static constexpr int BK = 64;
   static constexpr int LD = D + 1;   // padded row of a q/k/v/dO tile
   static constexpr int LS = BK + 1;  // padded row of a P / dS tile
   // sQ, sdO (BQ x LD), sK, sV (BK x LD), sP, sdS (BQ x LS), lse and D (BQ)
@@ -482,12 +513,13 @@ __device__ __forceinline__ Band query_band(int k0, int sq, int sk, int causal, i
   return {q_lo / kTile, q_hi > q_lo ? (q_hi + kTile - 1) / kTile : 0};
 }
 
-// Does the (query tile, key tile) pair cross an edge of the mask or of sk?
-__device__ __forceinline__ bool crosses_edge(int q0, int k0, int sq, int sk, int causal,
-                                             int window, int q_offset) {
+// Does the pair of query rows [q0, q0 + nq) and keys [k0, k0 + nk) cross
+// an edge of the mask or of sk?
+__device__ __forceinline__ bool crosses_edge(int q0, int nq, int k0, int nk, int sq, int sk,
+                                             int causal, int window, int q_offset) {
   const int qa_first = q0 + q_offset;
-  const int qa_last = min(q0 + kTile, sq) - 1 + q_offset;
-  return (k0 + kTile > sk) || (causal && k0 + kTile - 1 > qa_first) ||
+  const int qa_last = min(q0 + nq, sq) - 1 + q_offset;
+  return (k0 + nk > sk) || (causal && k0 + nk - 1 > qa_first) ||
          (window > 0 && k0 <= qa_last - window);
 }
 
@@ -498,18 +530,19 @@ __device__ __forceinline__ bool pair_valid(int qa, int ka, int sk, int causal, i
   return ok;
 }
 
-// The per-query statistics of the tensor-core route, (b, hq, n_qt, 2, 64)
-// fp32: for each 64-query tile, lse in log2 units, then D. An lse of
-// -inf (no valid key) and the padding past sq are stored as +inf, so
-// exp2(s - lse) is 0 for every s and never exp2(+inf); the padding's D is
-// 0. One tile's 512 bytes arrive with its Q and dO by one bulk copy.
+// The per-query statistics of the tensor-core routes, (b, hq, n_qt, 2, 64)
+// fp32: for each 64-query tile, lse (in log2 units on the bf16 route,
+// natural on the fp32 one), then D. An lse of -inf (no valid key) and the
+// padding past sq are stored as +inf, so exp2(s - lse) (or exp) is 0 for
+// every s and never of +inf; the padding's D is 0. On the bf16 route one
+// tile's 512 bytes arrive with its Q and dO by one bulk copy.
 constexpr int kStatFloats = 2 * kTile;
 
-// (a) D = rowsum(dO O) and the lse in log2 units, one warp a (batch,
-// head, padded query) row.
+// (a) D = rowsum(dO O) and the lse (in log2 units if kLog2), one warp a
+// (batch, head, padded query) row.
+template <typename T, bool kLog2>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_stats_kernel(const __nv_bfloat16* __restrict__ o,
-                       const __nv_bfloat16* __restrict__ dout,
+flash_bwd_stats_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                        const float* __restrict__ lse, float* __restrict__ stats,
                        int64_t rows, int sq, int n_qt, int hq, int d) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
@@ -521,14 +554,14 @@ flash_bwd_stats_kernel(const __nv_bfloat16* __restrict__ o,
   if (sp < sq) {
     const int64_t off = ((bh / hq * sq + sp) * hq + bh % hq) * d;
     for (int c = lane; c < d; c += 32)
-      acc = fmaf(__bfloat162float(o[off + c]), __bfloat162float(dout[off + c]), acc);
+      acc = fmaf(to_f32(o[off + c]), to_f32(dout[off + c]), acc);
 #pragma unroll
     for (int w = 16; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
   }
   if (lane == 0) {
     const float l = sp < sq ? lse[bh * sq + sp] : -INFINITY;
     float* tile = stats + (bh * n_qt + sp / kTile) * kStatFloats;
-    tile[sp % kTile] = l == -INFINITY ? INFINITY : l * kLog2e;
+    tile[sp % kTile] = l == -INFINITY ? INFINITY : kLog2 ? l * kLog2e : l;
     tile[kTile + sp % kTile] = acc;
   }
 }
@@ -692,7 +725,7 @@ flash_bwd_dkdv_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
       const uint32_t parity = (step / kStages) & 1;
       const int q0 = (qb.lo + j % n_q) * kTile;
       const float* st = generic(sSt(stage));  // lse (log2 units), then D
-      const bool edge = crosses_edge(q0, k0, sq, sk, causal, window, q_offset);
+      const bool edge = crosses_edge(q0, kTile, k0, kTile, sq, sk, causal, window, q_offset);
       // element i's query (column) within the tile
       auto col = [&](int i) { return 8 * (i >> 2) + cq + (i & 1); };
       // P^T from S^T and the queries' lse (log2 units), masked only on a
@@ -846,11 +879,12 @@ flash_bwd_dkdv_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// (c) dK and dV from the splits' fp32 partials, summed in split order;
-// n4 = b sk hkv d / 4 (d is a multiple of 64).
+// (c) dK and dV from the splits' fp32 partials, summed in split order, in
+// T; n4 = b sk hkv d / 4 (d is a multiple of 64).
+template <typename T>
 __global__ void __launch_bounds__(256)
-flash_bwd_sum_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int64_t n4, int splits) {
+flash_bwd_sum_kernel(const float* __restrict__ part, T* __restrict__ dk, T* __restrict__ dv,
+                     int64_t n4, int splits) {
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= 2 * n4) return;
   const int which = idx >= n4;  // 0: dK, 1: dV
@@ -864,10 +898,14 @@ flash_bwd_sum_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__
     a.z += x.z;
     a.w += x.w;
   }
-  uint2 out;
-  out.x = hopper::pack_bf16(a.x, a.y);
-  out.y = hopper::pack_bf16(a.z, a.w);
-  reinterpret_cast<uint2*>(which ? dv : dk)[i] = out;
+  if constexpr (sizeof(T) == 4) {
+    reinterpret_cast<float4*>(which ? dv : dk)[i] = a;
+  } else {
+    uint2 out;
+    out.x = hopper::pack_bf16(a.x, a.y);
+    out.y = hopper::pack_bf16(a.z, a.w);
+    reinterpret_cast<uint2*>(which ? dv : dk)[i] = out;
+  }
 }
 
 template <int D>
@@ -996,7 +1034,7 @@ flash_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     hopper::fence_regs(s);
 
     // P, masked only on a tile that crosses an edge
-    const bool edge = crosses_edge(q0, k0, sq, sk, causal, window, q_offset);
+    const bool edge = crosses_edge(q0, kTile, k0, kTile, sq, sk, causal, window, q_offset);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       float x = s[i] * scale_log2;
@@ -1063,6 +1101,476 @@ flash_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// fp32 tensor-core route: 3xTF32 mma.sync
+// ---------------------------------------------------------------------------
+
+constexpr int kTcThreads = 256;  // two warpgroups of four warps
+constexpr int kBarX = 2;         // named barrier: P (P^T) handed from half 0 to half 1
+constexpr int kBarDs = 3;        // named barrier: dS handed back (dQ pass)
+constexpr int kBarS = 3;         // named barriers 3, 4: a warpgroup's halves of the scores (dK/dV)
+
+// Rows of a streamed tile (queries in the dK/dV pass, keys in the dQ
+// pass): 64 at d = 64, 32 at d = 128 and 16 at d = 256, which keeps a
+// step's score tiles and fragments in registers beside the accumulator
+// (and, at d = 256, the resident 64-row fp32 tiles already take 130 KB).
+template <int D>
+constexpr int kTcStream = D == 256 ? 16 : D == 128 ? 32 : 64;
+// padded fp32 row: D + 4 = 4 (mod 32) words, so the scalar fragment reads
+// (rows g, columns q) and the float2 reads (rows 2q, 2q + 1; columns 2g)
+// hit 32 distinct banks
+template <int D>
+constexpr int kTcLd = D + 4;
+// Halves of the dK/dV pass: at d = 256 a thread's d-wide accumulator for
+// its keys (128 registers) beside the products' fragments spills, so there
+// the two warps that share 16 keys split d: each computes its half of S^T
+// (dP^T), the halves are exchanged and summed in a fixed order, and each
+// accumulates its half of dV's (dK's) columns; a walk of the band then
+// covers 32 of the tile's 64 keys, and the band is walked twice.
+template <int D>
+constexpr int kTcHalves = D == 256 ? 2 : 1;
+
+template <int D>
+constexpr size_t tc_smem_bytes() {
+  // two resident 64-row tiles; kStages x two streamed tiles and their
+  // query statistics (lse, D); the P^T exchange (64 x stream floats); with
+  // halves, each warp's part of the scores (8 warps x 16 x stream floats)
+  return sizeof(float) * (2 * kTile * kTcLd<D> + kStages * 2 * kTcStream<D> * kTcLd<D> +
+                          kStages * 2 * kTcStream<D> + kTile * kTcStream<D> +
+                          (kTcHalves<D> == 2 ? 8 * 16 * kTcStream<D> : 0));
+}
+
+// Rows r0 .. r0 + R - 1 of one head of a contiguous (b, s, h, D) fp32
+// tensor into shared memory (row stride kTcLd) by cp.async, 16 bytes a
+// copy, spread over the block; rows at or past n are zero-filled.
+template <int D, int R>
+__device__ __forceinline__ void stage_rows_tc(float* dst, const float* __restrict__ base,
+                                              int r0, int n, int64_t row_stride) {
+  constexpr int kChunks = D / 4;
+  for (int idx = threadIdx.x; idx < R * kChunks; idx += kTcThreads) {
+    const int r = idx / kChunks;
+    const int c = (idx % kChunks) * 4;
+    const bool live = r0 + r < n;
+    const float* src = live ? base + static_cast<int64_t>(r0 + r) * row_stride + c : base;
+    hopper::cp_async16(hopper::smem_addr(dst + r * kTcLd<D> + c), src, live);
+  }
+}
+
+// acc (16 rows x 16 columns a pair of n tiles) += A B over 8 NT of the
+// product's inner rows, with A (16 x 8 NT) from accumulator tiles x of this
+// warp: x[n][0..3] hold A's rows g, g + 8 and inner columns 8 n + 2 q and
+// + 1, taken as the fragment's inner indices q and q + 4 (any permutation
+// of the inner index that A and B share gives the same sum). B's inner
+// rows 8 n + 2 q and + 1 are read from `rows` (stride kTcLd), columns c0 +
+// 16 p + 2 g and + 1 as float2 (one for each n tile of the pair).
+// acc[p][e][i] then holds row g + 8 (i / 2), column c0 + 16 p + 4 q +
+// 2 (i % 2) + e. A column pair's products over up to four n tiles (32
+// inner rows) are summed in a fresh accumulator, then added to acc by an
+// fp32 add: the tensor cores' accumulation does not round to nearest, and
+// over a band of thousands of rows its error grows past 1e-5 (measured at
+// (1, 4096)); here it spans 32 rows.
+template <int D, int NT, int NP>
+__device__ __forceinline__ void accumulate_tc(float (&acc)[NP][2][4], const float (&x)[NT][4],
+                                              const float* rows, int c0, int g, int q) {
+  constexpr int kChunk = NT < 4 ? NT : 4;
+#pragma unroll
+  for (int n0 = 0; n0 < NT; n0 += kChunk) {
+    hopper::Tf32Split<4> a[kChunk];
+#pragma unroll
+    for (int n = 0; n < kChunk; ++n) {
+      a[n].set(0, x[n0 + n][0]);
+      a[n].set(1, x[n0 + n][2]);
+      a[n].set(2, x[n0 + n][1]);
+      a[n].set(3, x[n0 + n][3]);
+    }
+    const float* r_lo = rows + (8 * n0 + 2 * q) * kTcLd<D> + c0 + 2 * g;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      float part[2][4] = {};
+#pragma unroll
+      for (int n = 0; n < kChunk; ++n) {
+        const float* r = r_lo + 8 * n * kTcLd<D> + 16 * p;
+        const float2 lo = *reinterpret_cast<const float2*>(r);
+        const float2 hi = *reinterpret_cast<const float2*>(r + kTcLd<D>);
+        hopper::Tf32Split<2> b0, b1;
+        b0.set(0, lo.x);
+        b0.set(1, hi.x);
+        b1.set(0, lo.y);
+        b1.set(1, hi.y);
+        hopper::mma_m16n8k8_3xtf32(part[0], a[n], b0);
+        hopper::mma_m16n8k8_3xtf32(part[1], a[n], b1);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[p][e][i] += part[e][i];
+    }
+  }
+}
+
+// x (16 rows x 8 NT columns) = A B^T over DC columns, A's rows a_rows ..
+// + 15 and B's rows 0 .. 8 NT - 1 (both stride kTcLd<D>, the pointers at
+// the first column). x[n][i] holds row g + 8 (i / 2), column 8 n + 2 q +
+// i % 2. Summed 32 columns at a time in a fresh accumulator, then by fp32
+// adds (see accumulate_tc).
+template <int D, int NT, int DC = D>
+__device__ __forceinline__ void scores_tc(float (&x)[NT][4], const float* a_rows,
+                                          const float* b_rows, int g, int q) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[n][i] = 0.f;
+  const float* a0 = a_rows + g * kTcLd<D> + q;
+  const float* a1 = a0 + 8 * kTcLd<D>;
+  const float* b0 = b_rows + g * kTcLd<D> + q;
+#pragma unroll 1
+  for (int c0 = 0; c0 < DC; c0 += 32) {
+    float part[NT][4] = {};
+#pragma unroll
+    for (int c = c0; c < c0 + 32; c += 8) {
+      hopper::Tf32Split<4> a;
+      a.set(0, a0[c]);
+      a.set(1, a1[c]);
+      a.set(2, a0[c + 4]);
+      a.set(3, a1[c + 4]);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        hopper::Tf32Split<2> b;
+        b.set(0, b0[n * 8 * kTcLd<D> + c]);
+        b.set(1, b0[n * 8 * kTcLd<D> + c + 4]);
+        hopper::mma_m16n8k8_3xtf32(part[n], a, b);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[n][i] += part[n][i];
+  }
+}
+
+// An accumulator of accumulate_tc (rows r0 + g and + 8 of a (rows, row
+// stride rs) fp32 matrix, columns c0 + ...) times mult, as float4 stores;
+// rows at or past n are not written.
+template <int NP>
+__device__ __forceinline__ void store_tc(const float (&acc)[NP][2][4], float* dst, int64_t rs,
+                                         int r0, int n, int c0, int q, float mult) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if (r0 + 8 * hr >= n) continue;
+    float* row = dst + static_cast<int64_t>(r0 + 8 * hr) * rs + c0 + 4 * q;
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      *reinterpret_cast<float4*>(row + 16 * p) =
+          make_float4(acc[p][0][2 * hr] * mult, acc[p][1][2 * hr] * mult,
+                      acc[p][0][2 * hr + 1] * mult, acc[p][1][2 * hr + 1] * mult);
+  }
+}
+
+// (b) dK and dV of one or two 64-key tiles of one kv head, summed over a
+// split of the group's query heads and the query tiles of the band, in
+// 3xTF32. Warp w of warpgroup 0 and warp w of warpgroup 1 share keys
+// 16 w .. 16 w + 15: the first computes S^T = K Q^T, P^T and dV += P^T dO;
+// the second dP^T = V dO^T, dS^T = P^T (dP^T - D) and dK += dS^T Q, with
+// P^T handed over through shared memory in the accumulator's thread order.
+// With halves (d = 256) warps w and w + 2 of a warpgroup share keys
+// 16 (w % 2) of a 32-key half, each on its half of d; the band is walked
+// once for each 32-key half, the ring streaming on from one walk into the
+// next.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dkdv_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ dout,
+                           const float* __restrict__ stats, float* __restrict__ dk,
+                           float* __restrict__ dv, float* __restrict__ part, int nb, int sq,
+                           int sk, int hq, int hkv, int n_kt, int splits, int paired,
+                           float scale, int causal, int window, int q_offset) {
+  constexpr int H = kTcHalves<D>;
+  constexpr int DC = D / H;             // columns of d a warp computes on
+  constexpr int BS = kTcStream<D>;      // queries a step
+  constexpr int LD = kTcLd<D>;
+  constexpr int NT = BS / 8;            // 8-query n tiles of S^T
+  constexpr int NP = DC / 16;           // pairs of 8-column n tiles of dV or dK
+  extern __shared__ float smem[];
+  float* sK = smem;
+  float* sV = sK + kTile * LD;
+  float* ring = sV + kTile * LD;  // kStages x (Q, dO)
+  float* sSt = ring + kStages * 2 * BS * LD;  // kStages x (lse, D), BS each
+  float* xbuf = sSt + kStages * 2 * BS;        // P^T, 64 x BS
+  float* xpart = xbuf + kTile * BS;            // H = 2: each warp's part of the scores
+
+  const int tid = threadIdx.x;
+  const int half = tid / kWgThreads;  // 0: S^T, P^T, dV; 1: dP^T, dS^T, dK
+  const int wtid = tid % kWgThreads;
+  const int wr = wtid >> 5;
+  const int kg = H == 2 ? wr & 1 : wr;             // 16-key group within a walk's keys
+  const int c_lo = H == 2 ? (wr >> 1) * DC : 0;  // this warp's columns of d
+  const int lane = tid & 31;
+  const int xslot = kg * 32 + lane;  // P^T's slot: the writer's (c_lo = 0) thread
+  const int g = lane >> 2;
+  const int qd = lane & 3;
+  const int p = blockIdx.x;
+  const int split = blockIdx.y;
+  const int b = blockIdx.z / hkv;
+  const int hk = blockIdx.z % hkv;
+  const int n_rep = hq / hkv;
+  const int heads = n_rep / splits;
+  const int h0 = hk * n_rep + split * heads;
+  const int n_mine = paired && n_kt - 1 - p != p ? 2 : 1;
+  const int n_qt = (sq + kTile - 1) / kTile;
+  const int64_t q_row = static_cast<int64_t>(hq) * D;
+  const int64_t kv_row = static_cast<int64_t>(hkv) * D;
+  const int64_t kv_off = static_cast<int64_t>(b) * sk * kv_row + static_cast<int64_t>(hk) * D;
+  // dK carries the scale; with splits, fp32 partials (2, splits, b, sk,
+  // hkv, D), dK first, then dV
+  const int64_t n_part = static_cast<int64_t>(nb) * sk * kv_row;
+  float* dst = (splits == 1 ? (half == 1 ? dk : dv)
+                            : part + (half == 1 ? split : splits + split) * n_part) +
+               kv_off;
+
+  for (int t = 0; t < n_mine; ++t) {
+    const int k0 = (t == 0 ? p : n_kt - 1 - p) * kTile;
+    // query rows that see a key of this tile: [q_lo, q_hi), in BS-row steps
+    const int k_last = min(k0 + kTile, sk) - 1;
+    const int q_lo = causal ? max(0, k0 - q_offset) : 0;
+    const int q_hi = window > 0 ? min(sq, k_last + window - q_offset) : sq;
+    const int j_lo = q_lo / BS;
+    const int n_q = q_hi > q_lo ? (q_hi + BS - 1) / BS - j_lo : 0;
+    const int n_steps = heads * n_q;  // a walk's
+    auto load_step = [&](int s) {  // step s % n_steps of walk s / n_steps
+      const int j = H == 2 ? s % n_steps : s;
+      const int h = h0 + j / n_q;
+      const int q0 = (j_lo + j % n_q) * BS;
+      const int64_t q_off = static_cast<int64_t>(b) * sq * q_row + static_cast<int64_t>(h) * D;
+      float* sQ = ring + (s % kStages) * 2 * BS * LD;
+      stage_rows_tc<D, BS>(sQ, q + q_off, q0, sq, q_row);
+      stage_rows_tc<D, BS>(sQ + BS * LD, dout + q_off, q0, sq, q_row);
+      // the rows' lse, then D: BS of each from the tile's 512-byte record
+      const float* rec = stats + ((static_cast<int64_t>(b) * hq + h) * n_qt + q0 / kTile) *
+                                     kStatFloats + q0 % kTile;
+      float* st = sSt + (s % kStages) * 2 * BS;
+      if (tid < BS / 2) {
+        const int which = tid / (BS / 4);  // 0: lse, 1: D
+        const int c = (tid % (BS / 4)) * 4;
+        hopper::cp_async16(hopper::smem_addr(st + which * BS + c), rec + which * kTile + c,
+                           true);
+      }
+    };
+
+    float acc[NP][2][4];  // dV (half 0) or dK (half 1): a walk's keys g (+ 8) of this warp
+    auto zero = [&] {
+#pragma unroll
+      for (int c = 0; c < NP; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[c][e][i] = 0.f;
+    };
+    zero();
+    const float mult = half == 1 ? scale : 1.f;
+    if (n_steps == 0) {  // no query sees the tile: zero gradients
+      for (int w = 0; w < H; ++w)
+        store_tc<NP>(acc, dst, kv_row, k0 + w * 32 + kg * 16 + g, sk, c_lo, qd, mult);
+      continue;
+    }
+
+    __syncthreads();  // every thread is done with the previous key tile
+    stage_rows_tc<D, kTile>(sK, k + kv_off, k0, sk, kv_row);
+    stage_rows_tc<D, kTile>(sV, v + kv_off, k0, sk, kv_row);
+    load_step(0);
+    hopper::cp_async_commit();
+    const int n_total = H * n_steps;
+    for (int s = 0; s < n_total; ++s) {
+      if (s + 1 < n_total) load_step(s + 1);
+      hopper::cp_async_commit();
+      hopper::cp_async_wait(1);  // step s (and K, V) landed
+      __syncthreads();
+      const int j = H == 2 ? s % n_steps : s;
+      const int kr = (H == 2 ? s / n_steps * 32 : 0) + kg * 16;  // this warp's keys in the tile
+      const int q0 = (j_lo + j % n_q) * BS;
+      const float* sQ = ring + (s % kStages) * 2 * BS * LD;
+      const float* sdO = sQ + BS * LD;
+      const float* st = sSt + (s % kStages) * 2 * BS;  // lse, then D
+      float x[NT][4];
+      scores_tc<D, NT, DC>(x, (half == 0 ? sK : sV) + kr * LD + c_lo,
+                           (half == 0 ? sQ : sdO) + c_lo, g, qd);
+      if constexpr (H == 2) {
+        // the partner's half of the same scores, summed in column order
+        float* mine = xpart + (half * 4 + wr) * 16 * BS;
+        const float* other = xpart + (half * 4 + (wr ^ 2)) * 16 * BS;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) mine[(4 * n + i) * 32 + lane] = x[n][i];
+        hopper::bar_sync(kBarS + half, kWgThreads);
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float y = other[(4 * n + i) * 32 + lane];
+            x[n][i] = c_lo == 0 ? x[n][i] + y : y + x[n][i];
+          }
+      }
+      if (half == 0) {
+        // P^T, masked only on a tile that crosses an edge
+        const bool edge = crosses_edge(q0, BS, k0, kTile, sq, sk, causal, window, q_offset);
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int col = 8 * n + 2 * qd + (i & 1);
+            const int ka = k0 + kr + g + 8 * (i >> 1);
+            const bool ok = !edge || pair_valid(q0 + col + q_offset, ka, sk, causal, window);
+            x[n][i] = ok ? expf(x[n][i] * scale - st[col]) : 0.f;
+            if (c_lo == 0) xbuf[(4 * n + i) * kWgThreads + xslot] = x[n][i];
+          }
+        if (c_lo == 0) hopper::bar_arrive(kBarX, kWgThreads + kWgThreads / H);
+        accumulate_tc<D, NT, NP>(acc, x, sdO, c_lo, g, qd);
+      } else {
+        // dS^T = P^T (dP^T - D), P^T from warpgroup 0's thread of the same
+        // index, which holds the same (key, query) elements
+        hopper::bar_sync(kBarX, kWgThreads + kWgThreads / H);
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            x[n][i] = xbuf[(4 * n + i) * kWgThreads + xslot] *
+                      (x[n][i] - st[BS + 8 * n + 2 * qd + (i & 1)]);
+        accumulate_tc<D, NT, NP>(acc, x, sQ, c_lo, g, qd);
+      }
+      __syncthreads();  // every warp is done with this stage and the exchanges
+      if (j == n_steps - 1) {  // the walk is done: its keys
+        store_tc<NP>(acc, dst, kv_row, k0 + kr + g, sk, c_lo, qd, mult);
+        zero();
+      }
+    }
+    hopper::cp_async_wait(0);
+  }
+}
+
+// (d) dQ of one 64-query tile of one query head, over the key tiles of the
+// band, in 3xTF32. Warp w of warpgroup 0 and warp w of warpgroup 1 share
+// queries 16 w .. 16 w + 15: the first computes S = Q K^T and P, the
+// second dP = dO V^T and dS = P (dP - D), handed back through shared
+// memory; each then accumulates half of dQ's columns, dQ += dS K.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dq_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ stats, float* __restrict__ dq, int sq,
+                         int sk, int hq, int hkv, float scale, int causal, int window,
+                         int q_offset) {
+  constexpr int BS = kTcStream<D>;  // keys a step
+  constexpr int LD = kTcLd<D>;
+  constexpr int NT = BS / 8;        // 8-key n tiles of S
+  constexpr int NP = D / 32;        // pairs of 8-column n tiles of half of dQ
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sdO = sQ + kTile * LD;
+  float* ring = sdO + kTile * LD;  // kStages x (K, V)
+  float* xbuf = ring + kStages * 2 * BS * LD + kStages * 2 * BS;  // P, then dS
+
+  const int tid = threadIdx.x;
+  const int half = tid / kWgThreads;  // 0: S, P; 1: dP, dS; each half of dQ
+  const int wtid = tid % kWgThreads;
+  const int qr = (wtid >> 5) * 16;  // this warp's queries within the tile
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int qd = lane & 3;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTile;  // longest tiles first
+  const int hk = h / (hq / hkv);
+  const int64_t q_row = static_cast<int64_t>(hq) * D;
+  const int64_t kv_row = static_cast<int64_t>(hkv) * D;
+  const int64_t q_off = static_cast<int64_t>(b) * sq * q_row + static_cast<int64_t>(h) * D;
+  const int64_t kv_off = static_cast<int64_t>(b) * sk * kv_row + static_cast<int64_t>(hk) * D;
+
+  // keys this query tile sees: [k_lo, k_hi), in BS-key steps
+  const int qa_first = q0 + q_offset;
+  const int qa_last = min(q0 + kTile, sq) - 1 + q_offset;
+  const int k_lo = window > 0 ? max(0, qa_first - window + 1) : 0;
+  const int k_hi = causal ? min(sk, qa_last + 1) : sk;
+  const int j_lo = k_lo / BS;
+  const int n_tiles = k_hi > k_lo ? (k_hi + BS - 1) / BS - j_lo : 0;
+
+  auto load_kv = [&](int j) {
+    float* sK = ring + (j % kStages) * 2 * BS * LD;
+    stage_rows_tc<D, BS>(sK, k + kv_off, (j_lo + j) * BS, sk, kv_row);
+    stage_rows_tc<D, BS>(sK + BS * LD, v + kv_off, (j_lo + j) * BS, sk, kv_row);
+  };
+  if (n_tiles > 0) {
+    stage_rows_tc<D, kTile>(sQ, q + q_off, q0, sq, q_row);
+    stage_rows_tc<D, kTile>(sdO, dout + q_off, q0, sq, q_row);
+    load_kv(0);
+  }
+  hopper::cp_async_commit();
+
+  // lse (natural units, +inf for no valid key or past sq) and D of rows
+  // qr + g and qr + g + 8
+  const float* rec = stats + ((static_cast<int64_t>(b) * hq + h) * gridDim.z + q0 / kTile) *
+                                 kStatFloats;
+  float m[2], dd[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    m[hr] = __ldg(rec + qr + g + 8 * hr);
+    dd[hr] = __ldg(rec + kTile + qr + g + 8 * hr);
+  }
+  float acc[NP][2][4];
+#pragma unroll
+  for (int c = 0; c < NP; ++c)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[c][e][i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) load_kv(j + 1);
+    hopper::cp_async_commit();
+    hopper::cp_async_wait(1);  // tile j (and Q, dO) landed
+    __syncthreads();
+    const int k0 = (j_lo + j) * BS;
+    const float* sK = ring + (j % kStages) * 2 * BS * LD;
+    const float* sV = sK + BS * LD;
+    float x[NT][4];
+    scores_tc<D, NT>(x, (half == 0 ? sQ : sdO) + qr * LD, half == 0 ? sK : sV, g, qd);
+    if (half == 0) {
+      // P, masked only on a tile that crosses an edge
+      const bool edge = crosses_edge(q0, kTile, k0, BS, sq, sk, causal, window, q_offset);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qa = q0 + qr + g + 8 * (i >> 1) + q_offset;
+          const int ka = k0 + 8 * n + 2 * qd + (i & 1);
+          const bool ok = !edge || pair_valid(qa, ka, sk, causal, window);
+          xbuf[(4 * n + i) * kWgThreads + wtid] =
+              ok ? expf(x[n][i] * scale - m[i >> 1]) : 0.f;
+        }
+      hopper::bar_arrive(kBarX, kTcThreads);
+      hopper::bar_sync(kBarDs, kTcThreads);  // dS is back
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[n][i] = xbuf[(4 * n + i) * kWgThreads + wtid];
+    } else {
+      hopper::bar_sync(kBarX, kTcThreads);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float* slot = xbuf + (4 * n + i) * kWgThreads + wtid;
+          x[n][i] = *slot * (x[n][i] - dd[i >> 1]);
+          *slot = x[n][i];
+        }
+      hopper::bar_arrive(kBarDs, kTcThreads);
+    }
+    accumulate_tc<D, NT, NP>(acc, x, sK, half * (D / 2), g, qd);
+    __syncthreads();  // every warp is done with this stage and the exchange
+  }
+  hopper::cp_async_wait(0);
+  store_tc<NP>(acc, dq + q_off, q_row, q0 + qr + g, sq, half * (D / 2), qd, scale);
+}
+
 // cudaFuncSetAttribute for a kernel's dynamic shared memory, once per
 // device (a bit of `done` each).
 template <typename Kernel>
@@ -1122,7 +1630,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   return cudaGetLastError();
 }
 
-// The SIMT route: fp32 at every head size, bf16 at d 16 and 32.
+// The SIMT route: d 16 and 32, fp32 and bf16.
 template <typename T>
 cudaError_t dispatch(int d, const void* q, const void* k, const void* v, const void* o,
                      const void* dout, const float* lse, float* dvec, void* dq, void* dk,
@@ -1133,23 +1641,12 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v, const v
   case DIM:                                                                        \
     return launch<T, DIM>(q, k, v, o, dout, lse, dvec, dq, dk, dv, b, sq, sk, hq, hkv, \
                           scale, causal, window, q_offset, device, stream);
-  constexpr bool kF32 = sizeof(T) == 4;
   switch (d) {
     REPRO_FLASH_BWD_CASE(16)
     REPRO_FLASH_BWD_CASE(32)
     default:
-      break;
+      return cudaErrorInvalidValue;
   }
-  if constexpr (kF32) {
-    switch (d) {
-      REPRO_FLASH_BWD_CASE(64)
-      REPRO_FLASH_BWD_CASE(128)
-      REPRO_FLASH_BWD_CASE(256)
-      default:
-        break;
-    }
-  }
-  return cudaErrorInvalidValue;
 #undef REPRO_FLASH_BWD_CASE
 }
 
@@ -1179,7 +1676,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   const int64_t rows = static_cast<int64_t>(b) * hq * n_qt * kTile;
   const unsigned int stat_blocks =
       static_cast<unsigned int>((rows + kThreads / 32 - 1) / (kThreads / 32));
-  flash_bwd_stats_kernel<<<stat_blocks, kThreads, 0, stream>>>(
+  flash_bwd_stats_kernel<__nv_bfloat16, true><<<stat_blocks, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), lse,
       dvec, rows, sq, n_qt, hq, D);
   err = cudaGetLastError();
@@ -1199,7 +1696,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   if (splits > 1) {
     const int64_t n4 = static_cast<int64_t>(b) * sk * hkv * D / 4;
     const unsigned int blocks = static_cast<unsigned int>((2 * n4 + 255) / 256);
-    flash_bwd_sum_kernel<<<blocks, 256, 0, stream>>>(part, dk_p, dv_p, n4, splits);
+    flash_bwd_sum_kernel<__nv_bfloat16><<<blocks, 256, 0, stream>>>(part, dk_p, dv_p, n4, splits);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -1210,20 +1707,64 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The fp32 tensor-core route (d 64/128/256): D and the lse into the
+// statistics layout, the dK/dV pass, the split sum, the dQ pass.
+template <int D>
+cudaError_t launch_tf32(const float* q, const float* k, const float* v, const float* o,
+                        const float* dout, const float* lse, float* stats, float* dq,
+                        float* dk, float* dv, float* part, int b, int sq, int sk, int hq,
+                        int hkv, int splits, int paired, float scale, int causal,
+                        int window, int q_offset, int device, cudaStream_t stream) {
+  static std::atomic<uint64_t> smem_kv{0};
+  static std::atomic<uint64_t> smem_q{0};
+  constexpr size_t smem = tc_smem_bytes<D>();
+  cudaError_t err = set_smem_once(flash_bwd_dkdv_kernel_tf32<D>, smem, device, smem_kv);
+  if (err == cudaSuccess) err = set_smem_once(flash_bwd_dq_kernel_tf32<D>, smem, device, smem_q);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (sq + kTile - 1) / kTile;
+  const int64_t rows = static_cast<int64_t>(b) * hq * n_qt * kTile;
+  const unsigned int stat_blocks =
+      static_cast<unsigned int>((rows + kThreads / 32 - 1) / (kThreads / 32));
+  flash_bwd_stats_kernel<float, false><<<stat_blocks, kThreads, 0, stream>>>(
+      o, dout, lse, stats, rows, sq, n_qt, hq, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n_kt = (sk + kTile - 1) / kTile;
+  const dim3 kv_grid(paired ? (n_kt + 1) / 2 : n_kt, splits, b * hkv);
+  flash_bwd_dkdv_kernel_tf32<D><<<kv_grid, kTcThreads, smem, stream>>>(
+      q, k, v, dout, stats, dk, dv, part, b, sq, sk, hq, hkv, n_kt, splits, paired, scale,
+      causal, window, q_offset);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (splits > 1) {
+    const int64_t n4 = static_cast<int64_t>(b) * sk * hkv * D / 4;
+    const unsigned int blocks = static_cast<unsigned int>((2 * n4 + 255) / 256);
+    flash_bwd_sum_kernel<float><<<blocks, 256, 0, stream>>>(part, dk, dv, n4, splits);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 q_grid(hq, b, n_qt);
+  flash_bwd_dq_kernel_tf32<D><<<q_grid, kTcThreads, smem, stream>>>(
+      q, k, v, dout, stats, dq, sq, sk, hq, hkv, scale, causal, window, q_offset);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // All tensors contiguous: q, o, dout, dq (b, sq, hq, d); k, v, dk, dv
 // (b, sk, hkv, d); lse (from flash_attention_fwd) fp32 (b, hq, sq); the
 // fp32 scratch `dvec` is (b, hq, sq) on the SIMT route and (b, hq,
-// ceil(sq / 64), 2, 64) on the tensor-core route (its statistics). dtype: 0 = float32, 1 = bfloat16; window <= 0 means
-// none. The route is chosen by dtype and d alone: bf16 with d in {64,
-// 128, 256} takes the tensor-core kernels, which need `tma` (4 x 11
-// values: q's, k's, v's and dout's tensor-map dims, byte strides and
-// box), the plan's `splits` (a divisor of hq / hkv) and `paired` (key
+// ceil(sq / 64), 2, 64) on the tensor-core routes (their statistics).
+// dtype: 0 = float32, 1 = bfloat16; window <= 0 means none. The route is
+// chosen by dtype and d alone (ops.bwd_route): d in {64, 128, 256} takes
+// the tensor-core kernels, `wgmma` in bf16 and 3xTF32 `mma.sync` in fp32.
+// Both need the plan's `splits` (a divisor of hq / hkv) and `paired` (key
 // tiles p and n - 1 - p a block), and with splits > 1 the fp32 scratch
-// `part` (2 x splits x b x sk x hkv x d); everything else takes the SIMT
-// kernels, which ignore those four. Returns a cudaError_t (0 = ok), or
-// minus a CUresult if a tensor map fails to encode.
+// `part` (2 x splits x b x sk x hkv x d); bf16 also needs `tma` (4 x 11
+// values: q's, k's, v's and dout's tensor-map dims, byte strides and box).
+// d 16 and 32 take the SIMT kernels, which ignore those four. A call
+// without what its route needs is refused. Returns a cudaError_t (0 =
+// ok), or minus a CUresult if a tensor map fails to encode.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const void* dout, const float* lse,
                                    float* dvec, void* dq, void* dk, void* dv, int b,
@@ -1238,10 +1779,34 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
   if (b <= 0 || sq <= 0 || sk <= 0 || hq <= 0) return static_cast<int>(cudaSuccess);
   if (hkv <= 0 || hq % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && (d == 64 || d == 128 || d == 256)) {
-    if (tma == nullptr || splits < 1 || (hq / hkv) % splits != 0 ||
-        (splits > 1 && part == nullptr))
-      return static_cast<int>(cudaErrorInvalidValue);
+  const bool tensor_cores = d == 64 || d == 128 || d == 256;
+  if (tensor_cores &&
+      (splits < 1 || (hq / hkv) % splits != 0 || (splits > 1 && part == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0 && tensor_cores) {
+    const float* f[5] = {static_cast<const float*>(q), static_cast<const float*>(k),
+                         static_cast<const float*>(v), static_cast<const float*>(o),
+                         static_cast<const float*>(dout)};
+    auto* dq_p = static_cast<float*>(dq);
+    auto* dk_p = static_cast<float*>(dk);
+    auto* dv_p = static_cast<float*>(dv);
+#define REPRO_FLASH_BWD_TF32(DIM)                                                       \
+  return static_cast<int>(launch_tf32<DIM>(f[0], f[1], f[2], f[3], f[4], lse, dvec, dq_p, \
+                                           dk_p, dv_p, part, b, sq, sk, hq, hkv, splits, \
+                                           paired, scale, causal, window, q_offset,      \
+                                           device, s));
+    switch (d) {
+      case 64:
+        REPRO_FLASH_BWD_TF32(64)
+      case 128:
+        REPRO_FLASH_BWD_TF32(128)
+      default:
+        REPRO_FLASH_BWD_TF32(256)
+    }
+#undef REPRO_FLASH_BWD_TF32
+  }
+  if (dtype == 1 && tensor_cores) {
+    if (tma == nullptr) return static_cast<int>(cudaErrorInvalidValue);
 #define REPRO_FLASH_BWD_WGMMA(DIM)                                                    \
   return launch_wgmma<DIM>(q, k, v, o, dout, lse, dvec, dq, dk, dv, part, b, sq, sk, hq, \
                            hkv, tma, splits, paired, scale, causal, window, q_offset,    \

@@ -1,8 +1,10 @@
 // PTX wrappers for Hopper (sm_90a) that the port's kernels build on:
 // mbarriers, TMA tensor loads into shared memory and warpgroup matrix
 // multiplies (wgmma) on 128-byte-swizzled shared-memory tiles (flash
-// attention); cp.async copies, TF32 rounding, ex2 and lg2, and warp-level
-// TF32 mma.sync (WKV6).
+// attention); cp.async copies (WKV6, the fp32 flash-attention backward,
+// the RMSNorm backward), TF32 rounding, ex2 and lg2, and warp-level TF32
+// mma.sync (WKV6) with its 3xTF32 form (the fp32 flash-attention
+// backward).
 //
 // Shared-memory addresses are 32-bit offsets in the shared window
 // (`smem_addr`), as TMA, mbarrier and wgmma take them.
@@ -240,6 +242,16 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+// Wait until at most `pending` (0-3, uniform) of this thread's committed
+// groups are still in flight: the older ones have landed.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
 
 // ---------------------------------------------------------------------------
 // TF32 mma.sync
@@ -283,6 +295,28 @@ __device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4], const uint32_t (
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 3xTF32: an fp32 operand as two TF32 parts, x = big + small to ~2^-22
+// relative (big = tf32(x), small = tf32(x - big)), and the product
+// big*big + big*small + small*big in fp32 (the small*small term, ~2^-22
+// relative, is dropped), which keeps an fp32 product's accuracy on the
+// tensor cores. N fragment registers a part (A: 4, B: 2).
+template <int N>
+struct Tf32Split {
+  uint32_t big[N], small[N];
+  __device__ __forceinline__ void set(int i, float x) {
+    big[i] = tf32(x);
+    small[i] = tf32(x - __uint_as_float(big[i]));
+  }
+};
+
+// d += a b in 3xTF32 into one accumulator, the two small terms first.
+__device__ __forceinline__ void mma_m16n8k8_3xtf32(float (&d)[4], const Tf32Split<4>& a,
+                                                   const Tf32Split<2>& b) {
+  mma_m16n8k8_tf32(d, a.small, b.big);
+  mma_m16n8k8_tf32(d, a.big, b.small);
+  mma_m16n8k8_tf32(d, a.big, b.big);
 }
 
 // ---------------------------------------------------------------------------

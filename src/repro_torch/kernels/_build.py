@@ -113,7 +113,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rmsnorm_bwd.argtypes = [
         p, p, p, p, p, p, ll, i, f,  # g, x, scale, dx, dscale, partials, rows, d, eps
         i, i,  # x and scale dtypes
-        i, i, i, i,  # elements a vector, threads a row, vectors a thread, blocks
+        i, i, i, i, i,  # elements a vector, threads a row, vectors a thread, stages, blocks
         i, p,  # device, stream
     ]
     lib.rmsnorm_bwd.restype = i

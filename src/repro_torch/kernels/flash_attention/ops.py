@@ -13,8 +13,9 @@ never because another route failed:
   cannot read: a base that is not 16-byte aligned, or a batch, sequence
   or head stride that is not a multiple of 16 bytes.
 * ``"simt"`` — fp32 at any supported d (its 2e-5 parity rules out TF32
-  and bf16 products), and bf16 with d 16 or 32 (narrower than the 128-byte
-  swizzle): the SIMT fp32 kernel, which reads any strides.
+  and bf16 products; the backward's 3xTF32 route is not used here), and
+  bf16 with d 16 or 32 (narrower than the 128-byte swizzle): the SIMT fp32
+  kernel, which reads any strides.
 
 Both read q/k/v through their batch/sequence/head strides, so the
 ``(b, s, h, d)`` views go in as they are (no transpose, no
@@ -29,11 +30,18 @@ Under autograd (grad enabled and q, k or v requiring grad) a CUDA call
 goes through ``FlashAttentionFunction``: the forward kernel also writes
 each row's log-sum-exp, and the backward is the hand-written kernel
 ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``), which is also
-public, with the plain ``ref.attention_bwd_ref`` on the CPU. It takes
-the same two routes by the same rule (``route``): ``"wgmma"`` runs the
-tensor-core kernels on the launch plan ``bwd_plan`` computes, which
-spreads a kv head's key tiles over enough blocks to fill the card;
-``"simt"`` the SIMT fp32 kernels.
+public, with the plain ``ref.attention_bwd_ref`` on the CPU. Its route,
+again by dtype and head size alone, is ``bwd_route``'s:
+
+* ``"wgmma"`` — bf16 with d in 64, 128 or 256, as the forward;
+* ``"mma_tf32"`` — fp32 with d in 64, 128 or 256: tensor-core kernels
+  whose products are 3xTF32 ``mma.sync`` (two TF32 parts an operand),
+  which hold fp32 accuracy (1e-5); the fp32 forward stays SIMT;
+* ``"simt"`` — d 16 or 32 (smoke widths only), fp32 or bf16: the SIMT
+  fp32 kernels.
+
+Both tensor-core routes run on the launch plan ``bwd_plan`` computes,
+which spreads a kv head's key tiles over enough blocks to fill the card.
 
 ``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
 kernel launches (never plain-version calls).
@@ -59,11 +67,20 @@ TMA_ALIGN = 16  # bytes: the base address and every stride
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
-    """``"wgmma"`` (bf16 tensor-core kernels) or ``"simt"`` (fp32 SIMT
-    kernels), by dtype and head size only; the forward and the backward
-    take the same route."""
+    """The forward's route: ``"wgmma"`` (bf16 tensor-core kernel) or
+    ``"simt"`` (fp32 SIMT kernel), by dtype and head size only."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
+    return "simt"
+
+
+def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward's route, by dtype and head size only: ``"wgmma"``
+    (bf16) or ``"mma_tf32"`` (fp32, 3xTF32 products) at d 64/128/256,
+    where both tensor-core routes run on ``bwd_plan``; ``"simt"``
+    otherwise."""
+    if head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma" if dtype == torch.bfloat16 else "mma_tf32"
     return "simt"
 
 
@@ -163,6 +180,27 @@ def bwd_plan(b: int, sq: int, sk: int, hq: int, hkv: int, d: int, causal: bool =
                    if n_rep % s == 0 and per_split * s >= BWD_MIN_BLOCKS), n_rep)
     scratch = 2 * splits * b * sk * hkv * d * 4 if splits > 1 else 0
     return BwdPlan(n_kt, n_qt, causal, splits, per_split * splits, n_qt * hq * b, scratch)
+
+
+def tf32_stream_rows(d: int) -> int:
+    """Rows of a streamed tile on the fp32 tensor-core route (queries in
+    the dK/dV pass, keys in the dQ pass; ``kTcStream`` in the source): 64
+    at d 64, 32 at d 128, 16 at d 256."""
+    return {64: 64, 128: 32, 256: 16}[d]
+
+
+def bwd_query_steps(k0: int, rows: int, sq: int, sk: int, causal: bool = True,
+                    window: Optional[int] = None, q_offset: int = 0) -> range:
+    """The first query row of each step a dK/dV block walks for the key
+    tile at ``k0``, ``rows`` queries a step: the steps cover every query
+    that sees a key of the tile, from ``max(0, k0 - q_offset)`` under the
+    causal mask to the window's last, as the kernels compute the band."""
+    k_last = min(k0 + BWD_TILE, sk) - 1
+    q_lo = max(0, k0 - q_offset) if causal else 0
+    q_hi = min(sq, k_last + window - q_offset) if window else sq
+    if q_hi <= q_lo:
+        return range(0)
+    return range(q_lo // rows * rows, q_hi, rows)
 
 
 def bwd_blocks(plan: BwdPlan, b: int, hq: int, hkv: int):
@@ -292,7 +330,7 @@ def flash_attention_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` in the inputs' dtype. A CPU tensor takes
     ``ref.attention_bwd_ref``; a CUDA tensor launches the backward kernels
-    of its ``route`` (D = rowsum(dO O), dK/dV, the sum of the splits'
+    of its ``bwd_route`` (D = rowsum(dO O), dK/dV, the sum of the splits'
     partials where ``bwd_plan`` splits, dQ) on contiguous copies of any
     strided input."""
     device = q.device
@@ -320,10 +358,12 @@ def flash_attention_bwd(
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     tma, part, plan = None, None, None
-    if route(q.dtype, d) == "wgmma":
-        tma = _tma_args(q, k, v, dout)
+    kernels = bwd_route(q.dtype, d)
+    if kernels != "simt":
+        if kernels == "wgmma":
+            tma = _tma_args(q, k, v, dout)
         plan = bwd_plan(b, sq, sk, hq, hkv, d, bool(causal))
-        # each 64-query tile's lse (log2 units) and D, padded
+        # each 64-query tile's lse (log2 units for wgmma) and D, padded
         dvec = torch.empty((b, hq, plan.query_tiles, 2, BWD_TILE), dtype=torch.float32,
                            device=device)
         if plan.scratch_bytes:

@@ -10,7 +10,11 @@ the pointers' alignment, never on failure.
 Under autograd (grad enabled and an input that requires grad) a CUDA
 call goes through ``RMSNormFunction``, whose backward is the hand-written
 kernel ``rmsnorm_bwd`` (``csrc/rmsnorm.cu``); ``rmsnorm_bwd`` is also
-public, with the plain ``ref.rmsnorm_bwd_ref`` on the CPU. The residual
+public, with the plain ``ref.rmsnorm_bwd_ref`` on the CPU. Its launch
+shape (row slots a block, the depth of its cp.async ring) and block count
+are pure functions here (``bwd_launch_shape``, ``bwd_blocks``, and
+``bwd_rows`` for the rows each block and slot sums), cached, and its
+dscale partials live in one scratch a (device, stream). The residual
 form (K2) has no backward kernel yet and raises under autograd on CUDA
 rather than cut the gradient.
 
@@ -58,17 +62,58 @@ def launch_shape(d: int, element_size: int, aligned: bool = True) -> LaunchShape
 
 
 BWD_REGISTER_VALUES = 32  # csrc/rmsnorm.cu kBwdRegisterValues
+BWD_BLOCK = 512  # threads a backward block (csrc/rmsnorm.cu kBwdBlock)
+BWD_MAX_STAGES = 4  # rows of x and g a thread may keep in flight (kBwdMaxStages)
+BWD_STAGES = 3  # the ring's depth where it fits the budget, else one row
+BWD_RING_BYTES = 96 << 10  # the ring's budget a block
+BWD_MAX_SMEM = 128 << 10  # shared memory a block at most (kBwdMaxSmem)
 
 
-def bwd_launch_shape(d: int, element_size: int, aligned: bool = True) -> LaunchShape:
-    """The backward kernel's launch shape: the forward's, except that a row
-    whose thread would hold more than 32 values of each of x, g, the scale
-    and its sums (rows of 16k elements or more) takes the looping form,
-    which reads the row twice, rather than spill registers."""
-    shape = launch_shape(d, element_size, aligned)
-    if shape.vectors_per_thread * shape.vec > BWD_REGISTER_VALUES:
-        shape = shape._replace(vectors_per_thread=0)
-    return shape
+class BwdShape(NamedTuple):
+    vec: int  # elements a load
+    threads_per_row: int  # BWD_BLOCK for the looping form
+    vectors_per_thread: int  # 0: the looping form
+    rows_per_block: int  # row slots of a block
+    stages: int  # rows of the cp.async ring a slot (1 where there is no ring)
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_launch_shape(d: int, element_size: int, aligned: bool = True) -> BwdShape:
+    """The backward kernel's launch shape: the forward's threads a row and
+    vectors a thread, except that a row of 129-256 vectors takes 128
+    threads with two vectors each (at gemma-2b's 2048 bf16 the fastest of
+    every shape the kernel takes, ``scripts/flash_bwd_kernel_times.py
+    --sweep``), in 512-thread blocks of ``512 / tpr`` row slots, with a
+    ring of three rows of x and g a slot in shared memory (16-byte loads
+    only) where it fits 96 KB a block, else of one. A row whose thread
+    would hold more than 32 values of each of x, g and its sums (rows of
+    16k elements or more) takes the looping form, one row a block, which
+    reads the row twice, rather than spill registers."""
+    fwd = launch_shape(d, element_size, aligned)
+    if not 0 < fwd.vectors_per_thread * fwd.vec <= BWD_REGISTER_VALUES:
+        return BwdShape(fwd.vec, BWD_BLOCK, 0, 1, 1)
+    tpr, vpt = fwd.threads_per_row, fwd.vectors_per_thread
+    stages = 1
+    if fwd.vec * element_size == VECTOR_BYTES:
+        if tpr == BLOCK and vpt == 1:
+            tpr, vpt = BLOCK // 2, 2
+        row_slot_bytes = 2 * BWD_BLOCK * vpt * VECTOR_BYTES  # x and g, all slots
+        stages = BWD_STAGES if BWD_STAGES * row_slot_bytes <= BWD_RING_BYTES else 1
+    return BwdShape(fwd.vec, tpr, vpt, BWD_BLOCK // tpr, stages)
+
+
+def bwd_smem_bytes(shape: BwdShape, d: int, element_size: int) -> int:
+    """Dynamic shared memory of a backward block (csrc/rmsnorm.cu
+    ``bwd_smem_bytes``): the ring, or the block's dscale rows (one a slot,
+    one a warp where a warp holds several slots), whichever is larger; 0
+    for the looping form."""
+    if shape.vectors_per_thread == 0:
+        return 0
+    ring = 0
+    if shape.vec * element_size == VECTOR_BYTES:
+        ring = shape.stages * 2 * BWD_BLOCK * shape.vectors_per_thread * VECTOR_BYTES
+    sums = BWD_BLOCK // max(shape.threads_per_row, 32) * d * 4
+    return max(ring, sums)
 
 
 @functools.lru_cache(maxsize=16)
@@ -76,11 +121,38 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def bwd_blocks(rows: int, rows_per_block: int, sm_count: int) -> int:
-    """Blocks of the backward kernel: one a row group, at most two an SM
-    (each writes ``rows_per_block`` partial rows of the scale's gradient,
-    which a second kernel sums)."""
-    return max(1, min(-(-rows // rows_per_block), 2 * sm_count))
+def bwd_blocks(rows: int, shape: BwdShape, sm_count: int) -> int:
+    """Blocks of the backward kernel: one a group of ``rows_per_block``
+    rows, at most one an SM (the sweep's best at all three training
+    shapes). Each block writes one partial row of the scale's gradient,
+    which a second kernel sums in block order."""
+    return max(1, min(-(-rows // shape.rows_per_block), sm_count))
+
+
+def bwd_rows(rows: int, shape: BwdShape, blocks: int):
+    """The rows each (block, slot) reduces, in the order it sums them into
+    its dscale partial: block i takes row groups i, i + blocks, ...; slot j
+    of a group is its row j. The block's partial row sums its slots' sums
+    in slot order; the second kernel sums the blocks' rows in block order."""
+    slots = shape.rows_per_block
+    groups = -(-rows // slots)
+    return [[[grp * slots + j for grp in range(i, groups, blocks) if grp * slots + j < rows]
+             for j in range(slots)] for i in range(blocks)]
+
+
+# dscale partials, one fp32 scratch a (device, stream), grown as needed:
+# kernels on one stream run in order, so a call's partials are read before
+# the next call on that stream writes them
+_partials: dict = {}
+
+
+def _partials_for(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _partials.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.empty(n, dtype=torch.float32, device=device)
+        _partials[key] = buf
+    return buf
 
 
 def _check(t: torch.Tensor, name: str, device: torch.device) -> None:
@@ -204,18 +276,18 @@ def rmsnorm_bwd(
     rows = x.numel() // d
     if rows == 0:
         return dx, dscale.zero_()
-    aligned = all(t.data_ptr() % VECTOR_BYTES == 0 for t in (g, x, scale, dx))
-    shape = bwd_launch_shape(d, x.element_size(), aligned)
-    blocks = bwd_blocks(rows, shape.rows_per_block, _sm_count(device.index))
-    partials = torch.empty(
-        (blocks * shape.rows_per_block, d), dtype=torch.float32, device=device
-    )
+    es = x.element_size()
+    aligned = not (g.data_ptr() | x.data_ptr() | scale.data_ptr() | dx.data_ptr()) % VECTOR_BYTES
+    shape = bwd_launch_shape(d, es, aligned)
+    blocks = bwd_blocks(rows, shape, _sm_count(device.index))
+    stream = _build.current_stream(device.index)
+    partials = _partials_for(device, stream, blocks * d)
     err = _build.library().rmsnorm_bwd(
         g.data_ptr(), x.data_ptr(), scale.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
         partials.data_ptr(), rows, d, float(eps),
         _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[scale.dtype],
-        shape.vec, shape.threads_per_row, shape.vectors_per_thread, blocks,
-        device.index, _build.current_stream(device.index),
+        shape.vec, shape.threads_per_row, shape.vectors_per_thread, shape.stages, blocks,
+        device.index, stream,
     )
     _build.check(err, "rmsnorm_bwd")
     rmsnorm_bwd.launches += 1

@@ -654,6 +654,135 @@ def test_flash_bwd_wgmma_strided_views(cuda, d):
     _check_wgmma_bwd(q, k, v, g)
 
 
+def _check_tf32_bwd(q, k, v, g, *, causal=True, window=None, q_offset=0):
+    """The fp32 tensor-core backward (3xTF32) against ``attention_bwd_ref``
+    and against autograd of ``attention_ref``, 1e-5 relative Frobenius
+    each; through autograd bit-identical; returns the kernel's gradients."""
+    sq, sk, d = q.shape[1], k.shape[1], q.shape[-1]
+    assert fa_ops.bwd_route(torch.float32, d) == "mma_tf32"
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out, lse = fa_ops._forward(q, k, v, causal, window, q_offset, want_lse=True)
+    before = fa_ops.flash_attention_bwd.launches
+    got = fa_ops.flash_attention_bwd(g, q, k, v, out, lse, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention_bwd.launches == before + 1
+    want = attention_bwd_ref(g, q, k, v, out, lse, **kw)
+    qb, kb, vb = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    attention_ref(qb, kb, vb, **kw).backward(g)
+    for a, w, w2 in zip(got, want, (qb.grad, kb.grad, vb.grad)):
+        assert a.dtype == torch.float32 and a.is_contiguous() and torch.isfinite(a).all()
+        assert _rel(a, w) <= 1e-5 and _rel(a, w2) <= 1e-5
+    if q_offset < 0:  # no valid key: zero gradient
+        assert (got[0][:, : -q_offset] == 0).all()
+    qa, ka, va = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    fa_ops.flash_attention(qa, ka, va, block_q=sq, block_k=sk, **kw).backward(g)
+    for a, w in zip((qa.grad, ka.grad, va.grad), got):
+        assert torch.equal(a, w)
+    return got
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize(
+    "b,sq,sk,hq,hkv,window,q_offset",
+    [
+        (2, 128, 128, 4, 4, None, 0),  # GQA 1
+        (1, 100, 100, 8, 2, None, 0),  # GQA 4, ragged last tiles
+        (1, 13, 13, 8, 1, None, 0),  # GQA 8, 13 rows
+        (1, 1, 512, 8, 1, None, 511),  # one query, at the end of 512 keys
+        (1, 300, 300, 4, 1, 100, 0),  # sliding window
+        (1, 64, 200, 8, 2, None, 136),  # query suffix, ragged keys
+        (1, 64, 64, 4, 1, None, -16),  # fully-masked rows
+    ],
+)
+def test_flash_bwd_tf32_route_matches_plain(cuda, d, b, sq, sk, hq, hkv, window, q_offset):
+    """fp32 with d 64/128/256 takes the 3xTF32 tensor-core backward, split
+    over the GQA group's query heads where the plan says so."""
+    q, k, v, g = _bwd_inputs(cuda, b, sq, sk, hq, hkv, d, seed=d + sq + hq, dtype=torch.float32)
+    _check_tf32_bwd(q, k, v, g, window=window, q_offset=q_offset)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_bwd_tf32_bidirectional(cuda, d):
+    """No causal mask: one key tile a block, ragged keys."""
+    q, k, v, g = _bwd_inputs(cuda, 1, 128, 100, 4, 2, d, seed=9, dtype=torch.float32)
+    _check_tf32_bwd(q, k, v, g, causal=False)
+
+
+@pytest.mark.parametrize("hq,hkv,d", [(8, 1, 256), (32, 8, 128)])
+def test_flash_bwd_tf32_training_shapes_repeat_bit_for_bit(cuda, hq, hkv, d):
+    """(1, 4096) with gemma-2b's and qwen3-8b's heads in fp32: within 1e-5
+    of both references, and two calls give the same bits (no atomics)."""
+    q, k, v, g = _bwd_inputs(cuda, 1, 4096, 4096, hq, hkv, d, seed=11, dtype=torch.float32)
+    got = _check_tf32_bwd(q, k, v, g)
+    out, lse = fa_ops._forward(q, k, v, True, None, 0, want_lse=True)
+    again = fa_ops.flash_attention_bwd(g, q, k, v, out, lse)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_bwd_tf32_strided_views(cuda, d):
+    """q/k/v as views of one projection and a strided dO, in fp32."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    qkv = torch.randn(2, 100, 3, 4, d, generator=gen, device=cuda)
+    q, k, v = qkv.unbind(2)
+    g = _noncontiguous(torch.randn(2, 100, 4, d, generator=gen, device=cuda))
+    assert not q.is_contiguous() and not g.is_contiguous()
+    _check_tf32_bwd(q, k, v, g)
+
+
+@pytest.mark.parametrize(
+    "rows,d,dtype",
+    [
+        (4096, 2048, torch.bfloat16),  # chip_smoke's three shapes
+        (131072, 128, torch.bfloat16),
+        (8192, 4096, torch.float32),
+        (4095, 2048, torch.bfloat16),  # ragged: a last row group with dead slots
+        (131071, 128, torch.bfloat16),
+        (8191, 4096, torch.float32),
+        (37, 20001, torch.float32),  # the looping form
+        (1000, 2048, torch.float32),
+    ],
+)
+def test_rmsnorm_bwd_redesign_matches_plain_and_repeats(cuda, rows, d, dtype):
+    """The backward kernel at the training path's shapes and beside them:
+    within 1e-5 (fp32) / 2e-2 (bf16) relative Frobenius of the plain
+    version and of autograd, and two calls give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + d)
+    x = torch.randn(rows, d, generator=gen, device=cuda).to(dtype)
+    scale = (torch.randn(d, generator=gen, device=cuda) * 0.1 + 1).to(dtype)
+    g = torch.randn(rows, d, generator=gen, device=cuda).to(dtype)
+    dx, ds = rms_ops.rmsnorm_bwd(g, x, scale)
+    dx2, ds2 = rms_ops.rmsnorm_bwd(g, x, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+    rdx, rds = rmsnorm_bwd_ref(g, x, scale)
+    xa, sa = x.clone().requires_grad_(), scale.clone().requires_grad_()
+    rmsnorm_ref(xa, sa).backward(g)
+    tol = BWD_TOL[dtype]
+    for a, w in ((dx, rdx), (ds, rds), (dx, xa.grad), (ds, sa.grad)):
+        assert torch.isfinite(a.float()).all() and _rel(a, w) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(4096, 2048), (513, 128), (3, 20001)])
+def test_rmsnorm_bwd_unaligned_views_repeat(cuda, dtype, rows, d):
+    """x one element off 16 bytes: the scalar-load path (no ring), or the
+    loop; same tolerance, same bits twice."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    buf = torch.randn(rows * d + 1, generator=gen, device=cuda).to(dtype)
+    x = buf[1:].view(rows, d)
+    assert x.data_ptr() % 16
+    scale = (torch.randn(d, generator=gen, device=cuda) * 0.1 + 1).to(dtype)
+    g = torch.randn(rows, d, generator=gen, device=cuda).to(dtype)
+    assert rms_ops.bwd_launch_shape(d, x.element_size(), False).vec == 1
+    dx, ds = rms_ops.rmsnorm_bwd(g, x, scale)
+    dx2, ds2 = rms_ops.rmsnorm_bwd(g, x, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+    rdx, rds = rmsnorm_bwd_ref(g, x, scale)
+    assert _rel(dx, rdx) <= BWD_TOL[dtype] and _rel(ds, rds) <= BWD_TOL[dtype]
+
+
 def test_smoke_model_grads_wgmma_route_bf16(cuda):
     """gemma-2b smoke with heads of 256 in bf16: the attention backward
     takes the tensor-core route, and every gradient leaf through the

@@ -113,19 +113,34 @@ def test_flash_route_by_dtype_and_head_dim(dtype, d, expected):
         (torch.bfloat16, 256, "wgmma"),
         (torch.bfloat16, 16, "simt"),
         (torch.bfloat16, 32, "simt"),
-        (torch.float32, 64, "simt"),
-        (torch.float32, 128, "simt"),
-        (torch.float32, 256, "simt"),
+        (torch.float32, 64, "mma_tf32"),
+        (torch.float32, 128, "mma_tf32"),
+        (torch.float32, 256, "mma_tf32"),
     ],
 )
 def test_flash_bwd_route_by_dtype_and_head_dim(dtype, d, expected):
-    """The backward takes the forward's rule: bf16 d 64/128/256 on the
-    tensor cores; fp32 (held to 1e-5) and bf16 d 16/32 on the SIMT
-    kernels. The C entry point applies the same test (`dtype == 1 && d in
-    {64, 128, 256}`) and asks for the plan only on that route."""
-    assert ops.route(dtype, d) == expected
+    """The backward's rule: d 64/128/256 on the tensor cores, ``wgmma`` in
+    bf16 and 3xTF32 ``mma.sync`` in fp32 (held to 1e-5); d 16/32 on the
+    SIMT kernels. The forward's rule is unchanged (fp32 stays SIMT). The C
+    entry point applies the same test (`d in {64, 128, 256}`, then the
+    dtype) and asks for the plan on both tensor-core routes."""
+    assert ops.bwd_route(dtype, d) == expected
+    assert ops.route(dtype, d) == ("wgmma" if expected == "wgmma" else "simt")
     src = (ops._build.CSRC / "flash_attention_bwd.cu").read_text()
-    assert "if (dtype == 1 && (d == 64 || d == 128 || d == 256)) {" in src
+    assert "const bool tensor_cores = d == 64 || d == 128 || d == 256;" in src
+    assert "if (dtype == 0 && tensor_cores) {" in src
+    assert "if (dtype == 1 && tensor_cores) {" in src
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", ops.HEAD_DIMS)
+def test_flash_bwd_route_covers_every_dtype_and_head_dim(dtype, d):
+    """Every dtype and head size the wrapper takes has exactly one
+    backward route, and the tensor-core ones are the head sizes a 64-column
+    box or fragment tiles."""
+    r = ops.bwd_route(dtype, d)
+    assert r in ("wgmma", "mma_tf32", "simt")
+    assert (r != "simt") == (d in ops.WGMMA_HEAD_DIMS)
 
 
 # (b, sq, sk, hq, hkv, d, causal): gemma-2b and qwen3-8b at (1, 4096),
@@ -211,13 +226,86 @@ def test_flash_bwd_plan_fixes_the_summation_order(case):
 
 
 def test_flash_bwd_source_has_no_device_atomics():
-    """Runs repeat bit for bit: no atomic operation in the backward's
-    kernels (the source's only `std::atomic` is a host flag)."""
+    """Runs repeat bit for bit: no atomic operation in the backward
+    kernels, flash attention's and RMSNorm's (each source's only
+    `std::atomic` is a host flag)."""
     import re
 
+    for name in ("flash_attention_bwd.cu", "rmsnorm.cu"):
+        src = (ops._build.CSRC / name).read_text()
+        assert not re.search(
+            r"\batomic(Add|Sub|Max|Min|Inc|Dec|CAS|Exch|And|Or|Xor)|\batom\.|\bred\.", src), name
+        assert "std::atomic<uint64_t>" in src, name
+
+
+# (b, sq, sk, hq, hkv, d, causal, window, q_offset) on the fp32 tensor-core
+# route: the parity prompt (1, 512) with qwen3-8b's heads, the train_parity
+# shape (1, 4096) with gemma-2b's, a window, a query suffix, ragged tiles
+TF32_PLAN_CASES = [
+    (1, 512, 512, 32, 8, 128, True, None, 0),
+    (1, 4096, 4096, 8, 1, 256, True, None, 0),
+    (1, 300, 300, 4, 1, 64, True, 100, 0),
+    (1, 64, 192, 8, 2, 256, True, None, 128),
+    (2, 100, 100, 8, 2, 64, False, None, 0),
+]
+
+
+@pytest.mark.parametrize("case", TF32_PLAN_CASES)
+def test_flash_bwd_tf32_plan_covers_each_key_tile_head_and_query_once(case):
+    """The fp32 route runs on ``bwd_plan``: every (batch, key tile, query
+    head) falls in one dK/dV block, and the query steps the block walks for
+    a key tile (64, 32 or 16 rows at d 64, 128, 256) hold every query that sees one
+    of its keys exactly once."""
+    b, sq, sk, hq, hkv, d, causal, window, q_offset = case
+    assert ops.bwd_route(torch.float32, d) == "mma_tf32"
+    plan = ops.bwd_plan(b, sq, sk, hq, hkv, d, causal)
+    seen = [(bi, t, h) for bi, _, _, tiles, heads in ops.bwd_blocks(plan, b, hq, hkv)
+            for t in tiles for h in heads]
+    assert sorted(seen) == [(bi, t, h) for bi in range(b) for t in range(plan.key_tiles)
+                            for h in range(hq)]
+    rows = ops.tf32_stream_rows(d)
+    mask = torch.ones(sq, sk, dtype=torch.bool)
+    qpos, kpos = torch.arange(sq)[:, None] + q_offset, torch.arange(sk)[None, :]
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= kpos > qpos - window
+    for t in range(plan.key_tiles):
+        k0 = t * ops.BWD_TILE
+        steps = list(ops.bwd_query_steps(k0, rows, sq, sk, causal, window, q_offset))
+        walked = [q for q0 in steps for q in range(q0, min(q0 + rows, sq))]
+        assert len(walked) == len(set(walked))
+        need = set(torch.nonzero(mask[:, k0:k0 + ops.BWD_TILE].any(dim=1)).flatten().tolist())
+        assert need <= set(walked)
+        assert all(q0 % rows == 0 for q0 in steps)
+
+
+@pytest.mark.parametrize("case", TF32_PLAN_CASES)
+def test_flash_bwd_tf32_plan_fixes_the_summation_order(case):
+    """On the fp32 route as on bf16: a key tile's dK and dV sum its query
+    heads in ascending order in a block, the query steps in ascending
+    order, and the splits in ascending order after; the plan is a function
+    of the shapes alone."""
+    b, sq, sk, hq, hkv, d, causal, window, q_offset = case
+    plan = ops.bwd_plan(b, sq, sk, hq, hkv, d, causal)
+    order = {}
+    for bi, hk, g, tiles, heads in ops.bwd_blocks(plan, b, hq, hkv):
+        assert list(heads) == sorted(heads)
+        for t in tiles:
+            order.setdefault((bi, hk, t), []).append(g)
+    assert all(gs == list(range(plan.splits)) for gs in order.values())
+    rows = ops.tf32_stream_rows(d)
+    for t in range(plan.key_tiles):
+        steps = list(ops.bwd_query_steps(t * 64, rows, sq, sk, causal, window, q_offset))
+        assert steps == sorted(steps)
+    ops.bwd_plan.cache_clear()
+    assert ops.bwd_plan(b, sq, sk, hq, hkv, d, causal) == plan
+
+
+def test_flash_bwd_tf32_stream_rows_match_the_source():
     src = (ops._build.CSRC / "flash_attention_bwd.cu").read_text()
-    assert not re.search(r"\batomic(Add|Sub|Max|Min|Inc|Dec|CAS|Exch|And|Or|Xor)|\batom\.|\bred\.", src)
-    assert "std::atomic<uint64_t>" in src
+    assert "constexpr int kTcStream = D == 256 ? 16 : D == 128 ? 32 : 64;" in src
+    assert [ops.tf32_stream_rows(d) for d in (64, 128, 256)] == [64, 32, 16]
 
 
 @pytest.mark.parametrize("d", [64, 128, 256])
@@ -375,3 +463,98 @@ def test_flash_cpu_autograd_goes_through_the_plain_version():
     out = ops.flash_attention(q, tk, tv, block_q=64, block_k=64)
     out.backward(tg)
     assert q.grad is not None and torch.isfinite(q.grad).all()
+
+
+# ---------------------------------------------------------------------------
+# the fp32 route's 3xTF32 scheme, rehearsed on the CPU: attention_bwd_ref's
+# five products with each fp32 operand split into two TF32 parts
+# ---------------------------------------------------------------------------
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10-bit mantissa, round to nearest, ties away
+    from zero) by bit operations, as ``hopper::tf32`` does on the card."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _einsum_3xtf32(eq: str, a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """``einsum`` of fp32 operands as the tensor cores take them: big =
+    tf32(x), small = tf32(x - big), big·big + big·small + small·big summed
+    in fp32 (``passes = 1``: plain TF32, big·big only). Each product of
+    two TF32 values is exact in fp32, so the sums are the only fp32
+    rounding, as in the mma's accumulator."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    out = torch.einsum(eq, a_big, b_big)
+    if passes == 3:
+        a_small, b_small = _tf32(a.float() - a_big), _tf32(b.float() - b_big)
+        out = torch.einsum(eq, a_small, b_big) + torch.einsum(eq, a_big, b_small) + out
+    return out
+
+
+def _bwd_by_products(dout, q, k, v, out, lse, prod, dtype, **kw):
+    """``attention_bwd_ref``'s formulas in ``dtype`` with every product
+    (S, dP, dV, dK, dQ) through ``prod(eq, a, b)``."""
+    from repro_torch.kernels.flash_attention.ref import _mask
+
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    n_rep = hq // hkv
+    scale = d ** -0.5
+    qg = q.to(dtype).reshape(b, sq, hkv, n_rep, d)
+    go = dout.to(dtype).reshape(b, sq, hkv, n_rep, d)
+    s = prod("bqhrd,bkhd->bhrqk", qg, k.to(dtype)) * scale
+    mask = _mask(sq, sk, kw["causal"], kw["window"], kw["q_offset"], q.device)
+    lse_g = lse.to(dtype).reshape(b, hkv, n_rep, sq, 1)
+    live = mask & torch.isfinite(lse_g)
+    p = torch.where(live, torch.exp(s - lse_g.nan_to_num(neginf=0.0)), 0.0)
+    dvec = (dout.to(dtype) * out.to(dtype)).sum(-1).reshape(b, sq, hkv, n_rep)
+    dvec = dvec.permute(0, 2, 3, 1)[..., None]
+    ds = p * (prod("bqhrd,bkhd->bhrqk", go, v.to(dtype)) - dvec)
+    dv = prod("bhrqk,bqhrd->bkhd", p, go)
+    dk = prod("bhrqk,bqhrd->bkhd", ds, qg) * scale
+    dq = prod("bhrqk,bkhd->bqhrd", ds, k.to(dtype)).reshape(b, sq, hq, d) * scale
+    return dq, dk, dv
+
+
+# (b, s, hq, hkv, d, causal, window, q_offset): causal, a window, a query
+# suffix, fully-masked rows, GQA and MQA, bidirectional
+TF32_CASES = [
+    (1, 128, 4, 2, 64, True, None, 0),
+    (1, 96, 2, 2, 128, True, 32, 0),
+    (1, 64, 8, 1, 256, True, None, 64),
+    (2, 64, 4, 1, 64, True, None, -16),
+    (1, 80, 4, 4, 128, False, None, 0),
+]
+
+
+@pytest.mark.parametrize("case", TF32_CASES)
+def test_flash_bwd_3xtf32_products_hold_1e5(case):
+    """The fp32 route's arithmetic on the CPU: all five products in 3xTF32
+    stay within 1e-5 relative Frobenius of the same formulas in fp64 (the
+    tolerance the card is held to), where one TF32 pass does not."""
+    b, s, hq, hkv, d, causal, window, q_offset = case
+    rng = np.random.default_rng(sum(case[:5]))
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                     for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, hq, d)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out, lse = attention_lse_ref(q, k, v, **kw)
+    exact = _bwd_by_products(dout, q, k, v, out, lse, torch.einsum, torch.float64, **kw)
+    three = _bwd_by_products(dout, q, k, v, out, lse, _einsum_3xtf32, torch.float32, **kw)
+    one = _bwd_by_products(dout, q, k, v, out, lse,
+                           lambda eq, a, b_: _einsum_3xtf32(eq, a, b_, passes=1),
+                           torch.float32, **kw)
+    rel = lambda a, w: ((a.double() - w).norm() / w.norm()).item()
+    for got, want in zip(three, exact):
+        assert torch.isfinite(got).all()
+        assert rel(got, want) <= 1e-5
+    assert max(rel(got, want) for got, want in zip(one, exact)) > 1e-5
+
+
+def test_tf32_rounding_matches_rna():
+    """``_tf32`` keeps 10 mantissa bits, rounding half away from zero."""
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 3 * 2 ** -11, -(1.0 + 2 ** -11), 1.0 + 2 ** -12])
+    want = torch.tensor([1.0, 1.0 + 2 ** -10, 1.0 + 2 * 2 ** -10, -(1.0 + 2 ** -10), 1.0])
+    assert torch.equal(_tf32(x), want)
+    big = _tf32(x)
+    assert torch.equal(big.view(torch.int32) & 0x1FFF, torch.zeros(5, dtype=torch.int32))

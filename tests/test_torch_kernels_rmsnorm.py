@@ -177,13 +177,14 @@ def test_rmsnorm_cpu_autograd_goes_through_the_plain_version():
 @pytest.mark.parametrize(
     "d,element_size,expected",
     [
-        (2048, 2, (8, 256, 1, 1)),  # gemma-2b's rows: the forward's shape
-        (128, 2, (8, 16, 1, 16)),  # qk-norm rows
-        (4096, 4, (4, 256, 4, 1)),
-        (8192, 4, (4, 256, 8, 1)),  # 32 values a thread: still in registers
-        (16384, 2, (8, 256, 0, 1)),  # 64 values a thread would spill: the loop
-        (16384, 4, (4, 256, 0, 1)),
-        (20001, 2, (1, 256, 0, 1)),
+        (2048, 2, (8, 128, 2, 4, 3)),  # gemma-2b's rows: 128 threads of two vectors, 4 slots
+        (1024, 2, (8, 128, 1, 4, 3)),  # the forward's shape
+        (128, 2, (8, 16, 1, 32, 3)),  # qk-norm rows: 32 slots of a half-warp
+        (4096, 4, (4, 256, 4, 2, 1)),  # rows of 16 KB: one a slot in flight
+        (8192, 4, (4, 256, 8, 2, 1)),  # 32 values a thread: still in registers
+        (16384, 2, (8, 512, 0, 1, 1)),  # 64 values a thread would spill: the loop
+        (16384, 4, (4, 512, 0, 1, 1)),
+        (20001, 2, (1, 512, 0, 1, 1)),
     ],
 )
 def test_rmsnorm_bwd_launch_shape(d, element_size, expected):
@@ -191,10 +192,63 @@ def test_rmsnorm_bwd_launch_shape(d, element_size, expected):
     assert tuple(shape) == expected
     assert shape.vectors_per_thread * shape.vec <= ops.BWD_REGISTER_VALUES
     if shape.vectors_per_thread == 0:
-        assert shape.threads_per_row == ops.BLOCK
+        assert shape.threads_per_row == ops.BWD_BLOCK
+    assert shape.threads_per_row * shape.rows_per_block == ops.BWD_BLOCK
+    assert ops.bwd_smem_bytes(shape, d, element_size) <= ops.BWD_MAX_SMEM
 
 
 def test_rmsnorm_bwd_blocks():
-    assert ops.bwd_blocks(4096, 1, 132) == 264  # two an SM
-    assert ops.bwd_blocks(5, 16, 132) == 1  # one row group
-    assert ops.bwd_blocks(0, 1, 132) == 1
+    gemma = ops.bwd_launch_shape(2048, 2)
+    assert ops.bwd_blocks(4096, gemma, 132) == 132  # one an SM
+    qk = ops.bwd_launch_shape(128, 2)
+    assert ops.bwd_blocks(5, qk, 132) == 1  # one row group
+    assert ops.bwd_blocks(0, gemma, 132) == 1
+
+
+@pytest.mark.parametrize("element_size", [2, 4])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_rmsnorm_bwd_launch_shape_covers_every_row(element_size, aligned):
+    """Every d up to 40000: a slot's threads cover the row, the ring and
+    the block's dscale rows fit the shared memory the kernel asks for, and
+    only 16-byte loads get a ring deeper than one row."""
+    for d in range(1, 40001, 13):
+        s = ops.bwd_launch_shape(d, element_size, aligned)
+        assert d % s.vec == 0
+        assert 1 <= s.stages <= ops.BWD_MAX_STAGES
+        if s.vectors_per_thread:
+            assert s.threads_per_row * s.vectors_per_thread * s.vec >= d
+            assert ops.bwd_smem_bytes(s, d, element_size) <= ops.BWD_MAX_SMEM
+            if s.vec * element_size != ops.VECTOR_BYTES:
+                assert s.stages == 1
+        else:
+            assert (s.threads_per_row, s.rows_per_block) == (ops.BWD_BLOCK, 1)
+
+
+@pytest.mark.parametrize(
+    "rows,d,element_size,sm_count",
+    [(4096, 2048, 2, 132), (131072, 128, 2, 132), (8192, 4096, 4, 132), (37, 2048, 2, 2),
+     (300, 64, 4, 1), (5, 16384, 2, 132), (3, 100, 2, 4)],
+)
+def test_rmsnorm_bwd_rows_cover_every_row_once_in_a_fixed_order(rows, d, element_size, sm_count):
+    """Each row falls to exactly one (block, slot), each block's slots walk
+    their rows in ascending order, and the partial rows are summed in
+    block order: the plan is a function of the shapes alone, so two calls
+    give the same bits."""
+    shape = ops.bwd_launch_shape(d, element_size)
+    blocks = ops.bwd_blocks(rows, shape, sm_count)
+    plan = ops.bwd_rows(rows, shape, blocks)
+    assert len(plan) == blocks and all(len(slots) == shape.rows_per_block for slots in plan)
+    walked = [r for slots in plan for mine in slots for r in mine]
+    assert sorted(walked) == list(range(rows))
+    assert all(mine == sorted(mine) for slots in plan for mine in slots)
+    ops.bwd_launch_shape.cache_clear()
+    again = ops.bwd_launch_shape(d, element_size)
+    assert ops.bwd_rows(rows, again, ops.bwd_blocks(rows, again, sm_count)) == plan
+
+
+def test_rmsnorm_bwd_constants_match_the_source():
+    src = (ops._build.CSRC / "rmsnorm.cu").read_text()
+    assert f"constexpr int kBwdBlock = {ops.BWD_BLOCK};" in src
+    assert f"constexpr int kBwdMaxStages = {ops.BWD_MAX_STAGES};" in src
+    assert ops.BWD_STAGES <= ops.BWD_MAX_STAGES
+    assert "constexpr int kBwdMaxSmem = 128 << 10;" in src and ops.BWD_MAX_SMEM == 128 << 10
