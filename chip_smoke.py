@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, at
-first use), then runs eight phases, each printing JSON lines:
+first use), then runs nine phases, each printing JSON lines:
 
 1. env      — the card's name and power limit (nvidia-smi), torch/CUDA
               versions, the kernels' build time, and ptxas's registers and
@@ -18,7 +18,11 @@ first use), then runs eight phases, each printing JSON lines:
               function, and its bound (bytes or operations at the H100's
               published peaks); the wrapper's host cost a launch (enqueue
               time on the host clock, no synchronise) beside it, and where
-              that cost goes at the serve shapes (``host_us_a_call``). The
+              that cost goes at the serve shapes (``host_us_a_call``); K3
+              at one query a sequence against strided views of a stacked
+              cache (4096 and 32768 keys) in two forms, one query row a
+              head and GQA folded, and K4 at one token from a carried
+              state (decode's shapes). The
               backward kernels (RMSNorm, flash attention) at the training
               shapes, each held against its plain backward and against
               autograd of the plain forward (relative Frobenius), with
@@ -53,6 +57,19 @@ first use), then runs eight phases, each printing JSON lines:
 8. serve_train — ``repro_torch.launch.serve`` with a gemma-2b service and a
               gemma-2b background trainer under PRIORITY: every request
               served, trainer iterations and preemptions, no failure.
+9. decode   — gemma-2b, qwen3-8b and rwkv6-7b at full width and depth:
+              the decode step of token 511 after a 511-token prefill
+              against the full forward (fp32, through the kernels); 16
+              greedy tokens through ``serve_step`` (``make_prefill_step``,
+              ``make_decode_step``, ``sample_token``, ``greedy_generate``)
+              through the kernels against the plain path in fp32 and bf16
+              (logits at the parity phase's tolerances, tokens identical
+              or a near tie); the int8 cache at the runtime tables'
+              settings within 5% of max |logit| of the bf16 cache. Then
+              DECODE_32K (32768 cached tokens) with bf16 params and a
+              random cache, the batch cut to fit 40 GB: ms a step, tokens
+              a second, launches a step, a profiled step's busy share and
+              device time by kind, and the bytes bound.
 Then the ``{"kernels": [...]}`` summary line.
 
 Any failed check raises and the script exits non-zero. The last line is
@@ -90,6 +107,14 @@ PEAK_FLOPS_FP32_ATTENTION = 494.7e12 / 3
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 WKV_TOL = 2e-3  # tests/test_kernels_rwkv.py
+# K3 at one query against thousands of keys, bf16: relative Frobenius
+# against the plain version. Outputs there average V over ~sk/e keys, so
+# they are ~sqrt(e/sk) (0.009 at 32768 keys) and FLASH_TOL's 2e-2 floor
+# would hide a dropped key tile. Both sides round P and the output to bf16
+# (unit roundoff 2^-9 each): ~3e-3 apart on random inputs; the bound is 2^-7.
+# Dropping the last 64 keys moves the output by ~sqrt(64 / sk): 0.044 at 32768.
+DECODE_REL_TOL = 2.0 ** -7
+DECODE_DROPPED_KEYS = 64  # the control: the kernel without the last 64 keys
 # backward kernels: relative Frobenius, fp32 / bf16 (the JAX tests' bf16)
 BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 RMS_SRC = "src/repro_torch/csrc/rmsnorm.cu"
@@ -104,6 +129,10 @@ SERVE_ARCHS = ["gemma-2b", "qwen3-8b", "rwkv6-7b"]
 TRAIN_ARCH = "gemma-2b"
 TRAIN_BATCH = 4  # global batch of TRAIN_4K-length sequences
 TRAIN_STEPS = 3
+DECODE_PROMPT = 511  # tokens prefilled before the decode checks
+DECODE_NEW = 16  # greedy tokens
+DECODE_CACHE_GB = 40  # the decode shape's batch is halved until its state fits
+DECODE_STEPS = 8  # timed steps at the decode shape
 # w = sigmoid(z) * span + low: the JAX kernel test's slow and fast decay
 # regimes, and a faster one with decays down to 0.05
 DECAY_REGIMES = {"slow": (0.1, 0.88), "fast": (0.5, 0.15), "faster": (0.9, 0.05)}
@@ -371,7 +400,87 @@ def flash_case(b, sq, sk, hq, hkv, d, dtype, *, causal=True, window=None,
     return res
 
 
-def wkv6_case(b, s, h, d, chunk, regime, iters=10, plain_iters=2) -> dict:
+def flash_decode_case(b, sk, hq, hkv, d, iters=10) -> dict:
+    """K3 at one query a sequence against the first ``sk`` keys of layer 1
+    of a stacked bf16 cache ``(2, b, cap, hkv, d)`` (a strided view, as a
+    decode step reads it), non-causal, in two forms: one query row a head,
+    and GQA folded (the ``hq / hkv`` query heads of a kv head as that many
+    query rows of one head, legal because every row has the same keys;
+    what the model runs, ``attention.attend_prefix_folded``). Both held
+    against the plain version by relative Frobenius within DECODE_REL_TOL
+    (and elementwise within FLASH_TOL), with a control that must miss it (the folded form without the last
+    DECODE_DROPPED_KEYS keys), timed in turns, beside SDPA on the same
+    views and the bytes bound (K and V read once)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    dtype, cap, n_rep = torch.bfloat16, sk + 64, hq // hkv
+    gen = torch.Generator(device="cuda").manual_seed(sk + hq * 7 + d)
+    cache_k = torch.randn(2, b, cap, hkv, d, generator=gen, device="cuda", dtype=dtype)
+    cache_v = torch.randn(2, b, cap, hkv, d, generator=gen, device="cuda", dtype=dtype)
+    k, v = cache_k[1, :, :sk], cache_v[1, :, :sk]
+    q = torch.randn(b, 1, hq, d, generator=gen, device="cuda", dtype=dtype)
+    # query head g n_rep + r is row r of kv head g
+    q_folded = q.view(b, hkv, n_rep, d).transpose(1, 2)
+    forms = {
+        "head_rows": lambda: ops.flash_attention(q, k, v, causal=False, block_q=1, block_k=sk),
+        "gqa_folded": lambda: ops.flash_attention(
+            q_folded, k, v, causal=False, block_q=n_rep, block_k=sk
+        ).transpose(1, 2).reshape(b, 1, hq, d),
+    }
+    plain = lambda: attention_ref(q, k, v, causal=False)
+    ref = plain()
+    tol = DECODE_REL_TOL
+    outs = {name: fn() for name, fn in forms.items()}
+    err = {name: max_err(out, ref) for name, out in outs.items()}
+    rel = {name: rel_fro(out, ref) for name, out in outs.items()}
+    ok = {name: r <= tol and within(outs[name], ref, FLASH_TOL[dtype])
+          for name, r in rel.items()}
+    kept = sk - DECODE_DROPPED_KEYS
+    control = ops.flash_attention(
+        q_folded, k[:, :kept], v[:, :kept], causal=False, block_q=n_rep, block_k=kept
+    ).transpose(1, 2).reshape(b, 1, hq, d)
+    control_rel = rel_fro(control, ref)
+    sync()
+    del outs, control
+    form_ms = {}
+    for name in ("head_rows", "gqa_folded", "gqa_folded", "head_rows"):
+        form_ms.setdefault(name, []).append(time_ms(forms[name], iters))
+    launch_ms = host_ms(forms["gqa_folded"], iters)
+    plain_ms = time_ms(plain, max(1, iters // 5))
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    library_ms = time_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=hq != hkv), iters)
+    flops = 4.0 * b * hq * d * sk
+    nbytes = q.element_size() * (2 * b * hq * d + 2 * b * sk * hkv * d)
+    bound_ms, bound_by = bound(nbytes, flops, PEAK_FLOPS[dtype])
+    res = {
+        "phase": "kernels", "kernel": "flash_attention", "decode": True,
+        "shape": {"b": b, "sq": 1, "sk": sk, "hq": hq, "hkv": hkv, "d": d, "causal": False,
+                  "cache_capacity": cap, "window": None, "q_offset": 0},
+        "dtype": "bfloat16", "route": ops.route(dtype, d),
+        "max_abs_err": err["gqa_folded"], "max_abs_err_by_form": err,
+        "rel_fro_by_form": rel, "tol": tol, "tol_kind": "rel_fro",
+        "ref_max_abs": ref.abs().max().item(),
+        "control_dropped_keys": DECODE_DROPPED_KEYS, "control_rel_fro": control_rel,
+        "ok": all(ok.values()) and control_rel > tol,
+        "ms": sum(form_ms["gqa_folded"]) / 2, "ms_by_form": form_ms,
+        "host_ms": launch_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+    }
+    emit(res)
+    check(all(ok.values()), f"flash decode {res['shape']}: rel_fro {rel} > tol {tol}")
+    check(control_rel > tol, f"flash decode {res['shape']}: without the last "
+          f"{DECODE_DROPPED_KEYS} keys rel_fro {control_rel} <= tol {tol}: the check is blind")
+    del cache_k, cache_v, k, v, q, q_folded, ref
+    return res
+
+
+def wkv6_case(b, s, h, d, chunk, regime, iters=10, plain_iters=2, carried=False) -> dict:
+    """``carried``: from a random state ``s0`` (a decode step's), which the
+    plain chunked path does not take."""
     from repro_torch.kernels.rwkv_scan import ops
     from repro_torch.kernels.rwkv_scan.ref import wkv6_ref
     from repro_torch.models.rwkv import wkv_chunked
@@ -383,9 +492,10 @@ def wkv6_case(b, s, h, d, chunk, regime, iters=10, plain_iters=2) -> dict:
     span, low = DECAY_REGIMES[regime]
     w = torch.sigmoid(torch.randn(b, s, h, d, generator=gen, device="cuda")) * span + low
     u = torch.randn(h, d, generator=gen, device="cuda") * 0.1
-    run = lambda: ops.wkv6(r, k, v, w, u, chunk=chunk)
-    plain = lambda: wkv6_ref(r, k, v, w, u)
-    chunked = lambda: wkv_chunked(r, k, v, w, u, chunk=chunk)
+    s0 = torch.randn(b, h, d, d, generator=gen, device="cuda") if carried else None
+    run = lambda: ops.wkv6(r, k, v, w, u, chunk=chunk, s0=s0)
+    plain = lambda: wkv6_ref(r, k, v, w, u, s0)
+    chunked = None if carried else (lambda: wkv_chunked(r, k, v, w, u, chunk=chunk))
     (o, sf), (o_ref, s_ref) = run(), plain()
     sync()
     finite = bool(torch.isfinite(o).all().item() and torch.isfinite(sf).all().item())
@@ -398,7 +508,7 @@ def wkv6_case(b, s, h, d, chunk, regime, iters=10, plain_iters=2) -> dict:
     tiles = {"head": d, "half": d // 2}
     tile_ms = {}
     for name in ("head", "half", "half", "head"):
-        tiled = lambda: ops._wkv6(r, k, v, w, u, chunk, None, False, tiles[name])
+        tiled = lambda: ops._wkv6(r, k, v, w, u, chunk, s0, False, tiles[name])
         o_t, s_t = tiled()
         sync()
         check(within(o_t, o_ref, WKV_TOL) and within(s_t, s_ref, WKV_TOL),
@@ -407,16 +517,19 @@ def wkv6_case(b, s, h, d, chunk, regime, iters=10, plain_iters=2) -> dict:
     ms = time_ms(run, iters)
     launch_ms = host_ms(run, iters)
     plain_ms = time_ms(plain, plain_iters)
-    chunked_ms = time_ms(chunked, plain_iters)
-    # each input read once (r, k, w, v, u), o and the state written once;
-    # the recurrence's two multiply-adds per state element and step
-    nbytes = 4 * (b * s * h * (3 * d + d) + h * d + b * s * h * d + b * h * d * d)
+    chunked_ms = time_ms(chunked, plain_iters) if chunked else None
+    # each input read once (r, k, w, v, u, and s0 when carried), o and the
+    # state written once; the recurrence's two multiply-adds per state
+    # element and step
+    nbytes = 4 * (b * s * h * (3 * d + d) + h * d + b * s * h * d
+                  + (2 if carried else 1) * b * h * d * d)
     ops_count = 4.0 * b * s * h * d * d
     bound_ms, bound_by = bound(nbytes, ops_count, PEAK_FLOPS[torch.float32])
     res = {
         "phase": "kernels",
         "kernel": "wkv6",
-        "shape": {"b": b, "s": s, "h": h, "dk": d, "dv": d, "chunk": chunk, "decay": regime},
+        "shape": {"b": b, "s": s, "h": h, "dk": d, "dv": d, "chunk": chunk, "decay": regime,
+                  "s0": carried},
         "dtype": "float32",
         "max_abs_err": err,
         "tol": WKV_TOL,
@@ -674,6 +787,12 @@ def phase_kernels() -> dict:
         s = res["shape"]
         results[("flash_attention", s["b"], s["sq"], s["hq"], s["d"], s["window"],
                  s["q_offset"], res["dtype"])] = res
+    # decode: one query a sequence against 4096 and 32768 cached keys, at
+    # the decode phase's bf16-cache batches (qwen3-8b 8, gemma-2b 64)
+    for b, hq, hkv, d in ((8, 32, 8, 128), (64, 8, 1, 256)):
+        for sk in (4096, 32768):
+            res = flash_decode_case(b, sk, hq, hkv, d, iters=10)
+            results[("flash_decode", b, sk, hq, d)] = res
     wkv_cases = [
         # rwkv6-7b's serve prompt (4, 16), 64 heads of 64: the serve chunk
         # of 8 and a chunk of 16
@@ -685,6 +804,10 @@ def phase_kernels() -> dict:
         # fast decays: finite, and on the oracle
         dict(b=1, s=512, h=64, d=64, chunk=64, regime="fast"),
         dict(b=1, s=512, h=64, d=64, chunk=64, regime="faster"),
+        # a decode step: one token from a carried state, rwkv6-7b's 64
+        # heads at the decode batch of 128
+        dict(b=128, s=1, h=64, d=64, chunk=1, regime="slow", iters=50, plain_iters=10,
+             carried=True),
     ]
     for c in wkv_cases:
         res = wkv6_case(**c)
@@ -748,10 +871,15 @@ KERNEL_KINDS = (
 )
 
 
-def device_time_by_kind(prof):
+# decode: dtype conversions and strided copies (PyTorch's copy kernels:
+# the int8 cache's dequantization, the slot writes) as a kind of their own
+DECODE_KERNEL_KINDS = (("cast", ("copy_kernel",)),) + KERNEL_KINDS
+
+
+def device_time_by_kind(prof, kinds=KERNEL_KINDS):
     """Device milliseconds and kernel counts by kind from a profiler run
     (kinds with no kernel stay at 0), and the total kernel count."""
-    groups = {kind: 0.0 for kind, _ in KERNEL_KINDS}
+    groups = {kind: 0.0 for kind, _ in kinds}
     groups["other"] = 0.0
     counts = dict.fromkeys(groups, 0)
     n_kernels = 0
@@ -762,7 +890,7 @@ def device_time_by_kind(prof):
         if us is None:
             us = evt.self_cuda_time_total
         name = evt.key.lower()
-        key = next((kind for kind, marks in KERNEL_KINDS if any(m in name for m in marks)), "other")
+        key = next((kind for kind, marks in kinds if any(m in name for m in marks)), "other")
         groups[key] += us / 1e3
         counts[key] += evt.count
         n_kernels += evt.count
@@ -780,9 +908,9 @@ def profile_request(sess) -> dict:
     return profiled(lambda: sess.step_fn(sess.state, batch))
 
 
-def profiled(fn) -> dict:
+def profiled(fn, kinds=KERNEL_KINDS) -> dict:
     """``fn()`` once under ``torch.profiler``, synchronised: wall time, the
-    device time of its kernels grouped by kind, and the device's busy
+    device time of its kernels grouped by ``kinds``, and the device's busy
     share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -791,7 +919,7 @@ def profiled(fn) -> dict:
         fn()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, counts, n_kernels = device_time_by_kind(prof)
+    groups, counts, n_kernels = device_time_by_kind(prof, kinds)
     device_ms = sum(groups.values())
     return {
         "wall_ms": wall_ms,
@@ -882,7 +1010,7 @@ def phase_serve() -> dict:
     return res
 
 
-def kernels_line(k: dict, serve_res: dict, train_res: dict) -> None:
+def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict) -> None:
     """The summary line: each kernel the serve and train paths launch. The
     forward kernels at their largest serve-path shape (bf16 for the norm
     and attention, whose largest is qwen3-8b's; fp32 for WKV6, rwkv6-7b's
@@ -893,7 +1021,10 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict) -> None:
     norm rows and heads at (1, 4096), with the train path's count; the
     attention backward's fp32 route (3xTF32, the train_parity phase's) at
     gemma-2b's and qwen3-8b's heads at (1, 4096) and at the (1, 512)
-    parity prompt."""
+    parity prompt. The decode phase's timed launches beside them, with K3
+    at one query against 4096 and 32768 cached keys (qwen3-8b's and
+    gemma-2b's heads, both forms) and K4 at one token from a carried
+    state."""
     rms = k[("rmsnorm", 64, 4096, "bfloat16")]
     rms_res = k[("rmsnorm_residual", 64, 4096, "bfloat16")]
     fa = k[("flash_attention", 4, 16, 32, 128, None, 0, "bfloat16")]
@@ -907,6 +1038,11 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict) -> None:
 
     train = train_res["launches"]
     per_step = train_res["launches_per_step"]
+    decode = decode_res["launches"]
+    fa_decode = [{**at(k[("flash_decode", b, sk, hq, d)]),
+                  **{x: k[("flash_decode", b, sk, hq, d)][x]
+                     for x in ("ms_by_form", "rel_fro_by_form", "control_rel_fro")}}
+                 for b, hq, d in ((8, 32, 128), (64, 8, 256)) for sk in (4096, 32768)]
     emit({"kernels": [
         {"name": "rmsnorm", "route": "cuda", "source": RMS_SRC,
          "replaces": RMS_TPU, "also_replaces": RMS_RES_TPU,
@@ -914,6 +1050,7 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict) -> None:
          "dtype": "bfloat16", **{x: rms[x] for x in keys},
          "residual_form": {x: rms_res[x] for x in keys},
          "launches_train": train["rmsnorm"], "launches_a_train_step": per_step["rmsnorm"],
+         "launches_decode": decode["rmsnorm"],
          "at_prefill": [at(k[("rmsnorm", 8192, 4096, "bfloat16")]),
                         {"residual_form": True,
                          **at(k[("rmsnorm_residual", 8192, 4096, "bfloat16")])}]},
@@ -923,12 +1060,15 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict) -> None:
          "dtype": "bfloat16", **{x: fa[x] for x in keys},
          "launches_train": train["flash_attention"],
          "launches_a_train_step": per_step["flash_attention"],
+         "launches_decode": decode["flash_attention"],
          "at_prefill": [at(k[("flash_attention", 1, 2048, 32, 128, None, 0, "bfloat16")]),
-                        at(k[("flash_attention", 1, 2048, 8, 256, None, 0, "bfloat16")])]},
+                        at(k[("flash_attention", 1, 2048, 8, 256, None, 0, "bfloat16")])],
+         "at_decode": fa_decode},
         {"name": "wkv6", "route": "cuda", "source": WKV_SRC, "replaces": WKV_TPU,
          "launches": serve_res["launches"]["wkv6"], "shape": wkv["shape"],
          "dtype": "float32", **{x: wkv[x] for x in keys},
-         "plain_chunked_ms": wkv["plain_chunked_ms"]},
+         "plain_chunked_ms": wkv["plain_chunked_ms"],
+         "launches_decode": decode["wkv6"], "at_decode": at(k[("wkv6", 128, 1, 1, "slow")])},
         {"name": "rmsnorm_bwd", "route": "cuda", "source": RMS_SRC, "replaces": RMS_TPU,
          "backward_of": "rmsnorm (K1); no TPU counterpart",
          "launches": train["rmsnorm_bwd"], "launches_a_train_step": per_step["rmsnorm_bwd"],
@@ -1400,6 +1540,340 @@ def phase_serve_train() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: decode
+# ---------------------------------------------------------------------------
+
+
+def decode_launches_per_step(cfg, quantized: bool) -> dict:
+    """Kernel launches of one decode step: the norms as in a prefill, one
+    attention a layer against an unquantized cache (an int8 cache takes
+    the plain chunked scan), one WKV6 step a layer for rwkv."""
+    per = launches_per_request(cfg)
+    if quantized:
+        per["flash_attention"] = 0
+    return per
+
+
+def generate(model, params, tokens, n: int, max_len: int, feed=None):
+    """``tokens`` (b, s) prefilled into a cache of ``max_len`` through
+    ``make_prefill_step``, then ``n - 1`` steps of ``make_decode_step``:
+    greedy (``sample_token`` at temperature 0), or fed the tokens ``feed``
+    (b, n). Returns (argmax tokens (b, n), fp32 logits (n, b, vocab))."""
+    from repro_torch.train.serve_step import make_decode_step, make_prefill_step, sample_token
+
+    logits, cache = make_prefill_step(model, max_len=max_len)(params, {"tokens": tokens})
+    decode = make_decode_step(model)
+    outs, toks = [logits.float()], [sample_token(logits, None, 0.0)]
+    pos = tokens.shape[1]
+    for i in range(n - 1):
+        tok = toks[-1] if feed is None else feed[:, i]
+        logits, cache = decode(params, {"tokens": tok[:, None]}, cache, pos + i)
+        outs.append(logits[:, 0].float())
+        toks.append(sample_token(logits[:, 0], None, 0.0))
+    return torch.stack(toks, dim=1), torch.stack(outs)
+
+
+def first_difference(a: torch.Tensor, b: torch.Tensor):
+    """The first step (column) where two token tensors differ, or None."""
+    diff = (a != b).any(dim=0).nonzero()
+    return int(diff[0].item()) if diff.numel() else None
+
+
+def decode_correctness(arch: str) -> dict:
+    """One arch at full width and depth, random weights (rwkv decays spread
+    as in the parity phase), a (1, 511) prompt in a cache of 512 + 16:
+    (1) the decode step for token 511 against the full forward's logits at
+    position 511, through the kernels in fp32; (2) 16 greedy tokens
+    through the kernels and through the plain path, fp32 and bf16, logits
+    held at the parity phase's tolerances, tokens identical (where they
+    first differ the plain path's top-2 gap there must be under the
+    logits' tolerance: a near tie), and ``greedy_generate`` giving the
+    kernels' tokens; (3) dense: the runtime tables' decode settings (bf16
+    params, int8 cache) fed the bf16-cache run's tokens, within 5% of max
+    |logit| of it (tests/test_kv_quant.py's bound)."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import DECODE_32K, get_config
+    from repro_torch.models import ModelOptions, build_model
+    from repro_torch.train.runtime import model_options_for
+    from repro_torch.train.serve_step import greedy_generate
+
+    t_start = time.perf_counter()
+    cfg = get_config(arch)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    params = build_model(cfg).init(gen)
+    if cfg.family == "ssm":
+        spread_decay(params, cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (1, DECODE_PROMPT + 1), generator=gen, device=dev)
+    max_len = DECODE_PROMPT + 1 + DECODE_NEW
+    counters = kernel_counters()
+    tol32 = 1e-3  # the parity phase's fp32 tolerance, (1 + |plain|)
+
+    def model(kernel_mode, dtype, **kw):
+        return build_model(cfg, ModelOptions(kernel_mode=kernel_mode, compute_dtype=dtype, **kw))
+
+    # (1) decode of token 511 against the full forward
+    m32 = model("kernel", "float32")
+    zero_counts(counters)
+    full, _ = m32.apply(params, {"tokens": prompt})
+    _, cache = m32.prefill(params, {"tokens": prompt[:, :-1]}, max_len=max_len)
+    step, _ = m32.decode(params, {"tokens": prompt[:, -1:]}, cache, DECODE_PROMPT)
+    sync()
+    del cache
+    want = full[:, -1].float()
+    got = step[:, 0].float()
+    del full
+    one_step = {"max_abs_diff": max_err(got, want), "tol": f"{tol32} (1 + |full|)",
+                "argmax_decode": int(got.argmax().item()), "argmax_full": int(want.argmax().item()),
+                "launches": {n: fn.launches for n, fn in counters.items()}}
+    check(within(got, want, tol32), f"{arch}: decode of token 511 vs full forward "
+                                    f"{one_step['max_abs_diff']}")
+    check(one_step["argmax_decode"] == one_step["argmax_full"], f"{arch}: decode argmax differs")
+
+    # (2) greedy decoding, kernels against plain, fp32 and bf16
+    prompt = prompt[:, :-1]
+    per_step = decode_launches_per_step(cfg, quantized=False)
+    runs, launches = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        for kernel_mode in ("reference", "kernel"):
+            zero_counts(counters)
+            runs[kernel_mode, dtype] = generate(model(kernel_mode, dtype), params, prompt,
+                                                DECODE_NEW, max_len)
+            sync()
+            launches[kernel_mode, dtype] = {n: fn.launches for n, fn in counters.items()}
+    # the plain fp32 path fed the plain bf16 path's tokens: bf16's own
+    # rounding error on the same inputs (the parity phase's yardstick)
+    _, plain32_fed = generate(model("reference", "float32"), params, prompt, DECODE_NEW, max_len,
+                              feed=runs["reference", "bfloat16"][0])
+    want_launch = {n: launches_per_request(cfg)[n] + (DECODE_NEW - 1) * per_step[n]
+                   for n in per_step}
+    greedy = {}
+    out = {"arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "prompt": [1, DECODE_PROMPT], "max_len": max_len, "new_tokens": DECODE_NEW,
+           "decode_of_token_511": one_step, "expected_launches_a_run": want_launch}
+    for dtype in ("float32", "bfloat16"):
+        (k_tok, k_log), (p_tok, p_log) = runs["kernel", dtype], runs["reference", dtype]
+        check(launches["kernel", dtype] == {**dict.fromkeys(counters, 0), **want_launch},
+              f"{arch} {dtype}: launches {launches['kernel', dtype]} != {want_launch}")
+        check(not any(launches["reference", dtype].values()),
+              f"{arch} {dtype}: the plain path launched {launches['reference', dtype]}")
+        diverge = first_difference(k_tok, p_tok)
+        upto = DECODE_NEW if diverge is None else diverge + 1  # same inputs up to there
+        for name, t in (("kernel", k_log), ("plain", p_log)):
+            check(bool(torch.isfinite(t).all().item()), f"{arch} {dtype} {name}: non-finite logits")
+        diff = max_err(k_log[:upto], p_log[:upto])
+        res = {"tokens_identical": diverge is None, "first_difference": diverge,
+               "logits_max_abs_diff": diff, "tokens_kernel": k_tok[0].tolist(),
+               "tokens_plain": p_tok[0].tolist(), "launches": launches["kernel", dtype]}
+        if dtype == "float32":
+            res["tol"] = f"{tol32} (1 + |plain|)"
+            ok = within(k_log[:upto], p_log[:upto], tol32)
+            tie_tol = tol32 * (1 + p_log.abs().max().item())
+        else:
+            err_plain16 = max_err(p_log, plain32_fed)
+            err_kernel16 = max_err(k_log[:upto], plain32_fed[:upto])
+            res.update(tol=2.0 * err_plain16, plain_vs_fp32=err_plain16,
+                       kernel_vs_fp32=err_kernel16)
+            ok = diff <= 2.0 * err_plain16 and err_kernel16 <= 1.25 * err_plain16
+            tie_tol = 2.0 * err_plain16
+        if diverge is not None:
+            top2 = torch.topk(p_log[diverge, 0], 2).values
+            res["plain_top2_gap_at_difference"] = float(top2[0] - top2[1])
+            res["near_tie_tol"] = tie_tol
+            ok = ok and res["plain_top2_gap_at_difference"] < tie_tol
+        res["ok"] = bool(ok)
+        out[dtype] = res
+        greedy[dtype] = greedy_generate(model("kernel", dtype), params, {"tokens": prompt},
+                                        DECODE_NEW, max_len)
+        res["greedy_generate_equals_loop"] = bool(torch.equal(greedy[dtype].long(), k_tok.long()))
+    del runs, plain32_fed
+    # (3) int8 cache at the runtime tables' decode settings
+    if cfg.family != "ssm":
+        opts = model_options_for(cfg, DECODE_32K)
+        params16 = pytree.tree_map(lambda t: t.to(getattr(torch, opts.param_dtype)), params)
+        del params
+        gc.collect()
+        m_q = build_model(cfg, opts)
+        m_bf = build_model(cfg, replace(opts, kv_quantized=False))
+        zero_counts(counters)
+        bf_tok, bf_log = generate(m_bf, params16, prompt, DECODE_NEW, max_len)
+        sync()
+        bf_launch = {n: fn.launches for n, fn in counters.items()}
+        zero_counts(counters)
+        _, q_log = generate(m_q, params16, prompt, DECODE_NEW, max_len, feed=bf_tok)
+        sync()
+        q_launch = {n: fn.launches for n, fn in counters.items()}
+        q_per_step = decode_launches_per_step(cfg, quantized=True)
+        want_q = {n: launches_per_request(cfg)[n] + (DECODE_NEW - 1) * q_per_step[n]
+                  for n in q_per_step}
+        rel = max_err(q_log, bf_log) / bf_log.abs().max().item()
+        out["int8"] = {"options": {"param_dtype": opts.param_dtype,
+                                   "kv_quantized": opts.kv_quantized,
+                                   "compute_dtype": opts.compute_dtype},
+                       "max_abs_diff_over_max_abs_logit": rel, "tol": 0.05,
+                       "launches": q_launch, "expected_launches": want_q,
+                       "bf16_cache_launches": bf_launch}
+        check(bool(torch.isfinite(q_log).all().item()), f"{arch}: int8 logits not finite")
+        check(q_launch == {**dict.fromkeys(counters, 0), **want_q},
+              f"{arch} int8: launches {q_launch} != {want_q}")
+        check(rel < 0.05, f"{arch} int8 cache: {rel} of max |logit| from the bf16 cache")
+        del params16
+    else:
+        out["int8"] = "no KV cache: kv_quantized changes nothing for rwkv"
+        del params
+    out["seconds"] = time.perf_counter() - t_start
+    emit({"phase": "decode", "part": "correctness", **out})
+    for dtype in ("float32", "bfloat16"):
+        check(out[dtype]["ok"], f"{arch} {dtype} greedy decode: {out[dtype]}")
+        check(out[dtype]["greedy_generate_equals_loop"],
+              f"{arch} {dtype}: greedy_generate's tokens differ from the decode loop's")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def decode_state_bytes(cfg, quantized: bool, cap: int) -> int:
+    """Bytes of one sequence's decode state at ``cap`` slots: K and V (and
+    their fp16 scales when int8), or rwkv's shift carries and wkv state."""
+    if cfg.family == "ssm":
+        h = cfg.d_model // cfg.rwkv_head_dim
+        return cfg.n_layers * (2 * cfg.d_model * 2 + h * cfg.rwkv_head_dim ** 2 * 4)
+    per_slot = cfg.n_kv_heads * (cfg.head_dim + 2 if quantized else 2 * cfg.head_dim)
+    return cfg.n_layers * cap * 2 * per_slot
+
+
+def fill_random(cache: dict, gen: torch.Generator) -> None:
+    """Random values of each leaf's dtype: int8 values in [-127, 127],
+    fp16 scales in [0.005, 0.02], normal elsewhere (wkv states scaled to
+    0.1)."""
+    for name, t in cache.items():
+        if t.dtype == torch.int8:
+            t.random_(-127, 128, generator=gen)
+        elif t.dtype == torch.float16:
+            t.uniform_(0.005, 0.02, generator=gen)
+        else:
+            t.normal_(0.0, 0.1 if name == "wkv" else 1.0, generator=gen)
+
+
+def decode_timings(arch: str) -> list:
+    """``decode_timing`` of one arch's caches (int8 and bf16; rwkv's
+    recurrent state), sharing one draw of bf16 params."""
+    from repro_torch.configs import DECODE_32K, get_config
+    from repro_torch.models import build_model
+    from repro_torch.train.runtime import model_options_for
+
+    cfg = get_config(arch)
+    opts = model_options_for(cfg, DECODE_32K)
+    params = build_model(cfg, opts).init(torch.Generator(device="cuda").manual_seed(19))
+    caches = (False,) if cfg.family == "ssm" else (True, False)
+    out = [decode_timing(cfg, replace(opts, kv_quantized=q), params) for q in caches]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def decode_timing(cfg, opts, params) -> dict:
+    """The decode shape, DECODE_32K (32768 cached tokens, batch 128), with
+    ``opts`` (the runtime tables' bf16 params; an int8 cache, or bf16
+    where ``kv_quantized`` is off): the batch halved until the state is
+    at most DECODE_CACHE_GB, a cache of random values of its dtype, and
+    DECODE_STEPS steps timed at pos = 32768 - 9 on; launches a step, one
+    more step under the profiler, and the bytes bound (params and the
+    valid cache read once)."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import DECODE_32K
+    from repro_torch.models import build_model
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    cap = DECODE_32K.seq_len
+    quantized = opts.kv_quantized
+    b = DECODE_32K.global_batch
+    while b > 1 and b * decode_state_bytes(cfg, quantized, cap) > DECODE_CACHE_GB * 1e9:
+        b //= 2
+    model = build_model(cfg, opts)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    cache = model.init_cache(b, cap, device=dev)
+    fill_random(cache, gen)
+    tok = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen, device=dev)
+    pos0 = cap - 1 - DECODE_STEPS
+    counters = kernel_counters()
+    logits, cache = model.decode(params, {"tokens": tok}, cache, pos0 - 1)  # warm-up
+    sync()
+    zero_counts(counters)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(DECODE_STEPS):
+        logits, cache = model.decode(params, {"tokens": tok}, cache, pos0 + i)
+    end.record()
+    end.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / DECODE_STEPS
+    ms = start.elapsed_time(end) / DECODE_STEPS
+    launches = {n: fn.launches for n, fn in counters.items()}
+    per_step = decode_launches_per_step(cfg, quantized)
+    expected = {**dict.fromkeys(counters, 0), **{n: DECODE_STEPS * v for n, v in per_step.items()}}
+    finite = bool(torch.isfinite(logits.float()).all().item())
+    prof = profiled(lambda: model.decode(params, {"tokens": tok}, cache, cap - 1),
+                    kinds=DECODE_KERNEL_KINDS)
+    param_bytes = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(params))
+    if cfg.family == "ssm":
+        state_bytes = b * decode_state_bytes(cfg, False, cap)
+    else:  # the valid slots of each timed step, on average
+        n_valid = sum(pos0 + i + 1 for i in range(DECODE_STEPS)) / DECODE_STEPS
+        state_bytes = b * decode_state_bytes(cfg, quantized, 1) * n_valid
+    bound_ms = (param_bytes + state_bytes) / HBM_BYTES_PER_S * 1e3
+    res = {
+        "phase": "decode", "part": "timing", "arch": cfg.name,
+        "cache": "recurrent state" if cfg.family == "ssm" else ("int8" if quantized else "bf16"),
+        "shape": {"cached_tokens": cap, "batch": b, "batch_from": DECODE_32K.global_batch,
+                  "batch_cut": f"halved until the state is <= {DECODE_CACHE_GB} GB"
+                               if b < DECODE_32K.global_batch else None,
+                  "pos": [pos0, pos0 + DECODE_STEPS - 1]},
+        "state_gb": b * decode_state_bytes(cfg, quantized, cap) / 1e9,
+        "param_gb": param_bytes / 1e9,
+        "options": {"param_dtype": opts.param_dtype, "compute_dtype": opts.compute_dtype,
+                    "kv_quantized": opts.kv_quantized, "kernel_mode": opts.kernel_mode},
+        "ms_a_step": ms, "host_ms_a_step": wall_ms, "tokens_per_s": b / ms * 1e3,
+        "launches": launches, "expected_launches": expected,
+        "launches_a_step": per_step,
+        "bound_ms": bound_ms, "bound_by": "bytes", "bound_share": bound_ms / ms,
+        "profiled_step": prof, "finite": finite,
+        "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "seconds": time.perf_counter() - t_start,
+    }
+    emit(res)
+    name = f"{cfg.name} {res['cache']}"
+    check(finite and logits.shape == (b, 1, cfg.vocab_size), f"{name} decode timing: logits")
+    check(launches == expected, f"{name} decode timing: launches {launches} != {expected}")
+    for kind, n in per_step.items():
+        if n:
+            check(prof["device_ms_by_kind"][kind] > 0, f"{name}: no {kind} device time in a step")
+    del cache, logits, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_decode() -> dict:
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = {"correctness": {arch: decode_correctness(arch) for arch in SERVE_ARCHS}}
+    res["timing"] = [r for arch in SERVE_ARCHS for r in decode_timings(arch)]
+    res["wall_s"] = time.perf_counter() - t0
+    launches = dict.fromkeys(kernel_counters(), 0)
+    for r in res["timing"]:
+        for n, v in r["launches"].items():
+            launches[n] += v
+    res["launches"] = launches
+    emit({"phase": "decode", "wall_s": res["wall_s"], "timed_launches": launches})
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1423,7 +1897,8 @@ def main() -> int:
     train_res = phase_train()
     phase_train_parity()
     phase_serve_train()
-    kernels_line(k, serve_res, train_res)
+    decode_res = phase_decode()
+    kernels_line(k, serve_res, train_res, decode_res)
     emit({"phase": "done", "wall_s": time.perf_counter() - t0})
     emit({"ok": True, "device": {
         "platform": "gpu",

@@ -1,16 +1,17 @@
 """Architecture registry of the port: ``get_config(name)``.
 
 Holds the configs the port runs so far, copied from the JAX package's
-``configs/gemma_2b.py``, ``configs/qwen3_8b.py`` and
-``configs/rwkv6_7b.py``. Any other arch of the JAX registry raises
-``KeyError`` until it is ported. The workload shapes (``SHAPES``,
-``TRAIN_4K``) are copies of ``configs/base.py``'s.
+``configs/gemma_2b.py``, ``configs/qwen3_8b.py``, ``configs/rwkv6_7b.py``,
+``configs/qwen1p5_32b.py`` and ``configs/qwen2_72b.py``. Any other arch
+of the JAX registry raises ``KeyError`` until it is ported. The workload
+shapes (``SHAPES``, ``TRAIN_4K``, ``DECODE_32K``) are copies of
+``configs/base.py``'s.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs.base import SHAPES, TRAIN_4K, ArchConfig, ShapeConfig
+from repro_torch.configs.base import DECODE_32K, SHAPES, TRAIN_4K, ArchConfig, ShapeConfig
 
 # gemma-2b — dense, GeGLU, MQA (kv=1), head_dim=256 [arXiv:2403.08295].
 # Tied embeddings scaled by sqrt(d_model).
@@ -64,7 +65,43 @@ RWKV6_7B = ArchConfig(
     rope_variant="none",
 )
 
-ARCHS: Dict[str, ArchConfig] = {c.name: c for c in (GEMMA_2B, QWEN3_8B, RWKV6_7B)}
+# qwen1.5-32b — dense, MHA with QKV bias [hf:Qwen/Qwen1.5 family].
+QWEN1P5_32B = ArchConfig(
+    name="qwen1.5-32b",
+    family="dense",
+    n_layers=64,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=40,
+    head_dim=128,
+    d_ff=27392,
+    vocab_size=152064,
+    qkv_bias=True,
+    gated_act="silu",
+    rope_variant="rope",
+    rope_theta=1_000_000.0,
+)
+
+# qwen2-72b — dense, GQA + QKV bias [arXiv:2407.10671].
+QWEN2_72B = ArchConfig(
+    name="qwen2-72b",
+    family="dense",
+    n_layers=80,
+    d_model=8192,
+    n_heads=64,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=29568,
+    vocab_size=152064,
+    qkv_bias=True,
+    gated_act="silu",
+    rope_variant="rope",
+    rope_theta=1_000_000.0,
+)
+
+ARCHS: Dict[str, ArchConfig] = {
+    c.name: c for c in (GEMMA_2B, QWEN3_8B, RWKV6_7B, QWEN1P5_32B, QWEN2_72B)
+}
 
 
 def get_config(name: str) -> ArchConfig:
@@ -78,6 +115,6 @@ def get_config(name: str) -> ArchConfig:
 
 
 __all__ = [
-    "ArchConfig", "ARCHS", "GEMMA_2B", "QWEN3_8B", "RWKV6_7B", "SHAPES", "ShapeConfig",
-    "TRAIN_4K", "get_config",
+    "ArchConfig", "ARCHS", "DECODE_32K", "GEMMA_2B", "QWEN1P5_32B", "QWEN2_72B", "QWEN3_8B",
+    "RWKV6_7B", "SHAPES", "ShapeConfig", "TRAIN_4K", "get_config",
 ]

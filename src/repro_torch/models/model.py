@@ -1,13 +1,19 @@
 """Model: ``build_model(cfg)`` -> a :class:`Model` with init / apply /
-loss / prefill for the dense decoder and the rwkv (``ssm``) families (the
-JAX package's ``models/model.py``; decode and the other families come in
-later slices). ``loss`` is the causal LM loss with a seq-chunked head that
-never materializes the full logits.
+loss / prefill / init_cache / decode for the dense decoder and the rwkv
+(``ssm``) families (the JAX package's ``models/model.py``; the other
+families come in later slices). ``loss`` is the causal LM loss with a
+seq-chunked head that never materializes the full logits.
+
+Serving: ``prefill`` runs a prompt and emits the decode cache (int8 K/V
+with fp16 scales under ``kv_quantized``, as the JAX package's prefill
+does); ``decode`` runs one token for every sequence against it, ``pos``
+(a host int) being the tokens already cached. ``unstack_cache`` turns a
+stacked cache into per-layer dicts.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -34,6 +40,10 @@ class ModelOptions:
     wkv_chunk: int = 64  # rwkv: time steps per WKV chunk
     remat: bool = True  # checkpoint each layer when a gradient is taken
     loss_chunk: int = 512  # sequence positions a chunk of the loss head
+    # the plain attention's query chunk (memory only: the same result)
+    attn_q_chunk: int = 4096
+    decode_cache_mode: str = "carry"  # carry | stream (transformer.stack_decode)
+    kv_quantized: bool = False  # int8 KV cache with fp16 scales (serving)
     aux_coeff: float = 0.01
 
 
@@ -46,6 +56,9 @@ class Model:
         self.cfg = cfg
         self.opts = opts or ModelOptions()
         check_kernel_mode(self.opts.kernel_mode)
+        if self.opts.decode_cache_mode not in transformer.CACHE_MODES:
+            raise ValueError(f"decode_cache_mode must be one of {transformer.CACHE_MODES}, "
+                             f"got {self.opts.decode_cache_mode!r}")
 
     # ------------------------------------------------------------------
 
@@ -90,7 +103,8 @@ class Model:
         return transformer.stack_apply(
             params["layers"], self.cfg, x, positions,
             compute_dtype=self._compute_dtype(), kernel_mode=self.opts.kernel_mode,
-            wkv_chunk=self.opts.wkv_chunk, on_cache=on_cache, remat=self.opts.remat,
+            wkv_chunk=self.opts.wkv_chunk, attn_q_chunk=self.opts.attn_q_chunk,
+            on_cache=on_cache, remat=self.opts.remat,
         )
 
     def apply(self, params: Params, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -131,8 +145,25 @@ class Model:
         return total / (b * s) + self.opts.aux_coeff * aux
 
     # ------------------------------------------------------------------
-    # Serving: prefill
+    # Serving: prefill + decode
     # ------------------------------------------------------------------
+
+    def init_cache(
+        self, batch: int, max_len: int, stacked: bool = True, *, device: torch.device
+    ) -> transformer.Cache:
+        """Empty decode state on ``device``. ``stacked``: leaves with a
+        leading ``n_layers`` axis; otherwise a tuple of per-layer dicts
+        (views of one stacked allocation)."""
+        cfg = self.cfg
+        cdt = self._compute_dtype()
+        if cfg.family == "ssm":
+            cache = rwkv.rwkv_init_state(cfg, batch, cdt, device)
+        else:
+            cap = attention.cache_capacity(cfg, max_len)
+            cache = attention.init_kv_cache(
+                cfg, batch, cap, cdt, quantized=self.opts.kv_quantized, device=device
+            )
+        return cache if stacked else unstack_cache(cache, cfg.n_layers)
 
     def prefill(
         self, params: Params, batch: Dict, max_len: Optional[int] = None
@@ -140,7 +171,8 @@ class Model:
         """Run the full prompt once; return (last-token logits, cache).
 
         Dense: the cache holds each layer's rotated K/V as ``(n_layers, b,
-        cap, hkv, head_dim)`` in the compute dtype, ``cap =
+        cap, hkv, head_dim)`` in the compute dtype (int8 with fp16 scales
+        ``(n_layers, b, cap, hkv)`` under ``kv_quantized``), ``cap =
         cache_capacity(cfg, max_len)``: the last ``cap`` tokens, zero-padded
         at the end when the prompt is shorter (room for decode steps).
         ``max_len`` defaults to the prompt length.
@@ -175,11 +207,8 @@ class Model:
             return self._trunk(params, batch, on_cache=keep), cache
 
         cap = attention.cache_capacity(cfg, max_len if max_len is not None else s)
-        shape = (cfg.n_layers, b, cap, cfg.n_kv_heads, cfg.head_dim)
-        cache = {
-            "k": torch.zeros(shape, dtype=cdt, device=tokens.device),
-            "v": torch.zeros(shape, dtype=cdt, device=tokens.device),
-        }
+        quantized = self.opts.kv_quantized
+        cache = attention.init_kv_cache(cfg, b, cap, cdt, quantized, device=tokens.device)
 
         def keep_kv(i: int, entries: transformer.CacheEntries) -> None:
             # the last `cap` tokens; a ring cache (sliding window) aligns
@@ -189,10 +218,37 @@ class Model:
             if cfg.sliding_window > 0 and s >= cap and s % cap:
                 k = torch.roll(k, s % cap, dims=1)
                 v = torch.roll(v, s % cap, dims=1)
+            if quantized:  # int8 end to end: decode reads and extends it
+                k, cache["k_scale"][i, :, :n] = attention.quantize_kv(k)
+                v, cache["v_scale"][i, :, :n] = attention.quantize_kv(v)
             cache["k"][i, :, :n] = k
             cache["v"][i, :, :n] = v
 
         return self._trunk(params, batch, on_cache=keep_kv), cache
+
+    def decode(
+        self, params: Params, batch: Dict, cache: transformer.Cache, pos: Union[int, torch.Tensor]
+    ) -> Tuple[torch.Tensor, transformer.Cache]:
+        """One token ``batch["tokens"]`` (b, 1) for every sequence against
+        ``cache``; ``pos`` is the count of tokens already cached (a host
+        int: a tensor is read back to the host). Returns ``(logits (b, 1,
+        vocab) in the compute dtype, new cache)``; the cache keeps its form
+        (stacked or per layer), and ``decode_cache_mode`` says whether it
+        is updated in place (``"carry"``) or left as it is (``"stream"``)."""
+        cfg, o = self.cfg, self.opts
+        pos = int(pos)
+        x = self._embed(params, batch)
+        positions = None
+        if cfg.rope_variant != "none":
+            positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
+        x, new_cache = transformer.stack_decode(
+            params["layers"], cfg, x, positions, cache, pos,
+            compute_dtype=self._compute_dtype(), kernel_mode=o.kernel_mode,
+            cache_mode=o.decode_cache_mode,
+        )
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps, kernel_mode=o.kernel_mode)
+        table = self._head_table(params).to(self._compute_dtype())
+        return x @ table.T, new_cache
 
 
 def _chunk_nll(x: torch.Tensor, labels: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -202,6 +258,11 @@ def _chunk_nll(x: torch.Tensor, labels: torch.Tensor, table: torch.Tensor) -> to
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return (logz - gold).sum()
+
+
+def unstack_cache(cache: Dict[str, torch.Tensor], n_layers: int) -> Tuple[Dict, ...]:
+    """(L, ...)-stacked cache -> tuple of per-layer dicts (views)."""
+    return tuple({n: t[i] for n, t in cache.items()} for i in range(n_layers))
 
 
 def build_model(cfg: ArchConfig, opts: Optional[ModelOptions] = None) -> Model:

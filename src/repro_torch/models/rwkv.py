@@ -168,7 +168,11 @@ def _ddlerp(p: Params, x: torch.Tensor, x_prev: torch.Tensor) -> Tuple[torch.Ten
     lora = lora.reshape(*lora.shape[:-1], N_MIX, LORA_DIM_MIX)
     delta = torch.einsum("bsnm,nmd->bsnd", lora, p["mix_w2"].float())  # (b,s,5,d)
     mixed = x32[:, :, None] + xx[:, :, None] * (p["mu"] + delta)
-    return tuple(mixed[:, :, i] for i in range(N_MIX))  # r,k,v,w,g streams
+    # r,k,v,w,g streams in fresh rows of canonical strides: a strided
+    # (b, s, d) stream, or at s = 1 one whose size-1 dim has an odd stride
+    # (which ``.contiguous()`` keeps), makes each projection a batched
+    # matmul that reads the weight once a sequence
+    return mixed.permute(2, 0, 1, 3).clone(memory_format=torch.contiguous_format).unbind(0)
 
 
 def _group_norm(x: torch.Tensor, scale: torch.Tensor, h: int, eps: float = 64e-5) -> torch.Tensor:

@@ -19,10 +19,17 @@ Every block also hands back its layer's cache entries, which
 ``stack_apply`` passes to an optional sink: ``k``/``v`` (rotated keys and
 values) for a dense block, ``tmix_shift``/``cmix_shift``/``wkv`` (the
 token-shift carries and the fp32 wkv state) for an rwkv block.
+
+Decode (``block_decode``, ``stack_decode``) runs one token through the
+layers against the cache. The cache is stacked (leaves with a leading
+``n_layers`` axis) or a tuple of per-layer dicts. ``cache_mode="carry"``
+writes each layer's entries into the cache it is given, in place, and
+returns it; ``"stream"`` leaves that cache as it is and returns fresh
+leaves, filled layer by layer.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -36,6 +43,9 @@ from repro_torch.models.layers import Params, mlp_apply, mlp_init, rmsnorm, rmsn
 CacheEntries = Dict[str, torch.Tensor]
 # on_cache(layer_index, entries): receives each layer's cache entries
 CacheSink = Callable[[int, CacheEntries], None]
+# a decode cache: stacked leaves, or one dict a layer
+Cache = Union[Dict[str, torch.Tensor], Sequence[Dict[str, torch.Tensor]]]
+CACHE_MODES = ("carry", "stream")
 
 
 def layer_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Params:
@@ -72,7 +82,7 @@ def layer_slice(layers: Params, i: int, dtype: torch.dtype) -> Params:
 
 def block_apply(
     p: Params, cfg: ArchConfig, x: torch.Tensor, positions: Optional[torch.Tensor], *,
-    kernel_mode: str = "kernel", wkv_chunk: int = 64,
+    kernel_mode: str = "kernel", wkv_chunk: int = 64, attn_q_chunk: Optional[int] = None,
 ) -> Tuple[torch.Tensor, CacheEntries]:
     """One block; returns (x_out, the layer's cache entries)."""
     if cfg.family == "ssm":
@@ -85,7 +95,9 @@ def block_apply(
         out, cshift = rwkv.cmix_apply(p["cmix"], cfg, h)
         return x + out, {"tmix_shift": tshift, "cmix_shift": cshift, "wkv": state}
     h = rmsnorm(p["attn_norm"], x, cfg.norm_eps, kernel_mode=kernel_mode)
-    attn_out, k, v = attention.attend(p["attn"], cfg, h, positions, kernel_mode=kernel_mode)
+    attn_out, k, v = attention.attend(
+        p["attn"], cfg, h, positions, kernel_mode=kernel_mode, q_chunk=attn_q_chunk
+    )
     x = x + attn_out
     h = rmsnorm(p["mlp_norm"], x, cfg.norm_eps, kernel_mode=kernel_mode)
     return x + mlp_apply(p["mlp"], h, cfg.gated_act), {"k": k, "v": v}
@@ -94,13 +106,14 @@ def block_apply(
 def stack_apply(
     layers: Params, cfg: ArchConfig, x: torch.Tensor, positions: Optional[torch.Tensor], *,
     compute_dtype: torch.dtype, kernel_mode: str = "kernel", wkv_chunk: int = 64,
-    on_cache: Optional[CacheSink] = None, remat: bool = False,
+    attn_q_chunk: Optional[int] = None, on_cache: Optional[CacheSink] = None,
+    remat: bool = False,
 ) -> torch.Tensor:
     """Run all layers in order. ``remat`` checkpoints each layer when a
     gradient is to be taken (grad enabled, and ``x`` or a layer leaf
     requires grad) and no cache sink is given; otherwise it changes
     nothing."""
-    kw = dict(kernel_mode=kernel_mode, wkv_chunk=wkv_chunk)
+    kw = dict(kernel_mode=kernel_mode, wkv_chunk=wkv_chunk, attn_q_chunk=attn_q_chunk)
     if remat and on_cache is None and _needs_grad(layers, x):
         for i in range(cfg.n_layers):
 
@@ -122,3 +135,73 @@ def _needs_grad(layers: Params, x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(
         t.requires_grad for t in pytree.tree_leaves((layers, x))
     )
+
+
+# ---------------------------------------------------------------------------
+# Decode (one token, stateful)
+# ---------------------------------------------------------------------------
+
+
+def block_decode(
+    p: Params, cfg: ArchConfig, x: torch.Tensor, positions: Optional[torch.Tensor],
+    cache: CacheEntries, pos: int, *, kernel_mode: str = "kernel",
+) -> Tuple[torch.Tensor, CacheEntries]:
+    """One token ``x`` (b, 1, d) through one block against this layer's
+    cache entries. Returns ``(x_out, new entries)``: a dense block's K/V
+    are written into ``cache``'s tensors in place and returned; an rwkv
+    block returns new shift carries and wkv state."""
+    if cfg.family == "ssm":
+        h = rmsnorm(p["norm1"], x, cfg.norm_eps, kernel_mode=kernel_mode)
+        out, (shift, state) = rwkv.tmix_apply(
+            p["tmix"], cfg, h, kernel_mode=kernel_mode,
+            shift_prev=cache["tmix_shift"], s0=cache["wkv"],
+        )
+        x = x + out
+        h = rmsnorm(p["norm2"], x, cfg.norm_eps, kernel_mode=kernel_mode)
+        out, cshift = rwkv.cmix_apply(p["cmix"], cfg, h, shift_prev=cache["cmix_shift"])
+        return x + out, {"tmix_shift": shift, "cmix_shift": cshift, "wkv": state}
+    if cfg.family == "hybrid":
+        raise NotImplementedError("hybrid decode (attention + SSM) waits for queue A5")
+    if cfg.is_moe:
+        raise NotImplementedError("MoE decode waits for queue A4")
+    h = rmsnorm(p["attn_norm"], x, cfg.norm_eps, kernel_mode=kernel_mode)
+    attn_out, kv = attention.attention_decode(
+        p["attn"], cfg, h, positions, cache, pos, kernel_mode=kernel_mode
+    )
+    x = x + attn_out
+    h = rmsnorm(p["mlp_norm"], x, cfg.norm_eps, kernel_mode=kernel_mode)
+    return x + mlp_apply(p["mlp"], h, cfg.gated_act), kv
+
+
+def stack_decode(
+    layers: Params, cfg: ArchConfig, x: torch.Tensor, positions: Optional[torch.Tensor],
+    cache: Cache, pos: int, *, compute_dtype: torch.dtype, kernel_mode: str = "kernel",
+    cache_mode: str = "carry",
+) -> Tuple[torch.Tensor, Cache]:
+    """All layers for one token. ``cache`` is stacked (a dict of
+    ``(n_layers, ...)`` leaves) or a tuple of per-layer dicts; the new
+    cache comes back in the same form. ``"carry"`` updates ``cache`` in
+    place; ``"stream"`` copies each layer's entries into fresh leaves,
+    updates those, and leaves ``cache`` untouched."""
+    if cache_mode not in CACHE_MODES:
+        raise ValueError(f"cache_mode must be one of {CACHE_MODES}, got {cache_mode!r}")
+    stacked = isinstance(cache, dict)
+    if not stacked and len(cache) != cfg.n_layers:
+        raise ValueError(f"a per-layer cache needs {cfg.n_layers} layers, got {len(cache)}")
+    fresh = lambda c: {n: torch.empty_like(t) for n, t in c.items()}  # noqa: E731
+    if cache_mode == "carry":
+        out = cache
+    else:
+        out = fresh(cache) if stacked else tuple(fresh(c) for c in cache)
+    layer = lambda c, i: {n: t[i] for n, t in c.items()} if stacked else c[i]  # noqa: E731
+    for i in range(cfg.n_layers):
+        dst = layer(out, i)
+        if cache_mode == "stream":
+            for n, t in layer(cache, i).items():
+                dst[n].copy_(t)
+        p = layer_slice(layers, i, compute_dtype)
+        x, new = block_decode(p, cfg, x, positions, dst, pos, kernel_mode=kernel_mode)
+        for n, t in new.items():
+            if t is not dst[n]:
+                dst[n].copy_(t)
+    return x, out

@@ -1,8 +1,9 @@
 """Per-(arch x shape) runtime knobs: microbatching, dtypes, chunk sizes
 (the JAX package's ``train/runtime.py``, its table as it is, mapped onto
-the port's ``ModelOptions``: the port has no layer scan, SSM/MoE chunks,
-attention query chunking or quantized KV cache yet, and its
-``kernel_mode`` defaults to ``"kernel"``, the hand-written CUDA kernels)."""
+the port's ``ModelOptions``: the port has no layer scan or SSM/MoE chunks
+yet, and its ``kernel_mode`` defaults to ``"kernel"``, the hand-written
+CUDA kernels). Serving shapes (decode and prefill) hold bf16 params and
+an int8 KV cache, as in the JAX package."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
@@ -36,7 +37,11 @@ def model_options_for(
         kernel_mode=kernel_mode,
         remat=shape.kind == "train",
         wkv_chunk=64,
+        attn_q_chunk=1024 if shape.kind == "prefill" else 4096,
         loss_chunk=512,
+        # serving stores the KV cache as int8 (+fp16 scales) end to end:
+        # prefill emits it, decode reads and extends it
+        kv_quantized=shape.kind in ("decode", "prefill"),
         compute_dtype="bfloat16",
         param_dtype=param_dtype,
     )

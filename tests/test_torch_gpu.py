@@ -853,3 +853,132 @@ def test_wkv6_refuses_autograd(cuda):
     with torch.no_grad():
         wkv_ops.wkv6(r, r, r, w, u)
     assert wkv_ops.wkv6.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# decode: K3 at one query against a cache view, K4 from a carried state,
+# and a full-width decode step through the kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("folded", [False, True])
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (8, 1, 256), (4, 2, 64)])
+@pytest.mark.parametrize("sk", [1, 33, 4097])
+def test_flash_decode_on_cache_views(cuda, sk, hq, hkv, d, folded, dtype):
+    """One query a sequence against the valid prefix of layer 1 of a
+    stacked cache (a strided view, not contiguous), non-causal, as
+    ``attention_decode`` calls it; ``folded``: the GQA group's query heads
+    as query rows of their kv head (every row has the same keys).
+
+    Outputs average V over ~sk/e keys, so they shrink as ~sqrt(e/sk)
+    (0.026 at 4097 keys) and bf16's elementwise 2e-2 floor alone would
+    pass a dropped key tile. So bf16 is also held by relative Frobenius
+    within 2^-7 (both sides round P and the output to bf16: ~3e-3 apart),
+    and a control that must miss that bound: the kernel without its last
+    keys (64, or half of a short prefix)."""
+    b, cap, n_rep = 3, 4097 + 64, hq // hkv
+    gen = torch.Generator(device=cuda).manual_seed(sk + d)
+    cache = torch.randn(2, 2, b, cap, hkv, d, generator=gen, device=cuda).to(dtype)
+    k, v = cache[0, 1, :, :sk], cache[1, 1, :, :sk]
+    assert not k.is_contiguous() or sk == cap
+    q = torch.randn(b, 1, hq, d, generator=gen, device=cuda).to(dtype)
+    ref = attention_ref(q, k, v, causal=False)
+
+    def run(n):
+        if folded:
+            qf = q.view(b, hkv, n_rep, d).transpose(1, 2)
+            out = fa_ops.flash_attention(qf, k[:, :n], v[:, :n], causal=False,
+                                         block_q=n_rep, block_k=n)
+            return out.transpose(1, 2).reshape(b, 1, hq, d)
+        return fa_ops.flash_attention(q, k[:, :n], v[:, :n], causal=False, block_q=1, block_k=n)
+
+    before = fa_ops.flash_attention.launches
+    out = run(sk)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    _close(out, ref, TOL[dtype])
+    if dtype == torch.bfloat16:
+        assert _rel(out, ref) <= 2.0 ** -7
+    if sk > 1:
+        assert _rel(run(sk - min(64, sk // 2)), ref) > 2.0 ** -7
+
+
+@pytest.mark.parametrize("regime", ["slow", "faster"])
+def test_wkv6_decode_step_from_a_state(cuda, regime):
+    """rwkv6-7b's decode step: one token, 64 heads of 64, batch 128, from
+    a carried state."""
+    b, h, d = 128, 64, 64
+    r, k, v, w, u = _wkv_inputs(cuda, b, 1, h, d, d, regime, seed=8)
+    s0 = torch.randn(b, h, d, d, generator=torch.Generator(device=cuda).manual_seed(9),
+                     device=cuda)
+    before = wkv_ops.wkv6.launches
+    o, s = wkv_ops.wkv6(r, k, v, w, u, chunk=64, s0=s0)
+    torch.cuda.synchronize()
+    assert wkv_ops.wkv6.launches == before + 1
+    o_ref, s_ref = wkv6_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(o, o_ref, rtol=WKV_TOL, atol=WKV_TOL)
+    torch.testing.assert_close(s, s_ref, rtol=WKV_TOL, atol=WKV_TOL)
+
+
+@pytest.mark.parametrize("arch,kv_quantized", [
+    ("gemma-2b", False), ("gemma-2b", True), ("qwen3-8b", False), ("qwen3-8b", True),
+    ("rwkv6-7b", False)])
+def test_full_width_decode_step_kernel_matches_plain(cuda, arch, kv_quantized):
+    """Full width, depth cut to 2, fp32: a (2, 40) prefill into a cache of
+    48 slots, then two decode steps through the kernels against the plain
+    path: logits and the new cache at 1e-4, and the launches a step (an
+    int8 cache takes the plain attention). Unquantized, each path prefills
+    its own cache. With an int8 cache the two paths' K/V agree only to
+    fp32 rounding, so a value on a rounding tie may quantize one apart; so
+    the kernel run decodes each step from a copy of the plain run's cache
+    (the plain prefill's first), and the slot a step writes may differ by
+    at most one in under 0.1% of its values."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    params = build_model(cfg).init(gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 42), generator=gen, device=cuda)
+    modes = ("kernel", "reference")
+    models = {mode: build_model(cfg, ModelOptions(kernel_mode=mode, compute_dtype="float32",
+                                                  kv_quantized=kv_quantized))
+              for mode in modes}
+    caches = {mode: models[mode].prefill(params, {"tokens": tokens[:, :40]}, max_len=48)[1]
+              for mode in modes}
+    logits = {mode: [] for mode in modes}
+    launched = {mode: (0, 0, 0) for mode in modes}
+    for pos in (40, 41):
+        if kv_quantized:
+            caches["kernel"] = {n: t.clone() for n, t in caches["reference"].items()}
+        for mode in modes:
+            counts = (rms_ops.rmsnorm.launches, fa_ops.flash_attention.launches,
+                      wkv_ops.wkv6.launches)
+            step, caches[mode] = models[mode].decode(
+                params, {"tokens": tokens[:, pos : pos + 1]}, caches[mode], pos)
+            torch.cuda.synchronize()
+            launched[mode] = tuple(n + a - b for n, a, b in zip(launched[mode], (
+                rms_ops.rmsnorm.launches, fa_ops.flash_attention.launches,
+                wkv_ops.wkv6.launches), counts))
+            logits[mode].append(step)
+        for name, t in caches["kernel"].items():
+            if t.dtype == torch.int8:
+                diff = t[:, :, pos].int() - caches["reference"][name][:, :, pos].int()
+                assert diff.abs().max().item() <= 1
+                assert (diff != 0).float().mean().item() < 1e-3
+    if cfg.family == "ssm":
+        norms = 2 * cfg.n_layers + 1
+    else:
+        norms = cfg.n_layers * (4 if cfg.qk_norm else 2) + 1
+    attn = 0 if cfg.family == "ssm" or kv_quantized else cfg.n_layers
+    wkv = cfg.n_layers if cfg.family == "ssm" else 0
+    assert launched["kernel"] == (2 * norms, 2 * attn, 2 * wkv)
+    assert launched["reference"] == (0, 0, 0)
+    _close(torch.stack(logits["kernel"]), torch.stack(logits["reference"]), 1e-4)
+    for name, t in caches["kernel"].items():
+        ref = caches["reference"][name]
+        if t.dtype == torch.int8:
+            diff = t.int() - ref.int()
+            assert diff.abs().max().item() <= 1 and (diff != 0).float().mean().item() < 1e-3
+        else:
+            _close(t, ref, 1e-4)

@@ -2,7 +2,9 @@
 the same params (JAX ``Model.init`` through ``from_jax``) and the same
 tokens give the same ``apply`` logits and the same ``prefill`` logits and
 K/V cache, in fp32 at rtol = atol = 1e-4. The JAX side runs its reference
-attention and, once, its Pallas flash kernel in interpret mode."""
+attention and, once, its Pallas flash kernel in interpret mode. The
+QKV-bias configs (qwen1.5-32b, qwen2-72b) get random biases in place of
+the init's zeros, so that their bias branch does work."""
 import dataclasses
 import functools
 
@@ -21,6 +23,7 @@ from repro_torch.models import ModelOptions, build_model  # noqa: E402
 from repro_torch.weights import from_jax  # noqa: E402
 
 ARCHS = ["gemma-2b", "qwen3-8b"]
+QKV_BIAS_ARCHS = ["qwen1.5-32b", "qwen2-72b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -28,14 +31,20 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 def _setup(arch, kernel_mode="reference"):
     jcfg = jax_get_config(arch).smoke()
     jmodel = jax_build_model(jcfg, JaxOptions(compute_dtype="float32", kernel_mode=kernel_mode))
-    jparams = jmodel.init(jax.random.PRNGKey(3))
-    tparams = from_jax(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    np_params = jax.tree_util.tree_map(np.asarray, jmodel.init(jax.random.PRNGKey(3)))
+    if jcfg.qkv_bias:
+        g = np.random.default_rng(4)
+        attn = np_params["layers"]["attn"]
+        for name in ("bq", "bk", "bv"):
+            attn[name] = (0.5 * g.standard_normal(attn[name].shape)).astype(np.float32)
+    jparams = jax.tree_util.tree_map(jax.numpy.asarray, np_params)
+    tparams = from_jax(np_params, "cpu")
     model = build_model(get_config(arch).smoke(), ModelOptions(compute_dtype="float32"))
     tokens = np.random.default_rng(11).integers(0, jcfg.vocab_size, (2, 16), dtype=np.int32)
     return jmodel, jparams, model, tparams, tokens
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["rwkv6-7b"])
+@pytest.mark.parametrize("arch", ARCHS + ["rwkv6-7b"] + QKV_BIAS_ARCHS)
 def test_configs_are_copies(arch):
     jcfg, cfg = jax_get_config(arch), get_config(arch)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
@@ -48,7 +57,7 @@ def test_unported_arch_raises():
         get_config("mixtral-8x22b")
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["rwkv6-7b"])
+@pytest.mark.parametrize("arch", ARCHS + ["rwkv6-7b"] + QKV_BIAS_ARCHS)
 def test_init_matches_jax_tree(arch):
     """Same leaf names, shapes and dtypes as the JAX params (values differ:
     torch and JAX draw different numbers from a seed)."""
@@ -63,7 +72,7 @@ def test_init_matches_jax_tree(arch):
         assert str(tflat[key].dtype).removeprefix("torch.") == str(leaf.dtype), key
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + QKV_BIAS_ARCHS)
 def test_apply_matches_jax(arch):
     jmodel, jparams, model, tparams, tokens = _setup(arch)
     jlogits, _ = jmodel.apply(jparams, {"tokens": tokens})
@@ -72,7 +81,7 @@ def test_apply_matches_jax(arch):
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + QKV_BIAS_ARCHS)
 def test_prefill_logits_and_cache_match_jax(arch):
     """``max_len`` > prompt: the cache is zero-padded at the end."""
     jmodel, jparams, model, tparams, tokens = _setup(arch)
@@ -86,7 +95,7 @@ def test_prefill_logits_and_cache_match_jax(arch):
         assert not cache[name][:, :, 16:].any()
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + QKV_BIAS_ARCHS)
 def test_attention_apply_matches_jax(arch):
     """One layer's attention (projections, qk-norm, RoPE, causal GQA,
     output projection) on the same input."""
