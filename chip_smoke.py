@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, at
-first use), then runs nine phases, each printing JSON lines:
+first use), then runs ten phases, each printing JSON lines:
 
 1. env      — the card's name and power limit (nvidia-smi), torch/CUDA
               versions, the kernels' build time, and ptxas's registers and
@@ -22,7 +22,9 @@ first use), then runs nine phases, each printing JSON lines:
               at one query a sequence against strided views of a stacked
               cache (4096 and 32768 keys) in two forms, one query row a
               head and GQA folded, and K4 at one token from a carried
-              state (decode's shapes). The
+              state (decode's shapes). bf16 attention at 1024 keys or
+              more is also held by relative Frobenius, beside a control a
+              key tile off that must miss that bound. The
               backward kernels (RMSNorm, flash attention) at the training
               shapes, each held against its plain backward and against
               autograd of the plain forward (relative Frobenius), with
@@ -70,6 +72,20 @@ first use), then runs nine phases, each printing JSON lines:
               random cache, the batch cut to fit 40 GB: ms a step, tokens
               a second, launches a step, a profiled step's busy share and
               device time by kind, and the bytes bound.
+10. moe     — the MoE family at full width, depth cut to fit the card:
+              a mixtral-8x22b service (depth 4) beside gemma-2b on one
+              ``SalusExecutor`` (the serve phase's checks, device time by
+              kind with the dispatch apart); prefill parity of mixtral at
+              (1, 6144), past its 4096 window, and of qwen3-moe-235b-a22b
+              (depth 4) at (1, 512), kernels against plain in bf16 and
+              fp32 (fp32 routes every token alike and drops the same
+              assignments; bf16 on the plain run's routing, and free, its
+              tokens sent to other experts within twice those plain bf16
+              sends apart from plain fp32); mixtral's decode
+              checks (token 511 against a full forward that drops
+              nothing, 16 greedy tokens across the ring's wrap, the int8
+              cache); a mixtral decode step at depth 8, bf16 params and a
+              random bf16 ring cache at batch 64, timed as in decode.
 Then the ``{"kernels": [...]}`` summary line.
 
 Any failed check raises and the script exits non-zero. The last line is
@@ -78,6 +94,7 @@ repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -87,6 +104,7 @@ import sys
 import time
 from dataclasses import replace
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -113,8 +131,12 @@ WKV_TOL = 2e-3  # tests/test_kernels_rwkv.py
 # would hide a dropped key tile. Both sides round P and the output to bf16
 # (unit roundoff 2^-9 each): ~3e-3 apart on random inputs; the bound is 2^-7.
 # Dropping the last 64 keys moves the output by ~sqrt(64 / sk): 0.044 at 32768.
+# bf16 prefill rows at LONG_KEYS keys or more are held so too, with a
+# control a tile off: a windowed row's band 64 keys narrower (0.032 at
+# mixtral's 4096 of 6144), another row without its first 64 keys.
 DECODE_REL_TOL = 2.0 ** -7
 DECODE_DROPPED_KEYS = 64  # the control: the kernel without the last 64 keys
+LONG_KEYS = 1024
 # backward kernels: relative Frobenius, fp32 / bf16 (the JAX tests' bf16)
 BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 RMS_SRC = "src/repro_torch/csrc/rmsnorm.cu"
@@ -133,6 +155,20 @@ DECODE_PROMPT = 511  # tokens prefilled before the decode checks
 DECODE_NEW = 16  # greedy tokens
 DECODE_CACHE_GB = 40  # the decode shape's batch is halved until its state fits
 DECODE_STEPS = 8  # timed steps at the decode shape
+MOE_ARCH = "mixtral-8x22b"
+QWEN3_MOE_ARCH = "qwen3-moe-235b-a22b"
+# full width, depth cut from 56 (mixtral) and 94 (qwen3-moe) layers: 4
+# layers of fp32 params are 41.7 and 44.8 GB, 8 of bf16 (mixtral) 40.9 GB;
+# one card holds 80 GB
+MOE_DEPTH = 4
+MOE_TIMING_DEPTH = 8
+MOE_PARITY_PROMPT = 6144  # past mixtral's 4096 window, and no multiple of it
+MOE_RING_PROMPT = 4104  # fills the 4096-slot ring and wraps it by 8
+MOE_DECODE_BATCH = 64  # a bf16 ring cache of 8.6 GB at depth 8
+# bf16 MoE prefill with routing free: the kernels' tokens flipped to other
+# experts a route call, at most this many times the plain bf16 path's
+# against the plain fp32 path
+MOE_FLIP_FACTOR = 2
 # w = sigmoid(z) * span + low: the JAX kernel test's slow and fast decay
 # regimes, and a faster one with decays down to 0.05
 DECAY_REGIMES = {"slow": (0.1, 0.88), "fast": (0.5, 0.15), "faster": (0.9, 0.05)}
@@ -353,18 +389,27 @@ def flash_case(b, sq, sk, hq, hkv, d, dtype, *, causal=True, window=None,
     tol = FLASH_TOL[dtype]
     err = max_err(out, ref)
     ok = within(out, ref, tol)
+    held = {}
+    if dtype == torch.bfloat16 and sk >= LONG_KEYS:
+        # FLASH_TOL is as large as a typical output here: also held as a
+        # whole, with a control a key tile off that must miss the bound
+        m = DECODE_DROPPED_KEYS
+        if window:  # the band a tile narrower
+            control = ops.flash_attention(q, k, v, block_q=sq, block_k=sk, causal=causal,
+                                          window=window - m, q_offset=q_offset)
+            kind, control_ref = f"window {window - m}", ref
+        else:  # without the first key tile (and the queries that see only it)
+            a = max(0, m - q_offset)
+            control = ops.flash_attention(q[:, a:], k[:, m:], v[:, m:], block_q=sq - a,
+                                          block_k=sk - m, causal=causal, q_offset=q_offset + a - m)
+            kind, control_ref = f"without the first {m} keys", ref[:, a:]
+        held = {"rel_fro": rel_fro(out, ref), "rel_tol": DECODE_REL_TOL, "control": kind,
+                "control_rel_fro": rel_fro(control, control_ref)}
+        del control, control_ref
+        ok = ok and held["rel_fro"] <= DECODE_REL_TOL
     ms = time_ms(run, iters)
     launch_ms = host_ms(run, iters)
     plain_ms = time_ms(plain, iters)
-    library_ms = None
-    if window is None and q_offset == 0 and sq == sk:
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        library_ms = time_ms(
-            lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=hq != hkv
-            ),
-            iters,
-        )
     qpos = torch.arange(sq, device="cuda")[:, None] + q_offset
     kpos = torch.arange(sk, device="cuda")[None, :]
     mask = torch.ones(sq, sk, dtype=torch.bool, device="cuda")
@@ -372,6 +417,22 @@ def flash_case(b, sq, sk, hq, hkv, d, dtype, *, causal=True, window=None,
         mask &= qpos >= kpos
     if window:
         mask &= kpos > qpos - window
+    library_ms = None
+    if q_offset == 0 and sq == sk:
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        if window is None:
+            library_ms = time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=hq != hkv
+                ),
+                iters,
+            )
+        else:  # the band as a boolean mask (True: attend), K/V per query head
+            ke = kt.repeat_interleave(hq // hkv, dim=1)
+            ve = vt.repeat_interleave(hq // hkv, dim=1)
+            library_ms = time_ms(
+                lambda: F.scaled_dot_product_attention(qt, ke, ve, attn_mask=mask), iters)
+            del ke, ve
     pairs = int(mask.sum().item())  # the (query, key) pairs this input needs
     flops = 4.0 * b * hq * d * pairs
     es = q.element_size()
@@ -386,7 +447,8 @@ def flash_case(b, sq, sk, hq, hkv, d, dtype, *, causal=True, window=None,
         "route": ops.route(dtype, d),
         "max_abs_err": err,
         "tol": tol,
-        "ok": ok,
+        **held,
+        "ok": ok and held.get("control_rel_fro", math.inf) > DECODE_REL_TOL,
         "ms": ms,
         "host_ms": launch_ms,
         "plain_ms": plain_ms,
@@ -396,7 +458,12 @@ def flash_case(b, sq, sk, hq, hkv, d, dtype, *, causal=True, window=None,
         "gflop": flops / 1e9,
     }
     emit(res)
-    check(ok, f"flash {res['shape']} {dtype}: err {err} > tol {tol}")
+    check(ok, f"flash {res['shape']} {dtype}: err {err} > tol {tol} or "
+              f"rel_fro {held.get('rel_fro')} > {DECODE_REL_TOL}")
+    if held:
+        check(held["control_rel_fro"] > DECODE_REL_TOL,
+              f"flash {res['shape']}: {held['control']} rel_fro {held['control_rel_fro']} "
+              f"<= tol {DECODE_REL_TOL}: the check is blind")
     return res
 
 
@@ -780,6 +847,10 @@ def phase_kernels() -> dict:
         dict(b=1, sq=512, sk=512, hq=32, hkv=8, d=128, dtype=f32, iters=5),
         # sliding window, and a query suffix at an offset
         dict(b=1, sq=1024, sk=1024, hq=8, hkv=2, d=128, dtype=bf16, window=256, iters=10),
+        # mixtral-8x22b's prefill: 48/8 heads of 128, its window of 4096
+        # at the moe phase's (1, 6144) prompt
+        dict(b=1, sq=MOE_PARITY_PROMPT, sk=MOE_PARITY_PROMPT, hq=48, hkv=8, d=128, dtype=bf16,
+             window=4096, iters=5),
         dict(b=1, sq=512, sk=1024, hq=8, hkv=2, d=128, dtype=bf16, q_offset=512, iters=10),
     ]
     for c in cases:
@@ -875,6 +946,13 @@ KERNEL_KINDS = (
 # the int8 cache's dequantization, the slot writes) as a kind of their own
 DECODE_KERNEL_KINDS = (("cast", ("copy_kernel",)),) + KERNEL_KINDS
 
+# MoE: the casts, and the dispatch (routing's sort, the slot tables'
+# histogram, scan and scatters, the gathers in and out of the expert
+# blocks) apart from the expert GEMMs
+MOE_KERNEL_KINDS = DECODE_KERNEL_KINDS[:-1] + (
+    ("dispatch", ("sort", "scatter", "gather", "index", "histogram", "scan", "where")),
+) + DECODE_KERNEL_KINDS[-1:]
+
 
 def device_time_by_kind(prof, kinds=KERNEL_KINDS):
     """Device milliseconds and kernel counts by kind from a profiler run
@@ -897,7 +975,7 @@ def device_time_by_kind(prof, kinds=KERNEL_KINDS):
     return groups, counts, n_kernels
 
 
-def profile_request(sess) -> dict:
+def profile_request(sess, kinds=KERNEL_KINDS) -> dict:
     """One more request of a served session under ``torch.profiler``: wall
     time, the device time of its kernels grouped by kind, and the device's
     busy share of the wall time. Runs after the launch counts are read, so
@@ -905,7 +983,7 @@ def profile_request(sess) -> dict:
     batch = sess.data_fn(0)
     sess.step_fn(sess.state, batch)
     sync()
-    return profiled(lambda: sess.step_fn(sess.state, batch))
+    return profiled(lambda: sess.step_fn(sess.state, batch), kinds)
 
 
 def profiled(fn, kinds=KERNEL_KINDS) -> dict:
@@ -932,26 +1010,32 @@ def profiled(fn, kinds=KERNEL_KINDS) -> dict:
     }
 
 
-def phase_serve() -> dict:
+def phase_serve(archs=SERVE_ARCHS, configs=None, kinds=KERNEL_KINDS) -> dict:
+    """``repro_torch.launch.serve`` with ``archs`` at full width on one
+    ``SalusExecutor`` under PRIORITY; ``configs`` maps a service to the
+    config it serves in place of the registry's (a depth cut), ``kinds``
+    groups the profiled request's kernels."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.fused_rmsnorm import ops as rms_ops
     from repro_torch.kernels.rwkv_scan import ops as wkv_ops
     from repro_torch.launch import serve
 
-    # 68.1 GiB of fp32 params for the three services, each request's
-    # ephemeral memory on top; the card holds ~79 GiB
+    # 68.1 GiB of fp32 params for the three default services, each
+    # request's ephemeral memory on top; the card holds ~79 GiB
     argv = [
-        "--archs", ",".join(SERVE_ARCHS), "--no-smoke", "--device", "cuda",
+        "--archs", ",".join(archs), "--no-smoke", "--device", "cuda",
         "--capacity-gb", "76", "--rps", "4", "--duration", "3", "--requests", "4",
         "--policy", "priority", "--seed", "0",
     ]
+    configs = configs or {}
+    config_of = lambda name: configs.get(name) or get_config(name)  # noqa: E731
     counters = {"rmsnorm": rms_ops.rmsnorm, "flash_attention": fa_ops.flash_attention,
                 "wkv6": wkv_ops.wkv6}
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    report, ex = serve.serve(serve.build_parser().parse_args(argv))
+    report, ex = serve.serve(serve.build_parser().parse_args(argv), configs)
     wall_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
     check(not report.failures, f"serve failures: {report.failures}")
@@ -960,7 +1044,7 @@ def phase_serve() -> dict:
     for jid, st in report.stats.items():
         sess = ex.sessions[jid]
         job = sess.job
-        cfg = get_config(job.name)
+        cfg = config_of(job.name)
         check(st.iterations_done == sess.n_iters,
               f"{job.name}: served {st.iterations_done} of {sess.n_iters} requests")
         for m in sess.metrics_log:
@@ -983,14 +1067,14 @@ def phase_serve() -> dict:
                            "ephemeral": job.profile.ephemeral / 2**30},
             "launches_per_request": per,
         }
-    check(set(services) == set(SERVE_ARCHS), f"served {sorted(services)}, not {SERVE_ARCHS}")
+    check(set(services) == set(archs), f"served {sorted(services)}, not {archs}")
     check(launches == expected, f"launch counts {launches} != expected {expected}")
     for jid in report.stats:
         sess = ex.sessions[jid]
-        prof = profile_request(sess)
+        prof = profile_request(sess, kinds)
         services[sess.job.name]["profiled_request"] = prof
         # the profiler's grouping caught each of the path's kernels
-        per = launches_per_request(get_config(sess.job.name))
+        per = launches_per_request(config_of(sess.job.name))
         for name in ("rmsnorm", "flash_attention", "wkv6"):
             if per[name]:
                 check(prof["device_ms_by_kind"][name] > 0,
@@ -1010,7 +1094,8 @@ def phase_serve() -> dict:
     return res
 
 
-def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict) -> None:
+def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
+                 moe_res: dict) -> None:
     """The summary line: each kernel the serve and train paths launch. The
     forward kernels at their largest serve-path shape (bf16 for the norm
     and attention, whose largest is qwen3-8b's; fp32 for WKV6, rwkv6-7b's
@@ -1024,13 +1109,15 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict) ->
     parity prompt. The decode phase's timed launches beside them, with K3
     at one query against 4096 and 32768 cached keys (qwen3-8b's and
     gemma-2b's heads, both forms) and K4 at one token from a carried
-    state."""
+    state. K3 also at mixtral-8x22b's windowed prefill (``at_moe``), with
+    the moe phase's serve launches."""
     rms = k[("rmsnorm", 64, 4096, "bfloat16")]
     rms_res = k[("rmsnorm_residual", 64, 4096, "bfloat16")]
     fa = k[("flash_attention", 4, 16, 32, 128, None, 0, "bfloat16")]
     wkv = k[("wkv6", 4, 16, 8, "slow")]
     rms_bwd = k[("rmsnorm_bwd", 4096, 2048, "bfloat16")]
     fa_bwd = k[("flash_attention_bwd", 1, 4096, 8, 256, None, 0, "bfloat16")]
+    fa_moe = k[("flash_attention", 1, MOE_PARITY_PROMPT, 48, 128, 4096, 0, "bfloat16")]
     keys = ("max_abs_err", "ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def at(res):
@@ -1038,6 +1125,7 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict) ->
 
     train = train_res["launches"]
     per_step = train_res["launches_per_step"]
+    moe_serve = moe_res["serve"]
     decode = decode_res["launches"]
     fa_decode = [{**at(k[("flash_decode", b, sk, hq, d)]),
                   **{x: k[("flash_decode", b, sk, hq, d)][x]
@@ -1063,7 +1151,11 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict) ->
          "launches_decode": decode["flash_attention"],
          "at_prefill": [at(k[("flash_attention", 1, 2048, 32, 128, None, 0, "bfloat16")]),
                         at(k[("flash_attention", 1, 2048, 8, 256, None, 0, "bfloat16")])],
-         "at_decode": fa_decode},
+         "at_decode": fa_decode,
+         "at_moe": {**at(fa_moe), **{x: fa_moe[x] for x in ("rel_fro", "control_rel_fro")},
+                    "launches_moe_serve": moe_serve["launches"]["flash_attention"],
+                    "launches_a_mixtral_request":
+                        moe_serve["services"][MOE_ARCH]["launches_per_request"]["flash_attention"]}},
         {"name": "wkv6", "route": "cuda", "source": WKV_SRC, "replaces": WKV_TPU,
          "launches": serve_res["launches"]["wkv6"], "shape": wkv["shape"],
          "dtype": "float32", **{x: wkv[x] for x in keys},
@@ -1093,6 +1185,74 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict) ->
 # ---------------------------------------------------------------------------
 
 
+class Routing(NamedTuple):
+    """One MoE group block's routing: ``experts`` (groups, group size, k)
+    int32, and each expert's ``capacity`` a group of ``n_experts``."""
+
+    experts: torch.Tensor
+    n_experts: int
+    capacity: int
+
+
+@contextlib.contextmanager
+def moe_trace(replay=None):
+    """Around a run: the routing of every MoE group block it runs recorded
+    (yielded: a list of ``Routing``, in order), and, when ``replay`` (such
+    a log of the same computation) is given, its experts handed back in
+    order in place of the top-k, the gates renormalised from the block's
+    own probabilities: two numerics can then be held against each other on
+    one routing. It wraps ``moe.route`` and ``moe._dispatch_indices``,
+    which ``moe._moe_groups`` calls through the module; a replayed block
+    that does not fit raises."""
+    from repro_torch.models import moe
+
+    log, replayed, current = [], None if replay is None else iter(replay), []
+    route, dispatch = moe.route, moe._dispatch_indices
+
+    def traced_route(router_w, x, top_k):
+        gate_vals, expert_idx, probs = route(router_w, x, top_k)
+        if replayed is not None:
+            r = next(replayed, None)
+            if r is None or r.experts.shape != expert_idx.shape or r.n_experts != probs.shape[-1]:
+                raise RuntimeError("moe_trace: the replayed routing does not fit this block")
+            current[:] = [r]
+            expert_idx = r.experts
+            gate_vals = probs.gather(-1, expert_idx.long())
+            gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+        return gate_vals, expert_idx, probs
+
+    def traced_dispatch(expert_idx, n_experts, capacity):
+        if current and current.pop().capacity != capacity:
+            raise RuntimeError("moe_trace: the replayed routing's capacity differs")
+        log.append(Routing(expert_idx, n_experts, capacity))
+        return dispatch(expert_idx, n_experts, capacity)
+
+    moe.route, moe._dispatch_indices = traced_route, traced_dispatch
+    try:
+        yield log
+    finally:
+        moe.route, moe._dispatch_indices = route, dispatch
+
+
+def dropped(log: list) -> int:
+    """Assignments past their expert's capacity in a routing log: what
+    the dispatch dropped (one host read)."""
+    parts = []
+    for r in log:
+        flat = r.experts.reshape(r.experts.shape[0], -1).long()  # a row a group
+        base = r.n_experts * torch.arange(flat.shape[0], device=flat.device)[:, None]
+        counts = torch.bincount((flat + base).reshape(-1), minlength=flat.shape[0] * r.n_experts)
+        parts.append((counts - r.capacity).clamp(min=0).sum())
+    return int(torch.stack(parts).sum()) if parts else 0
+
+
+def flipped_tokens(a: list, b: list) -> list:
+    """Tokens sent to another set of experts, group block by group block,
+    between two routing logs of the same computation."""
+    sets = lambda r: r.experts.sort(-1).values  # noqa: E731
+    return [int((sets(x) != sets(y)).any(-1).sum().item()) for x, y in zip(a, b)]
+
+
 def spread_decay(params, cfg) -> None:
     """rwkv: overwrite ``decay_base`` so that the decays span about
     0.15-0.99 across channels (the init's -6 gives w ~ 0.9975 everywhere,
@@ -1102,18 +1262,26 @@ def spread_decay(params, cfg) -> None:
     params["layers"]["tmix"]["decay_base"] = base.expand(cfg.n_layers, -1).contiguous()
 
 
-def phase_parity(arch: str, seq: int = 512) -> dict:
-    """One arch at full width and depth, one (1, seq) prompt: the kernels
-    against the plain versions, in bf16 (the serving dtype) and in fp32,
-    each also held against the plain fp32 prefill; the logits and every
-    cache leaf."""
+def phase_parity(arch: str, seq: int = 512, cfg=None, **opts) -> dict:
+    """One arch at full width and depth (or ``cfg``, a depth cut), one (1,
+    seq) prompt: the kernels against the plain versions, in bf16 (the
+    serving dtype) and in fp32, each also held against the plain fp32
+    prefill; the logits and every cache leaf. ``opts`` are further
+    ``ModelOptions``. MoE: in fp32 both paths run free and must route
+    every token alike (so drop the same assignments); in bf16 a router
+    near tie sends tokens to other experts in any two numerics, so the
+    kernels and the plain fp32 yardstick replay the plain bf16 run's
+    routing; a free-running bf16 kernel run is held by the tokens it
+    sends to other experts than the plain bf16 run does, within
+    MOE_FLIP_FACTOR times those the plain bf16 run sends apart from the
+    plain fp32 run. Each run's dropped assignments are printed."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.fused_rmsnorm import ops as rms_ops
     from repro_torch.kernels.rwkv_scan import ops as wkv_ops
     from repro_torch.models import ModelOptions, build_model
 
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     gen = torch.Generator(device="cuda").manual_seed(8)
     params = build_model(cfg).init(gen)
     if cfg.family == "ssm":
@@ -1122,21 +1290,31 @@ def phase_parity(arch: str, seq: int = 512) -> dict:
     counters = {"rmsnorm": rms_ops.rmsnorm, "flash_attention": fa_ops.flash_attention,
                 "wkv6": wkv_ops.wkv6}
 
-    def prefill(kernel_mode: str, dtype: str):
-        model = build_model(cfg, ModelOptions(kernel_mode=kernel_mode, compute_dtype=dtype))
+    drops, routes = {}, {}
+
+    def prefill(label: str, kernel_mode: str, dtype: str, replay=None):
+        model = build_model(cfg, ModelOptions(kernel_mode=kernel_mode, compute_dtype=dtype,
+                                              **opts))
         sync()
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, batch)
-        sync()
-        return logits.float(), cache, (time.perf_counter() - t0) * 1e3
+        with moe_trace(replay) as log:
+            logits, cache = model.prefill(params, batch)
+            sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        drops[label], routes[label] = dropped(log), log
+        return logits.float(), cache, ms
 
-    prefill("kernel", "bfloat16")  # warm-up: cuBLAS handles and workspaces
+    prefill("warm-up", "kernel", "bfloat16")  # cuBLAS handles and workspaces
+    r16, cache_r16, plain_ms = prefill("reference bfloat16", "reference", "bfloat16")
+    same16 = routes["reference bfloat16"] if cfg.is_moe else None
     before = {name: fn.launches for name, fn in counters.items()}
-    k16, cache_k16, kernel_ms = prefill("kernel", "bfloat16")
+    k16, cache_k16, kernel_ms = prefill("kernel bfloat16", "kernel", "bfloat16", same16)
     launched = {name: fn.launches - before[name] for name, fn in counters.items()}
-    r16, cache_r16, plain_ms = prefill("reference", "bfloat16")
-    k32, cache_k32, kernel32_ms = prefill("kernel", "float32")
-    r32, cache_r32, plain32_ms = prefill("reference", "float32")
+    k32, cache_k32, kernel32_ms = prefill("kernel float32", "kernel", "float32")
+    r32, cache_r32, plain32_ms = prefill("reference float32", "reference", "float32")
+    # bf16's yardstick: the plain fp32 path on the plain bf16 run's routing
+    y32 = prefill("reference float32, bf16 routing", "reference", "float32", same16)[0] \
+        if cfg.is_moe else r32
     per = launches_per_request(cfg)
     check(launched == per, f"parity prefill launched {launched}, expected {per}")
     for name, t in (("kernel bf16", k16), ("kernel fp32", k32)):
@@ -1150,8 +1328,8 @@ def phase_parity(arch: str, seq: int = 512) -> dict:
     # stack. That error is measured here as the plain bf16 path's distance
     # from the plain fp32 path; the kernels may differ from the plain path
     # by twice it, and must land no further than 1.25 times it from fp32.
-    err_plain16 = max_err(r16, r32)
-    err_kernel16 = max_err(k16, r32)
+    err_plain16 = max_err(r16, y32)
+    err_kernel16 = max_err(k16, y32)
     diff16 = max_err(k16, r16)
     tol16 = 2.0 * err_plain16
     # fp32: the kernels do the plain versions' arithmetic in another order
@@ -1189,7 +1367,36 @@ def phase_parity(arch: str, seq: int = 512) -> dict:
                        "kernel_fp32": kernel32_ms, "plain_fp32": plain32_ms},
         "launches": launched,
     }
+    if cfg.is_moe:
+        free16 = prefill("kernel bfloat16, free-running", "kernel", "bfloat16")[0]
+        res["bf16"]["routing"] = "the plain bf16 run's, replayed"
+        res.update(
+            options=opts, sliding_window=cfg.sliding_window, dropped_assignments=drops,
+            fp32_flipped_tokens_a_route_call=flipped_tokens(routes["kernel float32"],
+                                                            routes["reference float32"]),
+            bf16_free_running={
+                "flip_factor": MOE_FLIP_FACTOR,
+                "logits_max_abs_diff_vs_plain_bf16": max_err(free16, r16),
+                "argmax": int(free16.argmax().item()),
+                "flipped_tokens_a_route_call": flipped_tokens(
+                    routes["kernel bfloat16, free-running"], routes["reference bfloat16"]),
+                "plain_bf16_vs_plain_fp32_flipped_tokens_a_route_call": flipped_tokens(
+                    routes["reference bfloat16"], routes["reference float32"])})
     emit(res)
+    if cfg.is_moe:
+        check(not any(res["fp32_flipped_tokens_a_route_call"]),
+              f"{cfg.name} fp32: the paths route tokens apart")
+        check(drops["kernel float32"] == drops["reference float32"],
+              f"{cfg.name} float32: dropped assignments {drops}")
+        # bf16 as served, routing free: the kernels may send no more tokens
+        # to other experts than twice bf16's own rounding does (the plain
+        # bf16 path against the plain fp32 path), route call by route call
+        free = res["bf16_free_running"]
+        flips = free["flipped_tokens_a_route_call"]
+        yardstick = free["plain_bf16_vs_plain_fp32_flipped_tokens_a_route_call"]
+        check(all(f <= MOE_FLIP_FACTOR * y for f, y in zip(flips, yardstick)),
+              f"{cfg.name} bf16 free-running: {flips} tokens flipped a route call, "
+              f"more than {MOE_FLIP_FACTOR} x the plain bf16 path's {yardstick}")
     check(diff16 <= tol16, f"bf16 logits differ by {diff16} > {tol16}")
     check(err_kernel16 <= 1.25 * err_plain16,
           f"bf16 kernels {err_kernel16} from fp32, plain {err_plain16}")
@@ -1579,27 +1786,34 @@ def first_difference(a: torch.Tensor, b: torch.Tensor):
     return int(diff[0].item()) if diff.numel() else None
 
 
-def decode_correctness(arch: str) -> dict:
-    """One arch at full width and depth, random weights (rwkv decays spread
-    as in the parity phase), a (1, 511) prompt in a cache of 512 + 16:
-    (1) the decode step for token 511 against the full forward's logits at
-    position 511, through the kernels in fp32; (2) 16 greedy tokens
-    through the kernels and through the plain path, fp32 and bf16, logits
-    held at the parity phase's tolerances, tokens identical (where they
-    first differ the plain path's top-2 gap there must be under the
+def decode_correctness(arch: str, cfg=None, one_step_opts=None, greedy_prompt=None) -> dict:
+    """One arch at full width and depth (or ``cfg``, a depth cut), random
+    weights (rwkv decays spread as in the parity phase), a (1, 511) prompt
+    in a cache of 512 + 16: (1) the decode step for token 511 against the
+    full forward's logits at position 511, through the kernels in fp32
+    (``one_step_opts``: further ``ModelOptions``; an MoE forward must drop
+    no assignment there, or decode could not equal it); (2) 16 greedy
+    tokens through the kernels and through the plain path, fp32 and bf16,
+    logits held at the parity phase's tolerances, tokens identical (where
+    they first differ the plain path's top-2 gap there must be under the
     logits' tolerance: a near tie), and ``greedy_generate`` giving the
-    kernels' tokens; (3) dense: the runtime tables' decode settings (bf16
-    params, int8 cache) fed the bf16-cache run's tokens, within 5% of max
-    |logit| of it (tests/test_kv_quant.py's bound)."""
+    kernels' tokens; (3) with a KV cache: the runtime tables' decode
+    settings (bf16 params, int8 cache) fed the bf16-cache run's tokens,
+    within 5% of max |logit| of it (tests/test_kv_quant.py's bound).
+    ``greedy_prompt``: (2) and (3) prefill a fresh prompt of that many
+    tokens in place of the 511 (past a sliding window, so that the ring
+    fills and wraps). MoE: the bf16 kernel run and the fp32 yardstick fed
+    its tokens replay the plain bf16 run's routing, and the int8 run the
+    bf16-cache run's (see ``phase_parity``); fp32 runs free."""
     from torch.utils import _pytree as pytree
 
     from repro_torch.configs import DECODE_32K, get_config
-    from repro_torch.models import ModelOptions, build_model
+    from repro_torch.models import ModelOptions, attention, build_model
     from repro_torch.train.runtime import model_options_for
     from repro_torch.train.serve_step import greedy_generate
 
     t_start = time.perf_counter()
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(18)
     params = build_model(cfg).init(gen)
@@ -1614,12 +1828,13 @@ def decode_correctness(arch: str) -> dict:
         return build_model(cfg, ModelOptions(kernel_mode=kernel_mode, compute_dtype=dtype, **kw))
 
     # (1) decode of token 511 against the full forward
-    m32 = model("kernel", "float32")
+    m32 = model("kernel", "float32", **(one_step_opts or {}))
     zero_counts(counters)
-    full, _ = m32.apply(params, {"tokens": prompt})
-    _, cache = m32.prefill(params, {"tokens": prompt[:, :-1]}, max_len=max_len)
-    step, _ = m32.decode(params, {"tokens": prompt[:, -1:]}, cache, DECODE_PROMPT)
-    sync()
+    with moe_trace() as log:
+        full, _ = m32.apply(params, {"tokens": prompt})
+        _, cache = m32.prefill(params, {"tokens": prompt[:, :-1]}, max_len=max_len)
+        step, _ = m32.decode(params, {"tokens": prompt[:, -1:]}, cache, DECODE_PROMPT)
+        sync()
     del cache
     want = full[:, -1].float()
     got = step[:, 0].float()
@@ -1627,31 +1842,53 @@ def decode_correctness(arch: str) -> dict:
     one_step = {"max_abs_diff": max_err(got, want), "tol": f"{tol32} (1 + |full|)",
                 "argmax_decode": int(got.argmax().item()), "argmax_full": int(want.argmax().item()),
                 "launches": {n: fn.launches for n, fn in counters.items()}}
+    if cfg.is_moe:
+        one_step.update(options=one_step_opts, dropped_assignments=dropped(log))
+        check(dropped(log) == 0,
+              f"{arch}: the full forward dropped {dropped(log)} assignments")
     check(within(got, want, tol32), f"{arch}: decode of token 511 vs full forward "
                                     f"{one_step['max_abs_diff']}")
     check(one_step["argmax_decode"] == one_step["argmax_full"], f"{arch}: decode argmax differs")
 
     # (2) greedy decoding, kernels against plain, fp32 and bf16
-    prompt = prompt[:, :-1]
+    if greedy_prompt is None:
+        prompt = prompt[:, :-1]
+    else:
+        prompt = torch.randint(0, cfg.vocab_size, (1, greedy_prompt), generator=gen, device=dev)
+        max_len = greedy_prompt + DECODE_NEW
     per_step = decode_launches_per_step(cfg, quantized=False)
-    runs, launches = {}, {}
+    runs, launches, drops, routes = {}, {}, {}, {}
     for dtype in ("float32", "bfloat16"):
         for kernel_mode in ("reference", "kernel"):
+            replay = None
+            if cfg.is_moe and dtype == "bfloat16" and kernel_mode == "kernel":
+                replay = routes["reference", dtype]
             zero_counts(counters)
-            runs[kernel_mode, dtype] = generate(model(kernel_mode, dtype), params, prompt,
-                                                DECODE_NEW, max_len)
-            sync()
+            with moe_trace(replay) as log:
+                runs[kernel_mode, dtype] = generate(model(kernel_mode, dtype), params, prompt,
+                                                    DECODE_NEW, max_len)
+                sync()
             launches[kernel_mode, dtype] = {n: fn.launches for n, fn in counters.items()}
+            drops[f"{kernel_mode} {dtype}"] = dropped(log)
+            routes[kernel_mode, dtype] = log
+    same16 = routes["reference", "bfloat16"] if cfg.is_moe else None
     # the plain fp32 path fed the plain bf16 path's tokens: bf16's own
     # rounding error on the same inputs (the parity phase's yardstick)
-    _, plain32_fed = generate(model("reference", "float32"), params, prompt, DECODE_NEW, max_len,
-                              feed=runs["reference", "bfloat16"][0])
+    with moe_trace(same16):
+        _, plain32_fed = generate(model("reference", "float32"), params, prompt, DECODE_NEW,
+                                  max_len, feed=runs["reference", "bfloat16"][0])
     want_launch = {n: launches_per_request(cfg)[n] + (DECODE_NEW - 1) * per_step[n]
                    for n in per_step}
     greedy = {}
     out = {"arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-           "prompt": [1, DECODE_PROMPT], "max_len": max_len, "new_tokens": DECODE_NEW,
+           "prompt": [1, prompt.shape[1]], "max_len": max_len, "new_tokens": DECODE_NEW,
            "decode_of_token_511": one_step, "expected_launches_a_run": want_launch}
+    if cfg.is_moe:
+        out.update(sliding_window=cfg.sliding_window,
+                   cache_slots=attention.cache_capacity(cfg, max_len),
+                   dropped_assignments_a_run=drops, bf16_routing="the plain bf16 run's, replayed",
+                   fp32_flipped_tokens_a_route_call=flipped_tokens(
+                       routes["kernel", "float32"], routes["reference", "float32"]))
     for dtype in ("float32", "bfloat16"):
         (k_tok, k_log), (p_tok, p_log) = runs["kernel", dtype], runs["reference", dtype]
         check(launches["kernel", dtype] == {**dict.fromkeys(counters, 0), **want_launch},
@@ -1684,8 +1921,9 @@ def decode_correctness(arch: str) -> dict:
             ok = ok and res["plain_top2_gap_at_difference"] < tie_tol
         res["ok"] = bool(ok)
         out[dtype] = res
-        greedy[dtype] = greedy_generate(model("kernel", dtype), params, {"tokens": prompt},
-                                        DECODE_NEW, max_len)
+        with moe_trace(same16 if dtype == "bfloat16" else None):
+            greedy[dtype] = greedy_generate(model("kernel", dtype), params, {"tokens": prompt},
+                                            DECODE_NEW, max_len)
         res["greedy_generate_equals_loop"] = bool(torch.equal(greedy[dtype].long(), k_tok.long()))
     del runs, plain32_fed
     # (3) int8 cache at the runtime tables' decode settings
@@ -1697,12 +1935,14 @@ def decode_correctness(arch: str) -> dict:
         m_q = build_model(cfg, opts)
         m_bf = build_model(cfg, replace(opts, kv_quantized=False))
         zero_counts(counters)
-        bf_tok, bf_log = generate(m_bf, params16, prompt, DECODE_NEW, max_len)
-        sync()
+        with moe_trace() as bf_routes:
+            bf_tok, bf_log = generate(m_bf, params16, prompt, DECODE_NEW, max_len)
+            sync()
         bf_launch = {n: fn.launches for n, fn in counters.items()}
         zero_counts(counters)
-        _, q_log = generate(m_q, params16, prompt, DECODE_NEW, max_len, feed=bf_tok)
-        sync()
+        with moe_trace(bf_routes if cfg.is_moe else None):
+            _, q_log = generate(m_q, params16, prompt, DECODE_NEW, max_len, feed=bf_tok)
+            sync()
         q_launch = {n: fn.launches for n, fn in counters.items()}
         q_per_step = decode_launches_per_step(cfg, quantized=True)
         want_q = {n: launches_per_request(cfg)[n] + (DECODE_NEW - 1) * q_per_step[n]
@@ -1774,25 +2014,29 @@ def decode_timings(arch: str) -> list:
     return out
 
 
-def decode_timing(cfg, opts, params) -> dict:
+def decode_timing(cfg, opts, params, batch=None, kinds=DECODE_KERNEL_KINDS) -> dict:
     """The decode shape, DECODE_32K (32768 cached tokens, batch 128), with
     ``opts`` (the runtime tables' bf16 params; an int8 cache, or bf16
     where ``kv_quantized`` is off): the batch halved until the state is
-    at most DECODE_CACHE_GB, a cache of random values of its dtype, and
-    DECODE_STEPS steps timed at pos = 32768 - 9 on; launches a step, one
-    more step under the profiler, and the bytes bound (params and the
-    valid cache read once)."""
+    at most DECODE_CACHE_GB (or ``batch``), a cache of random values of
+    its dtype (a sliding window's ring of ``window`` slots, all valid at
+    these positions), and DECODE_STEPS steps timed at pos = 32768 - 9 on;
+    launches a step, one more step under the profiler (kernels grouped by
+    ``kinds``), and the bytes bound (params and the valid cache read
+    once)."""
     from torch.utils import _pytree as pytree
 
     from repro_torch.configs import DECODE_32K
-    from repro_torch.models import build_model
+    from repro_torch.models import attention, build_model
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     cap = DECODE_32K.seq_len
+    slots = cap if cfg.family == "ssm" else attention.cache_capacity(cfg, cap)
     quantized = opts.kv_quantized
-    b = DECODE_32K.global_batch
-    while b > 1 and b * decode_state_bytes(cfg, quantized, cap) > DECODE_CACHE_GB * 1e9:
+    b = batch or DECODE_32K.global_batch
+    while batch is None and b > 1 and (
+            b * decode_state_bytes(cfg, quantized, slots) > DECODE_CACHE_GB * 1e9):
         b //= 2
     model = build_model(cfg, opts)
     gen = torch.Generator(device=dev).manual_seed(20)
@@ -1817,23 +2061,28 @@ def decode_timing(cfg, opts, params) -> dict:
     per_step = decode_launches_per_step(cfg, quantized)
     expected = {**dict.fromkeys(counters, 0), **{n: DECODE_STEPS * v for n, v in per_step.items()}}
     finite = bool(torch.isfinite(logits.float()).all().item())
-    prof = profiled(lambda: model.decode(params, {"tokens": tok}, cache, cap - 1),
-                    kinds=DECODE_KERNEL_KINDS)
+    prof = profiled(lambda: model.decode(params, {"tokens": tok}, cache, cap - 1), kinds=kinds)
     param_bytes = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(params))
     if cfg.family == "ssm":
         state_bytes = b * decode_state_bytes(cfg, False, cap)
     else:  # the valid slots of each timed step, on average
-        n_valid = sum(pos0 + i + 1 for i in range(DECODE_STEPS)) / DECODE_STEPS
+        n_valid = sum(min(pos0 + i + 1, slots) for i in range(DECODE_STEPS)) / DECODE_STEPS
         state_bytes = b * decode_state_bytes(cfg, quantized, 1) * n_valid
     bound_ms = (param_bytes + state_bytes) / HBM_BYTES_PER_S * 1e3
+    if batch is not None:
+        batch_cut = f"set to {batch}"
+    elif b < DECODE_32K.global_batch:
+        batch_cut = f"halved until the state is <= {DECODE_CACHE_GB} GB"
+    else:
+        batch_cut = None
     res = {
         "phase": "decode", "part": "timing", "arch": cfg.name,
+        "n_layers": cfg.n_layers,
         "cache": "recurrent state" if cfg.family == "ssm" else ("int8" if quantized else "bf16"),
         "shape": {"cached_tokens": cap, "batch": b, "batch_from": DECODE_32K.global_batch,
-                  "batch_cut": f"halved until the state is <= {DECODE_CACHE_GB} GB"
-                               if b < DECODE_32K.global_batch else None,
+                  "batch_cut": batch_cut, "cache_slots": slots,
                   "pos": [pos0, pos0 + DECODE_STEPS - 1]},
-        "state_gb": b * decode_state_bytes(cfg, quantized, cap) / 1e9,
+        "state_gb": b * decode_state_bytes(cfg, quantized, slots) / 1e9,
         "param_gb": param_bytes / 1e9,
         "options": {"param_dtype": opts.param_dtype, "compute_dtype": opts.compute_dtype,
                     "kv_quantized": opts.kv_quantized, "kernel_mode": opts.kernel_mode},
@@ -1874,6 +2123,61 @@ def phase_decode() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: MoE
+# ---------------------------------------------------------------------------
+
+
+def depth_cut(arch: str, n_layers: int):
+    """The registry's config of ``arch`` at full width, ``n_layers`` deep."""
+    from repro_torch.configs import get_config
+
+    return replace(get_config(arch), n_layers=n_layers)
+
+
+def phase_moe() -> dict:
+    """The MoE family at full width, depth cut to fit one card: a
+    mixtral-8x22b service (depth 4, fp32 params) beside gemma-2b on one
+    ``SalusExecutor`` (the serve phase's checks and profile, dispatch as a
+    kind of its own); prefill parity of mixtral at (1, 6144) (its 4096
+    window binds and the ring is rolled) and of qwen3-moe-235b-a22b (depth
+    4, 128 experts top-8, qk-norm) at (1, 512), kernels against plain in
+    bf16 and fp32 with the dropped assignments of each run; mixtral's
+    decode checks (token 511 against a full forward in groups of 8, which
+    drop nothing; 16 greedy tokens from a 4104-token prompt that fills and
+    wraps the ring; the int8 cache); and a timed mixtral decode step at
+    depth 8, bf16 params, a random bf16 ring cache at batch 64."""
+    from repro_torch.configs import DECODE_32K
+    from repro_torch.models import build_model
+    from repro_torch.train.runtime import model_options_for
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    emit({"phase": "moe", "part": "start"})  # the serve, parity and decode lines below
+    mixtral = depth_cut(MOE_ARCH, MOE_DEPTH)
+    res = {"serve": phase_serve([MOE_ARCH, "gemma-2b"], {MOE_ARCH: mixtral},
+                                kinds=MOE_KERNEL_KINDS)}
+    res["parity"] = [
+        # the plain path's queries in chunks of 1024 (its scores' memory)
+        phase_parity(MOE_ARCH, MOE_PARITY_PROMPT, cfg=mixtral, attn_q_chunk=1024),
+        phase_parity(QWEN3_MOE_ARCH, 512, cfg=depth_cut(QWEN3_MOE_ARCH, MOE_DEPTH)),
+    ]
+    res["decode"] = decode_correctness(MOE_ARCH, cfg=mixtral, one_step_opts={"moe_group": 8},
+                                       greedy_prompt=MOE_RING_PROMPT)
+    timed = depth_cut(MOE_ARCH, MOE_TIMING_DEPTH)
+    opts = replace(model_options_for(timed, DECODE_32K), kv_quantized=False)
+    params = build_model(timed, opts).init(torch.Generator(device="cuda").manual_seed(19))
+    res["timing"] = decode_timing(timed, opts, params, batch=MOE_DECODE_BATCH,
+                                  kinds=MOE_KERNEL_KINDS)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["wall_s"] = time.perf_counter() - t0
+    emit({"phase": "moe", "part": "end", "wall_s": res["wall_s"],
+          "peak_gb": torch.cuda.max_memory_allocated() / 2**30})
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1898,7 +2202,8 @@ def main() -> int:
     phase_train_parity()
     phase_serve_train()
     decode_res = phase_decode()
-    kernels_line(k, serve_res, train_res, decode_res)
+    moe_res = phase_moe()
+    kernels_line(k, serve_res, train_res, decode_res, moe_res)
     emit({"phase": "done", "wall_s": time.perf_counter() - t0})
     emit({"ok": True, "device": {
         "platform": "gpu",

@@ -2,7 +2,8 @@
 
 Holds the configs the port runs so far, copied from the JAX package's
 ``configs/gemma_2b.py``, ``configs/qwen3_8b.py``, ``configs/rwkv6_7b.py``,
-``configs/qwen1p5_32b.py`` and ``configs/qwen2_72b.py``. Any other arch
+``configs/qwen1p5_32b.py``, ``configs/qwen2_72b.py``,
+``configs/mixtral_8x22b.py`` and ``configs/qwen3_moe_235b.py``. Any other arch
 of the JAX registry raises ``KeyError`` until it is ported. The workload
 shapes (``SHAPES``, ``TRAIN_4K``, ``DECODE_32K``) are copies of
 ``configs/base.py``'s.
@@ -99,8 +100,49 @@ QWEN2_72B = ArchConfig(
     rope_theta=1_000_000.0,
 )
 
+# mixtral-8x22b — MoE 8 experts top-2, sliding-window attention
+# [arXiv:2401.04088].
+MIXTRAL_8X22B = ArchConfig(
+    name="mixtral-8x22b",
+    family="moe",
+    n_layers=56,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=16384,
+    vocab_size=32768,
+    n_experts=8,
+    top_k=2,
+    sliding_window=4096,
+    gated_act="silu",
+    rope_variant="rope",
+    rope_theta=1_000_000.0,
+)
+
+# qwen3-moe-235b-a22b — MoE, 128 experts top-8, qk-norm
+# [hf:Qwen/Qwen3-30B-A3B family].
+QWEN3_MOE_235B = ArchConfig(
+    name="qwen3-moe-235b-a22b",
+    family="moe",
+    n_layers=94,
+    d_model=4096,
+    n_heads=64,
+    n_kv_heads=4,
+    head_dim=128,
+    d_ff=1536,
+    vocab_size=151936,
+    n_experts=128,
+    top_k=8,
+    qk_norm=True,
+    gated_act="silu",
+    rope_variant="rope",
+    rope_theta=1_000_000.0,
+)
+
 ARCHS: Dict[str, ArchConfig] = {
-    c.name: c for c in (GEMMA_2B, QWEN3_8B, RWKV6_7B, QWEN1P5_32B, QWEN2_72B)
+    c.name: c for c in (GEMMA_2B, QWEN3_8B, RWKV6_7B, QWEN1P5_32B, QWEN2_72B, MIXTRAL_8X22B,
+                        QWEN3_MOE_235B)
 }
 
 
@@ -115,6 +157,7 @@ def get_config(name: str) -> ArchConfig:
 
 
 __all__ = [
-    "ArchConfig", "ARCHS", "DECODE_32K", "GEMMA_2B", "QWEN1P5_32B", "QWEN2_72B", "QWEN3_8B",
-    "RWKV6_7B", "SHAPES", "ShapeConfig", "TRAIN_4K", "get_config",
+    "ArchConfig", "ARCHS", "DECODE_32K", "GEMMA_2B", "MIXTRAL_8X22B", "QWEN1P5_32B",
+    "QWEN2_72B", "QWEN3_8B", "QWEN3_MOE_235B", "RWKV6_7B", "SHAPES", "ShapeConfig", "TRAIN_4K",
+    "get_config",
 ]

@@ -21,11 +21,12 @@ import argparse
 import random
 import time
 import zlib
+from typing import Mapping
 
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ArchConfig, get_config
 from repro_torch.core import GB, SalusExecutor, VirtualDevice, get_policy
 from repro_torch.core.tracegen import poisson_arrivals
 from repro_torch.device import device as pick_device
@@ -35,9 +36,10 @@ from repro_torch.train.train_step import stack_grads, value_and_grad
 PROMPT_SHAPE = (4, 16)
 TRAIN_SHAPE = (2, 16)
 # the options of the JAX package's launch/serve.py: a (4, 16) rwkv prompt
-# is two WKV chunks, and the trainer's loss head runs over chunks of 8
-SERVE_OPTS = ModelOptions(wkv_chunk=8)
-TRAIN_OPTS = ModelOptions(wkv_chunk=8, loss_chunk=8)
+# is two WKV chunks, MoE routes groups of 16 tokens, and the trainer's
+# loss head runs over chunks of 8
+SERVE_OPTS = ModelOptions(wkv_chunk=8, moe_group=16)
+TRAIN_OPTS = ModelOptions(wkv_chunk=8, loss_chunk=8, moe_group=16)
 TRAIN_LR = 1e-4
 
 
@@ -49,16 +51,18 @@ def stable_seed(name: str) -> int:
 
 def make_service(
     name: str, smoke: bool, max_len: int = 64, device="cuda",
-    opts: ModelOptions | None = None,
+    opts: ModelOptions | None = None, cfg: ArchConfig | None = None,
 ):
     """One resident inference service: (handle, params, data_fn). Params
     are drawn from a generator seeded by ``stable_seed(name)``; request
     ``i`` comes from a generator seeded by ``i``. ``opts`` defaults to
-    ``SERVE_OPTS``."""
+    ``SERVE_OPTS``; ``cfg`` to the registry's config of ``name`` (reduced
+    by ``smoke``)."""
     dev = torch.device(device)
-    cfg = get_config(name)
-    if smoke:
-        cfg = cfg.smoke()
+    if cfg is None:
+        cfg = get_config(name)
+        if smoke:
+            cfg = cfg.smoke()
     model = build_model(cfg, opts or SERVE_OPTS)
     params = model.init(torch.Generator(device=dev).manual_seed(stable_seed(name)))
 
@@ -141,9 +145,13 @@ def main(argv=None):
     return serve(build_parser().parse_args(argv))[0]
 
 
-def serve(args: argparse.Namespace):
+def serve(args: argparse.Namespace, configs: Mapping[str, ArchConfig] | None = None):
     """Build the services on one executor and run them; returns
-    ``(report, executor)`` (the executor holds the sessions)."""
+    ``(report, executor)`` (the executor holds the sessions). ``configs``
+    maps a service's name to the config it serves in place of the
+    registry's: ``chip_smoke.py``'s moe phase serves mixtral-8x22b at a
+    depth cut to fit one card through it, since the CLI (like the JAX
+    package's) has no depth flag."""
     dev = pick_device(args.device)
     ex = SalusExecutor(
         capacity=int(args.capacity_gb * GB), policy=get_policy(args.policy), device=dev
@@ -152,7 +160,8 @@ def serve(args: argparse.Namespace):
     names = args.archs.split(",")
     rng = random.Random(args.seed)
     for name in names:
-        handle, params, data_fn = make_service(name, args.smoke, device=dev)
+        handle, params, data_fn = make_service(
+            name, args.smoke, device=dev, cfg=(configs or {}).get(name))
         reqs = poisson_requests(args.rps, args.duration, rng)
         if args.requests is not None:
             reqs = reqs[: args.requests]

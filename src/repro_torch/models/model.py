@@ -1,8 +1,9 @@
 """Model: ``build_model(cfg)`` -> a :class:`Model` with init / apply /
-loss / prefill / init_cache / decode for the dense decoder and the rwkv
+loss / prefill / init_cache / decode for the dense decoder, MoE and rwkv
 (``ssm``) families (the JAX package's ``models/model.py``; the other
 families come in later slices). ``loss`` is the causal LM loss with a
-seq-chunked head that never materializes the full logits.
+seq-chunked head that never materializes the full logits, plus
+``aux_coeff`` times the MoE layers' mean load-balance loss.
 
 Serving: ``prefill`` runs a prompt and emits the decode cache (int8 K/V
 with fp16 scales under ``kv_quantized``, as the JAX package's prefill
@@ -42,6 +43,7 @@ class ModelOptions:
     loss_chunk: int = 512  # sequence positions a chunk of the loss head
     # the plain attention's query chunk (memory only: the same result)
     attn_q_chunk: int = 4096
+    moe_group: int = 4096  # MoE: tokens a routing group (moe.moe_apply)
     decode_cache_mode: str = "carry"  # carry | stream (transformer.stack_decode)
     kv_quantized: bool = False  # int8 KV cache with fp16 scales (serving)
     aux_coeff: float = 0.01
@@ -49,9 +51,9 @@ class ModelOptions:
 
 class Model:
     def __init__(self, cfg: ArchConfig, opts: Optional[ModelOptions] = None):
-        if cfg.family not in ("dense", "ssm") or cfg.frontend != "none":
+        if cfg.family not in ("dense", "moe", "ssm") or cfg.frontend != "none":
             raise NotImplementedError(
-                f"{cfg.name}: only the dense and rwkv text families are ported so far"
+                f"{cfg.name}: only the dense, MoE and rwkv text families are ported so far"
             )
         self.cfg = cfg
         self.opts = opts or ModelOptions()
@@ -95,7 +97,8 @@ class Model:
     def _trunk(
         self, params: Params, batch: Dict,
         on_cache: Optional[transformer.CacheSink] = None,
-    ) -> torch.Tensor:
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the layers' output, the mean aux loss)."""
         x = self._embed(params, batch)
         positions = None
         if self.cfg.rope_variant != "none":
@@ -104,26 +107,26 @@ class Model:
             params["layers"], self.cfg, x, positions,
             compute_dtype=self._compute_dtype(), kernel_mode=self.opts.kernel_mode,
             wkv_chunk=self.opts.wkv_chunk, attn_q_chunk=self.opts.attn_q_chunk,
-            on_cache=on_cache, remat=self.opts.remat,
+            moe_group=self.opts.moe_group, on_cache=on_cache, remat=self.opts.remat,
         )
 
     def apply(self, params: Params, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Full logits (small models / tests only) and the aux loss, which
-        is 0 for the dense and rwkv families."""
-        x = self._trunk(params, batch)
+        """Full logits (small models / tests only) and the aux loss: the
+        mean of the layers' load-balance losses, 0 for the dense and rwkv
+        families."""
+        x, aux = self._trunk(params, batch)
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps, kernel_mode=self.opts.kernel_mode)
         table = self._head_table(params).to(self._compute_dtype())
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x @ table.T, aux
 
     def loss(self, params: Params, batch: Dict) -> torch.Tensor:
         """Causal LM loss, fp32: the mean over ``(b, s)`` of ``logsumexp -
-        gold logit``, plus ``aux_coeff`` times the aux loss (0 here). The
+        gold logit``, plus ``aux_coeff`` times the aux loss. The
         head runs over sequence chunks of ``min(loss_chunk, s)`` positions
         (``s`` when that does not divide it); each chunk's logits are the
         compute-dtype product cast to fp32, and under a gradient each chunk
         is checkpointed, so no more than one chunk's logits are live."""
-        x = self._trunk(params, batch)
+        x, aux = self._trunk(params, batch)
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps, kernel_mode=self.opts.kernel_mode)
         labels = batch["labels"]
         table = self._head_table(params).to(self._compute_dtype())
@@ -141,7 +144,6 @@ class Model:
                 )
             else:
                 total = total + _chunk_nll(xc, lc, table)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return total / (b * s) + self.opts.aux_coeff * aux
 
     # ------------------------------------------------------------------
@@ -204,7 +206,7 @@ class Model:
                 for name, t in entries.items():
                     cache[name][i] = t
 
-            return self._trunk(params, batch, on_cache=keep), cache
+            return self._trunk(params, batch, on_cache=keep)[0], cache
 
         cap = attention.cache_capacity(cfg, max_len if max_len is not None else s)
         quantized = self.opts.kv_quantized
@@ -224,7 +226,7 @@ class Model:
             cache["k"][i, :, :n] = k
             cache["v"][i, :, :n] = v
 
-        return self._trunk(params, batch, on_cache=keep_kv), cache
+        return self._trunk(params, batch, on_cache=keep_kv)[0], cache
 
     def decode(
         self, params: Params, batch: Dict, cache: transformer.Cache, pos: Union[int, torch.Tensor]

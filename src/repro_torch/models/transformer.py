@@ -1,4 +1,4 @@
-"""Decoder blocks and the layer stack, for the dense and the rwkv
+"""Decoder blocks and the layer stack, for the dense, MoE and rwkv
 (``family == "ssm"``) families.
 
 Layer params are a dict whose leaves carry a leading ``n_layers`` axis,
@@ -15,9 +15,11 @@ With ``remat`` and a gradient to take, each layer runs under
 ``nothing_saveable``): only its input is kept, and the backward recomputes
 the layer, its cast to the compute dtype included.
 
-Every block also hands back its layer's cache entries, which
-``stack_apply`` passes to an optional sink: ``k``/``v`` (rotated keys and
-values) for a dense block, ``tmix_shift``/``cmix_shift``/``wkv`` (the
+Every block also hands back its layer's aux loss (the MoE load-balance
+loss; 0 for a dense or rwkv block), which ``stack_apply`` averages over
+the layers, and its layer's cache entries, which ``stack_apply`` passes
+to an optional sink: ``k``/``v`` (rotated keys and
+values) for a dense or MoE block, ``tmix_shift``/``cmix_shift``/``wkv`` (the
 token-shift carries and the fp32 wkv state) for an rwkv block.
 
 Decode (``block_decode``, ``stack_decode``) runs one token through the
@@ -37,7 +39,7 @@ from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, rwkv
+from repro_torch.models import attention, moe, rwkv
 from repro_torch.models.layers import Params, mlp_apply, mlp_init, rmsnorm, rmsnorm_init
 
 CacheEntries = Dict[str, torch.Tensor]
@@ -46,6 +48,8 @@ CacheSink = Callable[[int, CacheEntries], None]
 # a decode cache: stacked leaves, or one dict a layer
 Cache = Union[Dict[str, torch.Tensor], Sequence[Dict[str, torch.Tensor]]]
 CACHE_MODES = ("carry", "stream")
+# a layer's aux loss: an fp32 scalar tensor (MoE), or 0.0 (no MoE layer)
+Aux = Union[torch.Tensor, float]
 
 
 def layer_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Params:
@@ -58,14 +62,18 @@ def layer_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Par
             "norm2": rmsnorm_init(cfg.d_model, dtype, gen.device, lead),
             "cmix": rwkv.cmix_init(gen, cfg, dtype, lead),
         }
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    return {
+    p = {
         "attn_norm": rmsnorm_init(cfg.d_model, dtype, gen.device, lead),
         "attn": attention.attention_init(gen, cfg, dtype, lead),
         "mlp_norm": rmsnorm_init(cfg.d_model, dtype, gen.device, lead),
-        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, lead),
     }
+    if cfg.is_moe:
+        p["moe"] = moe.moe_init(gen, cfg, dtype, lead)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, lead)
+    return p
 
 
 def layer_slice(layers: Params, i: int, dtype: torch.dtype) -> Params:
@@ -83,8 +91,11 @@ def layer_slice(layers: Params, i: int, dtype: torch.dtype) -> Params:
 def block_apply(
     p: Params, cfg: ArchConfig, x: torch.Tensor, positions: Optional[torch.Tensor], *,
     kernel_mode: str = "kernel", wkv_chunk: int = 64, attn_q_chunk: Optional[int] = None,
-) -> Tuple[torch.Tensor, CacheEntries]:
-    """One block; returns (x_out, the layer's cache entries)."""
+    moe_group: int = 4096,
+) -> Tuple[torch.Tensor, Aux, CacheEntries]:
+    """One block; returns (x_out, the layer's aux loss, its cache entries).
+    The aux loss is an fp32 scalar for an MoE block and the float 0 for a
+    dense or rwkv block."""
     if cfg.family == "ssm":
         h = rmsnorm(p["norm1"], x, cfg.norm_eps, kernel_mode=kernel_mode)
         out, (tshift, state) = rwkv.tmix_apply(
@@ -93,42 +104,55 @@ def block_apply(
         x = x + out
         h = rmsnorm(p["norm2"], x, cfg.norm_eps, kernel_mode=kernel_mode)
         out, cshift = rwkv.cmix_apply(p["cmix"], cfg, h)
-        return x + out, {"tmix_shift": tshift, "cmix_shift": cshift, "wkv": state}
+        return x + out, 0.0, {"tmix_shift": tshift, "cmix_shift": cshift, "wkv": state}
     h = rmsnorm(p["attn_norm"], x, cfg.norm_eps, kernel_mode=kernel_mode)
     attn_out, k, v = attention.attend(
         p["attn"], cfg, h, positions, kernel_mode=kernel_mode, q_chunk=attn_q_chunk
     )
     x = x + attn_out
     h = rmsnorm(p["mlp_norm"], x, cfg.norm_eps, kernel_mode=kernel_mode)
-    return x + mlp_apply(p["mlp"], h, cfg.gated_act), {"k": k, "v": v}
+    aux: Aux = 0.0
+    if cfg.is_moe:
+        out, aux = moe.moe_apply(p["moe"], cfg, h, group_size=moe_group)
+    else:
+        out = mlp_apply(p["mlp"], h, cfg.gated_act)
+    return x + out, aux, {"k": k, "v": v}
 
 
 def stack_apply(
     layers: Params, cfg: ArchConfig, x: torch.Tensor, positions: Optional[torch.Tensor], *,
     compute_dtype: torch.dtype, kernel_mode: str = "kernel", wkv_chunk: int = 64,
-    attn_q_chunk: Optional[int] = None, on_cache: Optional[CacheSink] = None,
-    remat: bool = False,
-) -> torch.Tensor:
-    """Run all layers in order. ``remat`` checkpoints each layer when a
+    attn_q_chunk: Optional[int] = None, moe_group: int = 4096,
+    on_cache: Optional[CacheSink] = None, remat: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run all layers in order; returns (x, the mean of the layers' aux
+    losses, an fp32 scalar). ``remat`` checkpoints each layer when a
     gradient is to be taken (grad enabled, and ``x`` or a layer leaf
     requires grad) and no cache sink is given; otherwise it changes
     nothing."""
-    kw = dict(kernel_mode=kernel_mode, wkv_chunk=wkv_chunk, attn_q_chunk=attn_q_chunk)
+    kw = dict(kernel_mode=kernel_mode, wkv_chunk=wkv_chunk, attn_q_chunk=attn_q_chunk,
+              moe_group=moe_group)
+    total: Aux = 0.0
     if remat and on_cache is None and _needs_grad(layers, x):
         for i in range(cfg.n_layers):
 
             def layer(h, i=i):
-                return block_apply(layer_slice(layers, i, compute_dtype), cfg, h, positions, **kw)[0]
+                return block_apply(layer_slice(layers, i, compute_dtype), cfg, h, positions,
+                                   **kw)[:2]
 
             # the blocks draw no random numbers: no RNG state to keep
-            x = checkpoint(layer, x, use_reentrant=False, preserve_rng_state=False)
-        return x
-    for i in range(cfg.n_layers):
-        p = layer_slice(layers, i, compute_dtype)
-        x, entries = block_apply(p, cfg, x, positions, **kw)
-        if on_cache is not None:
-            on_cache(i, entries)
-    return x
+            x, aux = checkpoint(layer, x, use_reentrant=False, preserve_rng_state=False)
+            total = total + aux
+    else:
+        for i in range(cfg.n_layers):
+            p = layer_slice(layers, i, compute_dtype)
+            x, aux, entries = block_apply(p, cfg, x, positions, **kw)
+            total = total + aux
+            if on_cache is not None:
+                on_cache(i, entries)
+    if not isinstance(total, torch.Tensor):  # no MoE layer
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, total / cfg.n_layers
 
 
 def _needs_grad(layers: Params, x: torch.Tensor) -> bool:
@@ -162,15 +186,17 @@ def block_decode(
         return x + out, {"tmix_shift": shift, "cmix_shift": cshift, "wkv": state}
     if cfg.family == "hybrid":
         raise NotImplementedError("hybrid decode (attention + SSM) waits for queue A5")
-    if cfg.is_moe:
-        raise NotImplementedError("MoE decode waits for queue A4")
     h = rmsnorm(p["attn_norm"], x, cfg.norm_eps, kernel_mode=kernel_mode)
     attn_out, kv = attention.attention_decode(
         p["attn"], cfg, h, positions, cache, pos, kernel_mode=kernel_mode
     )
     x = x + attn_out
     h = rmsnorm(p["mlp_norm"], x, cfg.norm_eps, kernel_mode=kernel_mode)
-    return x + mlp_apply(p["mlp"], h, cfg.gated_act), kv
+    if cfg.is_moe:  # one group of the batch's tokens
+        out, _ = moe.moe_apply(p["moe"], cfg, h, group_size=h.shape[0], capacity_factor=2.0)
+    else:
+        out = mlp_apply(p["mlp"], h, cfg.gated_act)
+    return x + out, kv
 
 
 def stack_decode(

@@ -1,6 +1,6 @@
 """Per-(arch x shape) runtime knobs: microbatching, dtypes, chunk sizes
 (the JAX package's ``train/runtime.py``, its table as it is, mapped onto
-the port's ``ModelOptions``: the port has no layer scan or SSM/MoE chunks
+the port's ``ModelOptions``: the port has no layer scan or SSM chunks
 yet, and its ``kernel_mode`` defaults to ``"kernel"``, the hand-written
 CUDA kernels). Serving shapes (decode and prefill) hold bf16 params and
 an int8 KV cache, as in the JAX package."""
@@ -37,6 +37,7 @@ def model_options_for(
         kernel_mode=kernel_mode,
         remat=shape.kind == "train",
         wkv_chunk=64,
+        moe_group=4096,
         attn_q_chunk=1024 if shape.kind == "prefill" else 4096,
         loss_chunk=512,
         # serving stores the KV cache as int8 (+fp16 scales) end to end:

@@ -6,7 +6,9 @@ tolerances: 2e-4 for decode consistency
 (``tests/test_arch_smoke.py::test_smoke_decode_consistency``), the int8
 bounds of ``tests/test_kv_quant.py``, and 5e-3 through a ring cache's
 wrap (``tests/test_paper_scenarios.py``). The JAX references are jitted
-and shared across cases."""
+and shared across cases. The MoE configs (mixtral-8x22b with its sliding
+window, qwen3-moe-235b-a22b) decode through ``block_decode``'s MoE branch:
+one routing group of the batch's tokens at capacity factor 2."""
 import dataclasses
 import functools
 
@@ -40,7 +42,8 @@ from repro_torch.train.serve_step import (  # noqa: E402
 )
 from repro_torch.weights import from_jax  # noqa: E402
 
-ARCHS = ["gemma-2b", "qwen3-8b", "rwkv6-7b", "qwen1.5-32b", "qwen2-72b"]
+ARCHS = ["gemma-2b", "qwen3-8b", "rwkv6-7b", "qwen1.5-32b", "qwen2-72b", "mixtral-8x22b",
+         "qwen3-moe-235b-a22b"]
 TOL = dict(rtol=2e-4, atol=2e-4)  # test_arch_smoke.py::test_smoke_decode_consistency
 RING_TOL = dict(rtol=5e-3, atol=5e-3)  # test_paper_scenarios.py::TestRingCacheWrap
 B, S = 2, 16
@@ -79,13 +82,16 @@ def _setup(arch, sliding_window=0, seed=0):
     return jmodel, jparams, cfg, from_jax(np_params, "cpu"), tokens
 
 
+# MoE routes groups of 16, as tests/test_arch_smoke.py does: a smoke
+# group of 16 has room for every assignment (capacity 16), so the full
+# forward drops none and decode can equal it
 def _jax_opts(**kw):
     return JaxOptions(compute_dtype="float32", param_dtype="float32", wkv_chunk=8,
-                      loss_chunk=8, **kw)
+                      loss_chunk=8, moe_group=16, **kw)
 
 
 def _model(cfg, **kw):
-    return build_model(cfg, ModelOptions(compute_dtype="float32", wkv_chunk=8, **kw))
+    return build_model(cfg, ModelOptions(compute_dtype="float32", wkv_chunk=8, moe_group=16, **kw))
 
 
 def _t(a):
@@ -282,6 +288,32 @@ def test_ring_cache_prefill_roll_and_decode_through_the_wrap():
     np.testing.assert_allclose(logits[:, 0].numpy(), full[:, -1].numpy(), **RING_TOL)
 
 
+@pytest.mark.parametrize("kv_quantized", [False, True])
+def test_mixtral_ring_prefill_roll_and_decode_through_the_wrap(kv_quantized):
+    """mixtral smoke, its own window of 32 (a ring of 32 slots): a 40-token
+    prompt (past the window, no multiple of it) lands rolled, then decode
+    steps from slot 8 on, the MoE branch routing each step's batch as one
+    group; logits and caches against JAX's, bf16/fp32 or int8."""
+    jmodel, jparams, cfg, params, _ = _setup("mixtral-8x22b")
+    jm = jax_build_model(jmodel.cfg, _jax_opts(kv_quantized=kv_quantized))
+    model = _model(cfg, kv_quantized=kv_quantized)
+    tokens = np.random.default_rng(40).integers(0, cfg.vocab_size, (B, 44), dtype=np.int32)
+    jl, jc = jm.prefill(jparams, {"tokens": tokens[:, :40]}, max_len=48)
+    logits, c = model.prefill(params, {"tokens": _t(tokens[:, :40])}, max_len=48)
+    assert c["k"].shape[2] == cfg.sliding_window == 32
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+    if not kv_quantized:
+        for n in ("k", "v"):
+            np.testing.assert_allclose(c[n].numpy(), np.asarray(jc[n]), **TOL)
+    dec = jax.jit(jm.decode)
+    for pos in range(40, 44):
+        if kv_quantized:  # decode from JAX's int8 cache: fp32-close K/V may round apart
+            c = {n: torch.from_numpy(np.array(t)) for n, t in jc.items()}
+        jl, jc = dec(jparams, {"tokens": tokens[:, pos : pos + 1]}, jc, jnp.asarray(pos, jnp.int32))
+        logits, c = model.decode(params, {"tokens": _t(tokens[:, pos : pos + 1])}, c, pos)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+
+
 # ---------------------------------------------------------------------------
 # int8 KV cache (twins of tests/test_kv_quant.py)
 # ---------------------------------------------------------------------------
@@ -301,7 +333,7 @@ def test_quantize_roundtrip_bound():
     np.testing.assert_array_equal(s.numpy(), np.asarray(js))
 
 
-@pytest.mark.parametrize("name", ["qwen1.5-32b", "qwen2-72b"])
+@pytest.mark.parametrize("name", ["qwen1.5-32b", "qwen2-72b", "mixtral-8x22b"])
 def test_int8_decode_close_to_fp(name):
     """Token-by-token decode through an int8 cache lands within 5% of max
     |logit| of the full forward."""
@@ -327,7 +359,7 @@ def test_int8_cache_halves_bytes():
     assert size(c_q) < size(c_bf) * 0.6  # int8 + fp16 scales ~ 0.56x of bf16
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "qwen1.5-32b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen1.5-32b", "qwen3-moe-235b-a22b"])
 def test_int8_prefill_cache_matches_jax(arch):
     """An int8 prefill's cache against JAX's from the same params and
     prompt. The port's quantizer on JAX's own fp32 K/V gives JAX's int8
@@ -361,7 +393,7 @@ def test_int8_prefill_cache_matches_jax(arch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-8b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-8b", "rwkv6-7b", "mixtral-8x22b"])
 def test_greedy_generate_matches_jax(arch):
     """Greedy tokens from a 12-token prompt, 6 of them, fp32: identical to
     JAX's, int32, on the params' device."""

@@ -982,3 +982,43 @@ def test_full_width_decode_step_kernel_matches_plain(cuda, arch, kv_quantized):
             assert diff.abs().max().item() <= 1 and (diff != 0).float().mean().item() < 1e-3
         else:
             _close(t, ref, 1e-4)
+
+
+def test_mixtral_smoke_prefill_and_ring_decode_kernel_matches_plain(cuda):
+    """mixtral smoke (MoE, window 32) on the card, fp32: a (2, 40) prompt
+    (the window binds: 40 > 32, and the ring is rolled by 40 % 32), then
+    six decode steps, so the ring's next slots are overwritten, through
+    the kernels against the plain path: logits and caches at 1e-4, the
+    same dropped assignments, and the launches a prefill and a step."""
+    from chip_smoke import dropped as count_dropped
+    from chip_smoke import moe_trace
+
+    cfg = get_config("mixtral-8x22b").smoke()
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    params = build_model(cfg).init(gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 46), generator=gen, device=cuda)
+    modes = ("kernel", "reference")
+    models = {m: build_model(cfg, ModelOptions(kernel_mode=m, compute_dtype="float32", moe_group=16))
+              for m in modes}
+    out, launched, dropped = {}, {}, {}
+    for mode in modes:
+        counts = (rms_ops.rmsnorm.launches, fa_ops.flash_attention.launches)
+        with moe_trace() as log:
+            logits, cache = models[mode].prefill(params, {"tokens": tokens[:, :40]}, max_len=64)
+            steps = [logits]
+            for pos in range(40, 46):
+                step, cache = models[mode].decode(
+                    params, {"tokens": tokens[:, pos : pos + 1]}, cache, pos)
+                steps.append(step[:, 0])
+        torch.cuda.synchronize()
+        launched[mode] = (rms_ops.rmsnorm.launches - counts[0],
+                          fa_ops.flash_attention.launches - counts[1])
+        out[mode] = (torch.stack(steps), cache)
+        dropped[mode] = count_dropped(log)
+    assert out["kernel"][1]["k"].shape[2] == cfg.sliding_window == 32
+    assert launched["kernel"] == (7 * (2 * cfg.n_layers + 1), 7 * cfg.n_layers)
+    assert launched["reference"] == (0, 0)
+    assert dropped["kernel"] == dropped["reference"]
+    _close(out["kernel"][0], out["reference"][0], 1e-4)
+    for name in ("k", "v"):
+        _close(out["kernel"][1][name], out["reference"][1][name], 1e-4)

@@ -1,10 +1,13 @@
-"""Port model (CPU path) vs the JAX package on the dense smoke configs:
-the same params (JAX ``Model.init`` through ``from_jax``) and the same
-tokens give the same ``apply`` logits and the same ``prefill`` logits and
-K/V cache, in fp32 at rtol = atol = 1e-4. The JAX side runs its reference
-attention and, once, its Pallas flash kernel in interpret mode. The
-QKV-bias configs (qwen1.5-32b, qwen2-72b) get random biases in place of
-the init's zeros, so that their bias branch does work."""
+"""Port model (CPU path) vs the JAX package on the dense and MoE smoke
+configs: the same params (JAX ``Model.init`` through ``from_jax``) and the
+same tokens give the same ``apply`` logits (and MoE aux loss) and the same
+``prefill`` logits and K/V cache, in fp32 at rtol = atol = 1e-4. The JAX
+side runs its reference attention and, once, its Pallas flash kernel in
+interpret mode. The QKV-bias configs (qwen1.5-32b, qwen2-72b) get random
+biases in place of the init's zeros, so that their bias branch does work.
+The MoE configs route groups of 16 tokens, and their prefill takes a
+40-token prompt: past mixtral's smoke window of 32 and no multiple of it,
+so the ring cache is rolled."""
 import dataclasses
 import functools
 
@@ -24,13 +27,16 @@ from repro_torch.weights import from_jax  # noqa: E402
 
 ARCHS = ["gemma-2b", "qwen3-8b"]
 QKV_BIAS_ARCHS = ["qwen1.5-32b", "qwen2-72b"]
+MOE_ARCHS = ["mixtral-8x22b", "qwen3-moe-235b-a22b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 @functools.lru_cache(maxsize=None)
 def _setup(arch, kernel_mode="reference"):
     jcfg = jax_get_config(arch).smoke()
-    jmodel = jax_build_model(jcfg, JaxOptions(compute_dtype="float32", kernel_mode=kernel_mode))
+    moe = dict(moe_group=16) if jcfg.is_moe else {}
+    jmodel = jax_build_model(
+        jcfg, JaxOptions(compute_dtype="float32", kernel_mode=kernel_mode, **moe))
     np_params = jax.tree_util.tree_map(np.asarray, jmodel.init(jax.random.PRNGKey(3)))
     if jcfg.qkv_bias:
         g = np.random.default_rng(4)
@@ -39,12 +45,13 @@ def _setup(arch, kernel_mode="reference"):
             attn[name] = (0.5 * g.standard_normal(attn[name].shape)).astype(np.float32)
     jparams = jax.tree_util.tree_map(jax.numpy.asarray, np_params)
     tparams = from_jax(np_params, "cpu")
-    model = build_model(get_config(arch).smoke(), ModelOptions(compute_dtype="float32"))
-    tokens = np.random.default_rng(11).integers(0, jcfg.vocab_size, (2, 16), dtype=np.int32)
+    model = build_model(get_config(arch).smoke(), ModelOptions(compute_dtype="float32", **moe))
+    seq = 40 if jcfg.is_moe else 16
+    tokens = np.random.default_rng(11).integers(0, jcfg.vocab_size, (2, seq), dtype=np.int32)
     return jmodel, jparams, model, tparams, tokens
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["rwkv6-7b"] + QKV_BIAS_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["rwkv6-7b"] + QKV_BIAS_ARCHS + MOE_ARCHS)
 def test_configs_are_copies(arch):
     jcfg, cfg = jax_get_config(arch), get_config(arch)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
@@ -54,10 +61,10 @@ def test_configs_are_copies(arch):
 
 def test_unported_arch_raises():
     with pytest.raises(KeyError, match="not yet ported"):
-        get_config("mixtral-8x22b")
+        get_config("hymba-1.5b")
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["rwkv6-7b"] + QKV_BIAS_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["rwkv6-7b"] + QKV_BIAS_ARCHS + MOE_ARCHS)
 def test_init_matches_jax_tree(arch):
     """Same leaf names, shapes and dtypes as the JAX params (values differ:
     torch and JAX draw different numbers from a seed)."""
@@ -81,18 +88,37 @@ def test_apply_matches_jax(arch):
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS + QKV_BIAS_ARCHS)
-def test_prefill_logits_and_cache_match_jax(arch):
-    """``max_len`` > prompt: the cache is zero-padded at the end."""
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_apply_logits_and_aux_match_jax(arch):
+    """Logits and the mean of the layers' load-balance losses."""
     jmodel, jparams, model, tparams, tokens = _setup(arch)
-    jlogits, jcache = jmodel.prefill(jparams, {"tokens": tokens}, max_len=24)
-    logits, cache = model.prefill(tparams, {"tokens": torch.from_numpy(tokens).long()}, max_len=24)
+    jlogits, jaux = jax.jit(jmodel.apply)(jparams, {"tokens": tokens})
+    logits, aux = model.apply(tparams, {"tokens": torch.from_numpy(tokens).long()})
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    assert float(aux) == pytest.approx(float(jaux), rel=1e-5) and float(aux) > 0
+
+
+@pytest.mark.parametrize("arch", ARCHS + QKV_BIAS_ARCHS + MOE_ARCHS)
+def test_prefill_logits_and_cache_match_jax(arch):
+    """``max_len`` > prompt: the cache is zero-padded at the end. A
+    sliding window shorter than the prompt keeps a ring of the last
+    ``window`` tokens, token p in slot p % window."""
+    jmodel, jparams, model, tparams, tokens = _setup(arch)
+    seq = tokens.shape[1]
+    jlogits, jcache = jmodel.prefill(jparams, {"tokens": tokens}, max_len=seq + 8)
+    logits, cache = model.prefill(tparams, {"tokens": torch.from_numpy(tokens).long()},
+                                  max_len=seq + 8)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
     assert set(cache) == set(jcache) == {"k", "v"}
+    window = model.cfg.sliding_window
     for name in ("k", "v"):
         assert tuple(cache[name].shape) == jcache[name].shape
         np.testing.assert_allclose(cache[name].numpy(), np.asarray(jcache[name]), **TOL)
-        assert not cache[name][:, :, 16:].any()
+        if window:  # mixtral: a ring of 32 rolled by 40 % 32
+            assert cache[name].shape[2] == window < seq and seq % window
+        else:
+            assert not cache[name][:, :, seq:].any()
 
 
 @pytest.mark.parametrize("arch", ARCHS + QKV_BIAS_ARCHS)
@@ -112,7 +138,7 @@ def test_attention_apply_matches_jax(arch):
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), **TOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["mixtral-8x22b"])
 def test_apply_matches_jax_pallas_interpret(arch):
     """The JAX model through its Pallas flash kernel (interpret mode)."""
     jmodel, jparams, model, tparams, tokens = _setup(arch, kernel_mode="pallas")
@@ -121,7 +147,7 @@ def test_apply_matches_jax_pallas_interpret(arch):
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_kernel_and_reference_modes_agree_on_cpu(arch):
     """On the CPU both modes take the plain versions: identical logits,
     and no kernel launch is counted."""

@@ -1,7 +1,8 @@
 """Port serve driver on the CPU: every request is served; a service's
 handle, fed the JAX service's params, gives the JAX handle's next tokens;
 request streams and seeds match the JAX driver; the device is the card
-unless the caller asks for the CPU."""
+unless the caller asks for the CPU. mixtral-8x22b (MoE, routing groups of
+16 as in the JAX driver) serves and trains beside them."""
 import dataclasses
 import random
 
@@ -53,6 +54,35 @@ def test_train_background_runs():
         assert st.iterations_done == ex.sessions[jid].n_iters
 
 
+def test_moe_service_beside_a_moe_trainer():
+    """``--archs mixtral-8x22b --smoke --train-background mixtral-8x22b``:
+    every request served, the trainer's losses finite, nothing fails."""
+    report, ex = serve.serve(serve.build_parser().parse_args(
+        ARGV + ["--archs", "mixtral-8x22b", "--train-background", "mixtral-8x22b",
+                "--train-iters", "2", "--duration", "60"]))
+    assert not report.failures
+    assert sorted(s.name for s in ex.sessions.values()) == ["mixtral-8x22b", "train:mixtral-8x22b"]
+    for jid, st in report.stats.items():
+        sess = ex.sessions[jid]
+        assert st.iterations_done == sess.n_iters > 0
+        if sess.job.kind == "train":
+            assert all(np.isfinite(float(m["loss"])) for m in sess.metrics_log)
+        else:
+            assert all(m["next_token"].shape == (serve.PROMPT_SHAPE[0],) for m in sess.metrics_log)
+
+
+def test_serve_takes_a_config_in_place_of_the_registry():
+    """``serve(args, configs)`` serves a given config under a service's
+    name (how a full-width model is cut in depth to fit one card)."""
+    cfg = dataclasses.replace(serve.get_config("mixtral-8x22b").smoke(), n_layers=1)
+    report, ex = serve.serve(serve.build_parser().parse_args(
+        ARGV + ["--archs", "mixtral-8x22b,gemma-2b"]), configs={"mixtral-8x22b": cfg})
+    assert not report.failures
+    layers = {s.name: s.state["layers"]["attn_norm"]["scale"].shape[0]
+              for s in ex.sessions.values()}
+    assert layers == {"mixtral-8x22b": 1, "gemma-2b": 2}
+
+
 def test_train_background_report_prints_iterations(capsys):
     serve.main(ARGV + ["--archs", "gemma-2b", "--train-background", "qwen3-8b",
                        "--train-iters", "2", "--duration", "60"])
@@ -61,7 +91,7 @@ def test_train_background_report_prints_iterations(capsys):
     assert "train:qwen3-8b: 2 training iterations (" in out and "boundary preemptions)" in out
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["mixtral-8x22b"])
 def test_trainer_step_matches_jax(arch, monkeypatch):
     """The trainer's step on the JAX trainer's params and batch gives JAX's
     loss and new params (fp32 compute on both sides)."""
@@ -92,7 +122,7 @@ def test_trainer_step_matches_jax(arch, monkeypatch):
     assert serve.TRAIN_OPTS.loss_chunk == jax_serve._MODEL_OPTS.loss_chunk
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["mixtral-8x22b"])
 def test_handle_gives_jax_next_tokens(arch, monkeypatch):
     """Each driver's own service options, in fp32 on both sides, so the
     argmax compares the algorithm and not where the two frameworks round
@@ -123,6 +153,8 @@ def test_requests_and_seeds_match_jax():
         assert serve.stable_seed(name) == jax_serve.stable_seed(name)
     assert serve.build_parser().parse_args([]).archs == ",".join(ARCHS)
     assert serve.SERVE_OPTS.wkv_chunk == jax_serve._MODEL_OPTS.wkv_chunk
+    for opts in (serve.SERVE_OPTS, serve.TRAIN_OPTS):
+        assert opts.moe_group == jax_serve._MODEL_OPTS.moe_group == 16
 
 
 def test_service_is_deterministic_in_its_seeds():

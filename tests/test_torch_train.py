@@ -1,7 +1,8 @@
 """Port training path vs the JAX package on the gemma-2b and qwen3-8b
 smoke configs, fp32 compute: ``Model.loss`` and its gradients against
 ``jax.value_and_grad`` (remat on and off, a chunked loss head and a length
-the chunk does not divide), ``make_train_step`` over two steps with one
+the chunk does not divide; also for the MoE smoke configs, whose loss
+carries ``aux_coeff`` times the layers' mean load-balance loss), ``make_train_step`` over two steps with one
 and two microbatches, twins of tests/test_train.py's ``TestTrainStep``
 and ``TestData``, the runtime tables, and a training session whose first
 iteration reports JAX's step-1 loss (the profile took no hidden step)."""
@@ -50,6 +51,7 @@ from repro_torch.train.train_step import (  # noqa: E402
 from repro_torch.weights import from_jax  # noqa: E402
 
 ARCHS = ["gemma-2b", "qwen3-8b"]
+MOE_ARCHS = ["mixtral-8x22b", "qwen3-moe-235b-a22b"]
 CPU = torch.device("cpu")
 # AdamW at its warmup lr (adamw_config_for's lr 3e-4 over 200 warmup
 # steps): Adam's first steps move each element by about lr * sign(g), so a
@@ -88,11 +90,13 @@ def _assert_tree_close(ours, theirs, rtol, atol):
                                    rtol=rtol, atol=atol, err_msg=jax.tree_util.keystr(path))
 
 
-@pytest.mark.parametrize("seq", [16, 12])  # four chunks of 8; 8 does not divide 12
-@pytest.mark.parametrize("remat", [True, False])
-@pytest.mark.parametrize("arch", ARCHS)
+# seq 16: four chunks of 8; 8 does not divide 12. MoE: remat on and off
+@pytest.mark.parametrize("arch,remat,seq", [
+    (a, r, s) for a in ARCHS for r in (True, False) for s in (16, 12)
+] + [(a, r, 16) for a in MOE_ARCHS for r in (True, False)])
 def test_loss_and_grads_match_jax(arch, remat, seq):
-    jm, m, jp, p = _models(arch, loss_chunk=8, remat=remat)
+    moe = dict(moe_group=8) if arch in MOE_ARCHS else {}  # several groups
+    jm, m, jp, p = _models(arch, loss_chunk=8, remat=remat, **moe)
     jb, tb = _batch(get_config(arch).smoke().vocab_size, 2, seq, seed=seq)
     jloss, jgrads = jax.jit(jax.value_and_grad(jm.loss))(jp, jb)
     loss, grads = value_and_grad(m, p, tb)
@@ -107,6 +111,25 @@ def test_loss_and_grads_match_jax(arch, remat, seq):
     assert float(direct.detach()) == float(loss)
     for a, b in zip(dgrads, torch.utils._pytree.tree_leaves(stack_grads(grads))):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_loss_is_nll_plus_aux(arch):
+    """The loss is the head's NLL plus ``aux_coeff`` times the aux loss
+    ``apply`` reports (JAX's loss, held above): a larger coefficient
+    moves it by the same aux."""
+    _, tb = _batch(256, 2, 16, seed=7)
+    cfg = get_config(arch).smoke()
+    params = build_model(cfg).init(torch.Generator().manual_seed(7))
+    losses = {}
+    with torch.no_grad():
+        for coeff in (0.01, 1.0):
+            m = build_model(cfg, ModelOptions(compute_dtype="float32", loss_chunk=8, moe_group=8,
+                                              aux_coeff=coeff))
+            losses[coeff] = float(m.loss(params, tb))
+        aux = float(m.apply(params, tb)[1])
+    assert aux > 0
+    assert losses[1.0] - losses[0.01] == pytest.approx(0.99 * aux, rel=1e-4)
 
 
 def test_loss_without_grad_and_eval_step():
@@ -229,7 +252,7 @@ def test_runtime_tables_match_jax():
         k: (v.kind, v.seq_len, v.global_batch)
         for k, v in __import__("repro.configs", fromlist=["SHAPES"]).SHAPES.items()
     }
-    for arch in ARCHS + ["rwkv6-7b"]:
+    for arch in ARCHS + ["rwkv6-7b"] + MOE_ARCHS:
         for cfg, jcfg in ((get_config(arch), jax_get_config(arch)),
                           (get_config(arch).smoke(), jax_get_config(arch).smoke())):
             run, jrun = runtime.train_run_config_for(cfg, TRAIN_4K), jax_runtime.train_run_config_for(jcfg, JAX_TRAIN_4K)
@@ -237,7 +260,8 @@ def test_runtime_tables_match_jax():
             assert runtime.adamw_config_for(cfg).__dict__ == jax_runtime.adamw_config_for(jcfg).__dict__
             opts = runtime.model_options_for(cfg, TRAIN_4K)
             jopts = jax_runtime.model_options_for(jcfg, JAX_TRAIN_4K)
-            for field in ("remat", "wkv_chunk", "loss_chunk", "aux_coeff", "compute_dtype", "param_dtype"):
+            for field in ("remat", "wkv_chunk", "moe_group", "loss_chunk", "aux_coeff",
+                          "compute_dtype", "param_dtype"):
                 assert getattr(opts, field) == getattr(jopts, field), field
             assert opts.kernel_mode == "kernel"
     gemma = runtime.train_run_config_for(get_config("gemma-2b"), TRAIN_4K)
