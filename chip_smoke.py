@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, at
-first use), then runs ten phases, each printing JSON lines:
+first use), then runs eleven phases, each printing JSON lines:
 
 1. env      — the card's name and power limit (nvidia-smi), torch/CUDA
               versions, the kernels' build time, and ptxas's registers and
@@ -67,7 +67,9 @@ first use), then runs ten phases, each printing JSON lines:
               through the kernels against the plain path in fp32 and bf16
               (logits at the parity phase's tolerances, tokens identical
               or a near tie); the int8 cache at the runtime tables'
-              settings within 5% of max |logit| of the bf16 cache. Then
+              settings against the bf16 cache, both through the plain
+              path and as served (K3 on the bf16 cache), within twice
+              bf16 compute's own error (the parity phase's rule). Then
               DECODE_32K (32768 cached tokens) with bf16 params and a
               random cache, the batch cut to fit 40 GB: ms a step, tokens
               a second, launches a step, a profiled step's busy share and
@@ -86,6 +88,22 @@ first use), then runs ten phases, each printing JSON lines:
               nothing, 16 greedy tokens across the ring's wrap, the int8
               cache); a mixtral decode step at depth 8, bf16 params and a
               random bf16 ring cache at batch 64, timed as in decode.
+11. families — the last three families at full width: hymba-1.5b
+              (hybrid, full depth) served beside gemma-2b (the serve
+              cell's traffic, SSM chunks of 8), prefill parity at
+              (1, 2560) (its 1024 window binds, the ring is rolled, 20
+              SSM chunks), a profiled prefill with the SSM scan's share
+              of device time, the decode checks of the decode phase (16
+              greedy tokens from 2560 across the ring's wrap) and a timed
+              step at DECODE_32K's positions, batch 128, bf16 ring, with
+              its bytes bound (params, ring, the SSM state read and
+              written); musicgen-medium (audio: frame embeddings, full
+              depth) prefill parity at (1, 2048), the decode step fed a
+              frame embedding against the full forward, a timed step with
+              a bf16 cache cut to 40 GB; qwen2-vl-72b (vlm, 4 of 80
+              layers) prefill parity at (1, 1024) with 256 patch
+              embeddings spliced in and distinct grid M-RoPE ids, and the
+              decode step fed (1, 3, 1) ids.
 Then the ``{"kernels": [...]}`` summary line.
 
 Any failed check raises and the script exits non-zero. The last line is
@@ -169,6 +187,23 @@ MOE_DECODE_BATCH = 64  # a bf16 ring cache of 8.6 GB at depth 8
 # experts a route call, at most this many times the plain bf16 path's
 # against the plain fp32 path
 MOE_FLIP_FACTOR = 2
+HYMBA_ARCH = "hymba-1.5b"
+MUSICGEN_ARCH = "musicgen-medium"
+QWEN2_VL_ARCH = "qwen2-vl-72b"
+# hymba's parity and greedy prompt: past its 1024 window and no multiple
+# of it (the ring is rolled, and decode writes into a wrapped ring), and
+# 20 SSM chunks of 128 (the chunked scan runs, not its fallback)
+HYMBA_PROMPT = 2560
+HYMBA_DECODE_BATCH = 128  # DECODE_32K's: a bf16 ring of 5.37 GB
+MUSICGEN_PROMPT = 2048
+# qwen2-vl-72b at full width, depth cut from 80: 4 layers of fp32 params
+# are 14.0 GB, its untied embedding and head 10.0 GB
+QWEN2_VL_DEPTH = 4
+QWEN2_VL_PROMPT = 1024
+PATCH_GRID_WIDTH = 16  # qwen2-vl's 256 patches as a 16 x 16 grid
+# profiler spans around the SSM branch and its scan (``ssm_spans``)
+SSM_SPANS = {"ssm_apply": "ssm_branch", "ssm_decode": "ssm_branch",
+             "ssm_scan_chunked": "ssm_scan", "ssm_scan_ref": "ssm_scan"}
 # w = sigmoid(z) * span + low: the JAX kernel test's slow and fast decay
 # regimes, and a faster one with decays down to 0.05
 DECAY_REGIMES = {"slow": (0.1, 0.88), "fast": (0.5, 0.15), "faster": (0.9, 0.05)}
@@ -238,6 +273,11 @@ def worst_element(a: torch.Tensor, b: torch.Tensor) -> dict:
     row = b[tuple(idx[:-1])]
     return {"index": idx, "kernel": a[tuple(idx)].item(), "plain": b[tuple(idx)].item(),
             "row_max_abs": row.abs().max().item()}
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at ``x``: 2^-7 of its power of two."""
+    return torch.finfo(torch.bfloat16).eps * 2.0 ** math.floor(math.log2(abs(x) or 1.0))
 
 
 def within(a: torch.Tensor, b: torch.Tensor, tol: float) -> bool:
@@ -833,6 +873,12 @@ def phase_kernels() -> dict:
         for rows, d in ((64, 4096), (64, 2048), (2048, 128), (512, 128), (8192, 4096)):
             res = rmsnorm_case(rows, d, dtype, residual=False, iters=50)
             results[("rmsnorm", rows, d, res["dtype"])] = res
+        # the families phase's widths: a hymba request (4 x 16 rows of
+        # 1600) and prefill, musicgen's and qwen2-vl's prefill rows
+        for rows, d in ((64, 1600), (HYMBA_PROMPT, 1600), (MUSICGEN_PROMPT, 1536),
+                        (QWEN2_VL_PROMPT, 8192)):
+            res = rmsnorm_case(rows, d, dtype, residual=False, iters=50)
+            results[("rmsnorm", rows, d, res["dtype"])] = res
         for rows, d in ((64, 4096), (8192, 4096)):
             res = rmsnorm_case(rows, d, dtype, residual=True, iters=50)
             results[("rmsnorm_residual", rows, d, res["dtype"])] = res
@@ -852,6 +898,16 @@ def phase_kernels() -> dict:
         dict(b=1, sq=MOE_PARITY_PROMPT, sk=MOE_PARITY_PROMPT, hq=48, hkv=8, d=128, dtype=bf16,
              window=4096, iters=5),
         dict(b=1, sq=512, sk=1024, hq=8, hkv=2, d=128, dtype=bf16, q_offset=512, iters=10),
+        # the families phase: hymba's 25/5 heads of 64 under its window of
+        # 1024 at the serve prompt and the parity prompt; musicgen's 24
+        # full heads of 64; qwen2-vl's 64/8 heads of 128
+        dict(b=4, sq=16, sk=16, hq=25, hkv=5, d=64, dtype=bf16, window=1024, iters=50),
+        dict(b=1, sq=HYMBA_PROMPT, sk=HYMBA_PROMPT, hq=25, hkv=5, d=64, dtype=bf16,
+             window=1024, iters=10),
+        dict(b=1, sq=MUSICGEN_PROMPT, sk=MUSICGEN_PROMPT, hq=24, hkv=24, d=64, dtype=bf16,
+             iters=10),
+        dict(b=1, sq=QWEN2_VL_PROMPT, sk=QWEN2_VL_PROMPT, hq=64, hkv=8, d=128, dtype=bf16,
+             iters=10),
     ]
     for c in cases:
         res = flash_case(**c)
@@ -864,6 +920,10 @@ def phase_kernels() -> dict:
         for sk in (4096, 32768):
             res = flash_decode_case(b, sk, hq, hkv, d, iters=10)
             results[("flash_decode", b, sk, hq, d)] = res
+    # hymba's decode step at DECODE_32K: its full ring of 1024, five query
+    # rows a kv head
+    res = flash_decode_case(HYMBA_DECODE_BATCH, 1024, 25, 5, 64, iters=10)
+    results[("flash_decode", HYMBA_DECODE_BATCH, 1024, 25, 64)] = res
     wkv_cases = [
         # rwkv6-7b's serve prompt (4, 16), 64 heads of 64: the serve chunk
         # of 8 and a chunk of 16
@@ -956,13 +1016,14 @@ MOE_KERNEL_KINDS = DECODE_KERNEL_KINDS[:-1] + (
 
 def device_time_by_kind(prof, kinds=KERNEL_KINDS):
     """Device milliseconds and kernel counts by kind from a profiler run
-    (kinds with no kernel stay at 0), and the total kernel count."""
+    (kinds with no kernel stay at 0), and the total kernel count. A span's
+    own device-side record (``SSM_SPANS``) is no kernel and is skipped."""
     groups = {kind: 0.0 for kind, _ in kinds}
     groups["other"] = 0.0
     counts = dict.fromkeys(groups, 0)
     n_kernels = 0
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.key in SSM_SPANS.values():
             continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
@@ -986,20 +1047,69 @@ def profile_request(sess, kinds=KERNEL_KINDS) -> dict:
     return profiled(lambda: sess.step_fn(sess.state, batch), kinds)
 
 
+@contextlib.contextmanager
+def ssm_spans():
+    """Around a run: each call of the SSM branch (``ssm.ssm_apply``,
+    ``ssm.ssm_decode``) and of its scan (``ssm_scan_chunked``,
+    ``ssm_scan_ref``) inside a ``torch.profiler.record_function`` span
+    named by ``SSM_SPANS`` (the outermost call only, so the scan's
+    fallback to its oracle is one span). It wraps the module's functions,
+    which the blocks and ``ssm_apply`` call through the module."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import ssm
+
+    saved = {name: getattr(ssm, name) for name in SSM_SPANS}
+    open_spans = dict.fromkeys(SSM_SPANS.values(), 0)
+
+    def wrap(fn, span):
+        def spanned(*args, **kw):
+            if open_spans[span]:
+                return fn(*args, **kw)
+            open_spans[span] += 1
+            try:
+                with record_function(span):
+                    return fn(*args, **kw)
+            finally:
+                open_spans[span] -= 1
+        return spanned
+
+    for name, span in SSM_SPANS.items():
+        setattr(ssm, name, wrap(saved[name], span))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ssm, name, fn)
+
+
+def span_device_ms(prof) -> dict:
+    """Device milliseconds of the kernels launched inside each SSM span
+    (the span's host-side event, its children's kernels included)."""
+    out = dict.fromkeys(SSM_SPANS.values(), 0.0)
+    for evt in prof.key_averages():
+        if evt.key in out and evt.device_type == torch.autograd.DeviceType.CPU:
+            us = getattr(evt, "device_time_total", None)
+            out[evt.key] += (evt.cuda_time_total if us is None else us) / 1e3
+    return out
+
+
 def profiled(fn, kinds=KERNEL_KINDS) -> dict:
     """``fn()`` once under ``torch.profiler``, synchronised: wall time, the
     device time of its kernels grouped by ``kinds``, and the device's busy
-    share of the wall time."""
+    share of the wall time; for a hybrid model also the device time of
+    the kernels its SSM branch and scan launch (``ssm_spans``), which
+    fall in the "other" kind (elementwise) and "gemm" (projections)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, ssm_spans():
         t0 = time.perf_counter()
         fn()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups, counts, n_kernels = device_time_by_kind(prof, kinds)
     device_ms = sum(groups.values())
-    return {
+    res = {
         "wall_ms": wall_ms,
         "device_ms": device_ms,
         "device_busy_share": device_ms / wall_ms if device_ms else None,
@@ -1008,6 +1118,11 @@ def profiled(fn, kinds=KERNEL_KINDS) -> dict:
         "device_us_per_launch": {k: 1e3 * groups[k] / counts[k] for k in groups if counts[k]},
         "kernels_launched": n_kernels,
     }
+    spans = span_device_ms(prof)
+    if any(spans.values()):
+        res["span_device_ms"] = spans
+        res["span_share_of_device_ms"] = {k: v / device_ms for k, v in spans.items()}
+    return res
 
 
 def phase_serve(archs=SERVE_ARCHS, configs=None, kinds=KERNEL_KINDS) -> dict:
@@ -1095,7 +1210,7 @@ def phase_serve(archs=SERVE_ARCHS, configs=None, kinds=KERNEL_KINDS) -> dict:
 
 
 def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
-                 moe_res: dict) -> None:
+                 moe_res: dict, families_res: dict) -> None:
     """The summary line: each kernel the serve and train paths launch. The
     forward kernels at their largest serve-path shape (bf16 for the norm
     and attention, whose largest is qwen3-8b's; fp32 for WKV6, rwkv6-7b's
@@ -1110,7 +1225,12 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
     at one query against 4096 and 32768 cached keys (qwen3-8b's and
     gemma-2b's heads, both forms) and K4 at one token from a carried
     state. K3 also at mixtral-8x22b's windowed prefill (``at_moe``), with
-    the moe phase's serve launches."""
+    the moe phase's serve launches. The families phase's shapes
+    (``at_families``): K1 at widths 1600 (hymba), 1536 (musicgen) and
+    8192 (qwen2-vl), K3 at hymba's 25/5 heads of 64 under its window (its
+    serve prompt, (1, 2560), and one query against its ring at batch
+    128), musicgen's 24/24 and qwen2-vl's 64/8 heads, with the families
+    serve run's launches and a hymba request's."""
     rms = k[("rmsnorm", 64, 4096, "bfloat16")]
     rms_res = k[("rmsnorm_residual", 64, 4096, "bfloat16")]
     fa = k[("flash_attention", 4, 16, 32, 128, None, 0, "bfloat16")]
@@ -1126,6 +1246,16 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
     train = train_res["launches"]
     per_step = train_res["launches_per_step"]
     moe_serve = moe_res["serve"]
+    fam_serve = families_res["serve"]
+    hymba_per = fam_serve["services"][HYMBA_ARCH]["launches_per_request"]
+    fam_norms = [at(k[("rmsnorm", rows, d, "bfloat16")]) for rows, d in (
+        (64, 1600), (HYMBA_PROMPT, 1600), (MUSICGEN_PROMPT, 1536), (QWEN2_VL_PROMPT, 8192))]
+    fam_flash = [at(k[("flash_attention", b, s, hq, d, w, 0, "bfloat16")]) for b, s, hq, d, w in (
+        (4, 16, 25, 64, 1024), (1, HYMBA_PROMPT, 25, 64, 1024), (1, MUSICGEN_PROMPT, 24, 64, None),
+        (1, QWEN2_VL_PROMPT, 64, 128, None))]
+    hymba_decode = k[("flash_decode", HYMBA_DECODE_BATCH, 1024, 25, 64)]
+    fam_flash.append({**at(hymba_decode), **{x: hymba_decode[x] for x in (
+        "ms_by_form", "rel_fro_by_form", "control_rel_fro")}})
     decode = decode_res["launches"]
     fa_decode = [{**at(k[("flash_decode", b, sk, hq, d)]),
                   **{x: k[("flash_decode", b, sk, hq, d)][x]
@@ -1141,7 +1271,10 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
          "launches_decode": decode["rmsnorm"],
          "at_prefill": [at(k[("rmsnorm", 8192, 4096, "bfloat16")]),
                         {"residual_form": True,
-                         **at(k[("rmsnorm_residual", 8192, 4096, "bfloat16")])}]},
+                         **at(k[("rmsnorm_residual", 8192, 4096, "bfloat16")])}],
+         "at_families": {"shapes": fam_norms,
+                         "launches_families_serve": fam_serve["launches"]["rmsnorm"],
+                         "launches_a_hymba_request": hymba_per["rmsnorm"]}},
         {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
          "replaces": FLASH_TPU,
          "launches": serve_res["launches"]["flash_attention"], "shape": fa["shape"],
@@ -1155,7 +1288,10 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
          "at_moe": {**at(fa_moe), **{x: fa_moe[x] for x in ("rel_fro", "control_rel_fro")},
                     "launches_moe_serve": moe_serve["launches"]["flash_attention"],
                     "launches_a_mixtral_request":
-                        moe_serve["services"][MOE_ARCH]["launches_per_request"]["flash_attention"]}},
+                        moe_serve["services"][MOE_ARCH]["launches_per_request"]["flash_attention"]},
+         "at_families": {"shapes": fam_flash,
+                         "launches_families_serve": fam_serve["launches"]["flash_attention"],
+                         "launches_a_hymba_request": hymba_per["flash_attention"]}},
         {"name": "wkv6", "route": "cuda", "source": WKV_SRC, "replaces": WKV_TPU,
          "launches": serve_res["launches"]["wkv6"], "shape": wkv["shape"],
          "dtype": "float32", **{x: wkv[x] for x in keys},
@@ -1253,6 +1389,51 @@ def flipped_tokens(a: list, b: list) -> list:
     return [int((sets(x) != sets(y)).any(-1).sum().item()) for x, y in zip(a, b)]
 
 
+def grid_positions(b: int, s: int, n_patches: int, grid_w: int = PATCH_GRID_WIDTH,
+                   device=None) -> torch.Tensor:
+    """(b, 3, s) int32 M-RoPE ids: ``n_patches`` patches on a grid
+    ``grid_w`` wide (t 0, h ``i // grid_w``, w ``i % grid_w``), then text
+    at ``max + 1 + j`` on all three axes (the first ``s`` of them). The
+    three axes differ, so a wrong section split shows (equal ids make
+    M-RoPE plain RoPE)."""
+    i = torch.arange(n_patches, device=device)
+    patches = torch.stack([torch.zeros_like(i), i // grid_w, i % grid_w])
+    text = (patches.max() + 1 + torch.arange(max(s - n_patches, 0), device=device)).expand(3, -1)
+    return torch.cat([patches, text], dim=1)[:, :s].expand(b, 3, s).int().contiguous()
+
+
+def model_inputs(cfg, b: int, s: int, gen: torch.Generator) -> dict:
+    """A (b, s) batch of ``cfg``'s frontend on ``gen``'s device: tokens
+    (uniform over the vocabulary), or standard normal frame embeddings
+    for audio; for vision also standard normal patch embeddings over the
+    first ``n_frontend_tokens`` slots, and grid M-RoPE ids."""
+    dev = gen.device
+    if cfg.frontend == "audio_frames":
+        out = {"frame_embeds": torch.randn(b, s, cfg.d_model, generator=gen, device=dev)}
+    else:
+        out = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)}
+    if cfg.frontend == "vision_patches":
+        out["patch_embeds"] = torch.randn(b, cfg.n_frontend_tokens, cfg.d_model, generator=gen,
+                                          device=dev)
+    if cfg.rope_variant == "mrope":
+        out["positions"] = grid_positions(b, s, cfg.n_frontend_tokens, device=dev)
+    return out
+
+
+def steps(batch: dict, start: int, stop: int) -> dict:
+    """Positions ``[start, stop)`` of a ``model_inputs`` batch; the patch
+    embeddings go only with the first position (decode takes none)."""
+    out = {}
+    for name, t in batch.items():
+        if name == "positions":
+            out[name] = t[:, :, start:stop]
+        elif name != "patch_embeds":
+            out[name] = t[:, start:stop]
+        elif start == 0:
+            out[name] = t
+    return out
+
+
 def spread_decay(params, cfg) -> None:
     """rwkv: overwrite ``decay_base`` so that the decays span about
     0.15-0.99 across channels (the init's -6 gives w ~ 0.9975 everywhere,
@@ -1286,7 +1467,7 @@ def phase_parity(arch: str, seq: int = 512, cfg=None, **opts) -> dict:
     params = build_model(cfg).init(gen)
     if cfg.family == "ssm":
         spread_decay(params, cfg)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, seq), generator=gen, device="cuda")}
+    batch = model_inputs(cfg, 1, seq, gen)
     counters = {"rmsnorm": rms_ops.rmsnorm, "flash_attention": fa_ops.flash_attention,
                 "wkv6": wkv_ops.wkv6}
 
@@ -1336,6 +1517,12 @@ def phase_parity(arch: str, seq: int = 512, cfg=None, **opts) -> dict:
     tol32 = 1e-3
     diff32 = max_err(k32, r32)
     top2 = torch.topk(r16, 2, dim=-1).values[0]
+    # the plain logit of the kernels' choice below the plain max: the
+    # argmaxes may differ only where the plain logits tie at the top within
+    # one bf16 ulp (musicgen's plain top two were equal in bf16)
+    gap16 = float(r16.max() - r16[0, k16.argmax()])
+    ulp16 = bf16_ulp(float(r16.max()))
+    tie16 = int(k16.argmax().item()) != int(r16.argmax().item()) and gap16 <= ulp16
     res = {
         "phase": "parity",
         "arch": cfg.name,
@@ -1350,6 +1537,9 @@ def phase_parity(arch: str, seq: int = 512, cfg=None, **opts) -> dict:
             "argmax_kernel": int(k16.argmax().item()),
             "argmax_plain": int(r16.argmax().item()),
             "plain_top2_gap": float(top2[0] - top2[1]),
+            "plain_gap_at_kernel_argmax": gap16,
+            "bf16_ulp_at_plain_max": ulp16,
+            "plain_tie_at_top": tie16,
             "cache_max_abs_diff": {n: max_err(cache_k16[n], cache_r16[n]) for n in cache_k16},
         },
         "fp32": {
@@ -1400,7 +1590,8 @@ def phase_parity(arch: str, seq: int = 512, cfg=None, **opts) -> dict:
     check(diff16 <= tol16, f"bf16 logits differ by {diff16} > {tol16}")
     check(err_kernel16 <= 1.25 * err_plain16,
           f"bf16 kernels {err_kernel16} from fp32, plain {err_plain16}")
-    check(res["bf16"]["argmax_kernel"] == res["bf16"]["argmax_plain"], "bf16 argmax differs")
+    check(res["bf16"]["argmax_kernel"] == res["bf16"]["argmax_plain"] or tie16,
+          f"bf16 argmax differs beyond a tie within one ulp: {res['bf16']}")
     check(within(k32, r32, tol32), f"fp32 logits differ by {diff32}")
     check(res["fp32"]["argmax_kernel"] == res["fp32"]["argmax_plain"], "fp32 argmax differs")
     # a cache leaf is held as a whole, ||kernel - plain|| / ||plain||: the
@@ -1788,23 +1979,33 @@ def first_difference(a: torch.Tensor, b: torch.Tensor):
 
 def decode_correctness(arch: str, cfg=None, one_step_opts=None, greedy_prompt=None) -> dict:
     """One arch at full width and depth (or ``cfg``, a depth cut), random
-    weights (rwkv decays spread as in the parity phase), a (1, 511) prompt
-    in a cache of 512 + 16: (1) the decode step for token 511 against the
-    full forward's logits at position 511, through the kernels in fp32
-    (``one_step_opts``: further ``ModelOptions``; an MoE forward must drop
-    no assignment there, or decode could not equal it); (2) 16 greedy
-    tokens through the kernels and through the plain path, fp32 and bf16,
-    logits held at the parity phase's tolerances, tokens identical (where
-    they first differ the plain path's top-2 gap there must be under the
-    logits' tolerance: a near tie), and ``greedy_generate`` giving the
-    kernels' tokens; (3) with a KV cache: the runtime tables' decode
-    settings (bf16 params, int8 cache) fed the bf16-cache run's tokens,
-    within 5% of max |logit| of it (tests/test_kv_quant.py's bound).
+    weights (rwkv decays spread as in the parity phase), a (1, 512) batch
+    of its frontend (``model_inputs``) in a cache of 512 + 16: (1) the
+    decode step of position 511, fed that position's own input (a token,
+    a frame embedding, M-RoPE ids (1, 3, 1)), against the full forward's
+    logits there, through the kernels in fp32, with the launches of the
+    three calls (``one_step_opts``: further ``ModelOptions``; an MoE
+    forward must drop no assignment there, or decode could not equal it).
+    Where the model takes tokens alone (greedy decoding feeds them back):
+    (2) 16 greedy tokens through the kernels and through the plain path,
+    fp32 and bf16, logits held at the parity phase's tolerances, tokens
+    identical (where they first differ the plain path's top-2 gap there
+    must be under the logits' tolerance: a near tie), and
+    ``greedy_generate`` giving the kernels' tokens; (3) with a KV cache,
+    at the runtime tables' decode settings (bf16 params and compute, an
+    int8 cache), fed the bf16-cache run's tokens: the int8 cache against
+    the bf16 cache through the same plain path, as a share of max |logit|,
+    within twice bf16 compute's own error (the plain path against itself
+    in fp32 compute on the same params and tokens), as the parity phase
+    holds the kernels, and so is the gap as served (the int8 cache's
+    plain attention against K3 on the bf16 cache); the path gaps (kernels
+    against plain) and tests/test_kv_quant.py's 5% (an fp32 bound)
+    beside them.
     ``greedy_prompt``: (2) and (3) prefill a fresh prompt of that many
     tokens in place of the 511 (past a sliding window, so that the ring
     fills and wraps). MoE: the bf16 kernel run and the fp32 yardstick fed
-    its tokens replay the plain bf16 run's routing, and the int8 run the
-    bf16-cache run's (see ``phase_parity``); fp32 runs free."""
+    its tokens replay the plain bf16 run's routing, and the runs of (3)
+    the bf16-cache kernel run's (see ``phase_parity``); fp32 runs free."""
     from torch.utils import _pytree as pytree
 
     from repro_torch.configs import DECODE_32K, get_config
@@ -1819,44 +2020,64 @@ def decode_correctness(arch: str, cfg=None, one_step_opts=None, greedy_prompt=No
     params = build_model(cfg).init(gen)
     if cfg.family == "ssm":
         spread_decay(params, cfg)
-    prompt = torch.randint(0, cfg.vocab_size, (1, DECODE_PROMPT + 1), generator=gen, device=dev)
-    max_len = DECODE_PROMPT + 1 + DECODE_NEW
+    seq = DECODE_PROMPT + 1
+    batch = model_inputs(cfg, 1, seq, gen)
+    max_len = seq + DECODE_NEW
     counters = kernel_counters()
     tol32 = 1e-3  # the parity phase's fp32 tolerance, (1 + |plain|)
 
     def model(kernel_mode, dtype, **kw):
         return build_model(cfg, ModelOptions(kernel_mode=kernel_mode, compute_dtype=dtype, **kw))
 
-    # (1) decode of token 511 against the full forward
+    # (1) decode of position 511 against the full forward
     m32 = model("kernel", "float32", **(one_step_opts or {}))
     zero_counts(counters)
     with moe_trace() as log:
-        full, _ = m32.apply(params, {"tokens": prompt})
-        _, cache = m32.prefill(params, {"tokens": prompt[:, :-1]}, max_len=max_len)
-        step, _ = m32.decode(params, {"tokens": prompt[:, -1:]}, cache, DECODE_PROMPT)
+        full, _ = m32.apply(params, batch)
+        _, cache = m32.prefill(params, steps(batch, 0, seq - 1), max_len=max_len)
+        step, _ = m32.decode(params, steps(batch, seq - 1, seq), cache, seq - 1)
         sync()
     del cache
     want = full[:, -1].float()
     got = step[:, 0].float()
-    del full
-    one_step = {"max_abs_diff": max_err(got, want), "tol": f"{tol32} (1 + |full|)",
+    del full, step
+    per_step = decode_launches_per_step(cfg, quantized=False)
+    one_step = {"inputs": sorted(batch),
+                "decode_inputs": {n: list(t.shape) for n, t in steps(batch, seq - 1, seq).items()},
+                "max_abs_diff": max_err(got, want), "tol": f"{tol32} (1 + |full|)",
                 "argmax_decode": int(got.argmax().item()), "argmax_full": int(want.argmax().item()),
-                "launches": {n: fn.launches for n, fn in counters.items()}}
+                "launches": {n: fn.launches for n, fn in counters.items()},
+                "expected_launches": {**dict.fromkeys(counters, 0),
+                                      **{n: 2 * launches_per_request(cfg)[n] + per_step[n]
+                                         for n in per_step}}}
     if cfg.is_moe:
         one_step.update(options=one_step_opts, dropped_assignments=dropped(log))
         check(dropped(log) == 0,
               f"{arch}: the full forward dropped {dropped(log)} assignments")
-    check(within(got, want, tol32), f"{arch}: decode of token 511 vs full forward "
+    check(bool(torch.isfinite(got).all().item()), f"{arch}: decode logits not finite")
+    check(within(got, want, tol32), f"{arch}: decode of position {seq - 1} vs full forward "
                                     f"{one_step['max_abs_diff']}")
     check(one_step["argmax_decode"] == one_step["argmax_full"], f"{arch}: decode argmax differs")
+    check(one_step["launches"] == one_step["expected_launches"],
+          f"{arch}: launches {one_step['launches']} != {one_step['expected_launches']}")
+    out = {"arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "decode_of_token_511": one_step}
+    if set(batch) != {"tokens"}:
+        # frame embeddings, or patches with M-RoPE ids: greedy decoding
+        # feeds back tokens alone, which such a model does not take
+        del params
+        out["seconds"] = time.perf_counter() - t_start
+        emit({"phase": "decode", "part": "correctness", **out})
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
 
     # (2) greedy decoding, kernels against plain, fp32 and bf16
     if greedy_prompt is None:
-        prompt = prompt[:, :-1]
+        prompt = batch["tokens"][:, :-1]
     else:
         prompt = torch.randint(0, cfg.vocab_size, (1, greedy_prompt), generator=gen, device=dev)
         max_len = greedy_prompt + DECODE_NEW
-    per_step = decode_launches_per_step(cfg, quantized=False)
     runs, launches, drops, routes = {}, {}, {}, {}
     for dtype in ("float32", "bfloat16"):
         for kernel_mode in ("reference", "kernel"):
@@ -1880,9 +2101,8 @@ def decode_correctness(arch: str, cfg=None, one_step_opts=None, greedy_prompt=No
     want_launch = {n: launches_per_request(cfg)[n] + (DECODE_NEW - 1) * per_step[n]
                    for n in per_step}
     greedy = {}
-    out = {"arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-           "prompt": [1, prompt.shape[1]], "max_len": max_len, "new_tokens": DECODE_NEW,
-           "decode_of_token_511": one_step, "expected_launches_a_run": want_launch}
+    out.update(prompt=[1, prompt.shape[1]], max_len=max_len, new_tokens=DECODE_NEW,
+               expected_launches_a_run=want_launch)
     if cfg.is_moe:
         out.update(sliding_window=cfg.sliding_window,
                    cache_slots=attention.cache_capacity(cfg, max_len),
@@ -1932,32 +2152,50 @@ def decode_correctness(arch: str, cfg=None, one_step_opts=None, greedy_prompt=No
         params16 = pytree.tree_map(lambda t: t.to(getattr(torch, opts.param_dtype)), params)
         del params
         gc.collect()
-        m_q = build_model(cfg, opts)
-        m_bf = build_model(cfg, replace(opts, kv_quantized=False))
-        zero_counts(counters)
-        with moe_trace() as bf_routes:
-            bf_tok, bf_log = generate(m_bf, params16, prompt, DECODE_NEW, max_len)
-            sync()
-        bf_launch = {n: fn.launches for n, fn in counters.items()}
-        zero_counts(counters)
-        with moe_trace(bf_routes if cfg.is_moe else None):
-            _, q_log = generate(m_q, params16, prompt, DECODE_NEW, max_len, feed=bf_tok)
-            sync()
-        q_launch = {n: fn.launches for n, fn in counters.items()}
+
+        def run(quantized: bool, kernel_mode: str, feed=None, replay=None, **kw):
+            m = build_model(cfg, replace(opts, kv_quantized=quantized, kernel_mode=kernel_mode,
+                                         **kw))
+            zero_counts(counters)
+            with moe_trace(replay) as routing:
+                tok, logits = generate(m, params16, prompt, DECODE_NEW, max_len, feed=feed)
+                sync()
+            check(bool(torch.isfinite(logits).all().item()),
+                  f"{arch} kv_quantized={quantized} {kernel_mode}: logits not finite")
+            return tok, logits, routing, {n: fn.launches for n, fn in counters.items()}
+
+        def rel(a, b):
+            return max_err(a, b) / b.abs().max().item()
+
+        # the bf16 cache as served (K3) picks the tokens every other run is fed
+        bf_tok, bf_log, bf_routes, bf_launch = run(False, "kernel")
+        replay = bf_routes if cfg.is_moe else None
+        _, q_log, _, q_launch = run(True, "kernel", bf_tok, replay)
+        _, bf_plain, _, _ = run(False, "reference", bf_tok, replay)
+        _, q_plain, _, _ = run(True, "reference", bf_tok, replay)
+        # the plain path in fp32 compute on the same params and tokens:
+        # bf16 compute's own error, under which no bf16 comparison resolves
+        _, f32_plain, _, _ = run(False, "reference", bf_tok, replay, compute_dtype="float32")
+        own16 = rel(bf_plain, f32_plain)
         q_per_step = decode_launches_per_step(cfg, quantized=True)
-        want_q = {n: launches_per_request(cfg)[n] + (DECODE_NEW - 1) * q_per_step[n]
-                  for n in q_per_step}
-        rel = max_err(q_log, bf_log) / bf_log.abs().max().item()
-        out["int8"] = {"options": {"param_dtype": opts.param_dtype,
-                                   "kv_quantized": opts.kv_quantized,
-                                   "compute_dtype": opts.compute_dtype},
-                       "max_abs_diff_over_max_abs_logit": rel, "tol": 0.05,
-                       "launches": q_launch, "expected_launches": want_q,
-                       "bf16_cache_launches": bf_launch}
-        check(bool(torch.isfinite(q_log).all().item()), f"{arch}: int8 logits not finite")
-        check(q_launch == {**dict.fromkeys(counters, 0), **want_q},
-              f"{arch} int8: launches {q_launch} != {want_q}")
-        check(rel < 0.05, f"{arch} int8 cache: {rel} of max |logit| from the bf16 cache")
+        want_q = {**dict.fromkeys(counters, 0),
+                  **{n: launches_per_request(cfg)[n] + (DECODE_NEW - 1) * q_per_step[n]
+                     for n in q_per_step}}
+        out["int8"] = {
+            "options": {"param_dtype": opts.param_dtype, "kv_quantized": opts.kv_quantized,
+                        "compute_dtype": opts.compute_dtype},
+            # twice bf16 compute's own error, as the parity phase holds the
+            # kernels: under 5% (tests/test_kv_quant.py's fp32 bound) for
+            # every arch but hymba-1.5b, whose bf16 error is 5.0% (ROADMAP
+            # queue C)
+            "tol": 2.0 * own16, "bf16_compute_vs_fp32": own16,
+            "within_test_kv_quant_5pct": rel(q_plain, bf_plain) < 0.05,
+            # each a max |difference| over max |logit| of the second run
+            "same_plain_path": rel(q_plain, bf_plain),
+            "as_served": rel(q_log, bf_log),
+            "bf16_cache_kernels_vs_plain": rel(bf_log, bf_plain),
+            "int8_cache_kernels_vs_plain": rel(q_log, q_plain),
+            "launches": q_launch, "bf16_cache_launches": bf_launch, "expected_launches": want_q}
         del params16
     else:
         out["int8"] = "no KV cache: kv_quantized changes nothing for rwkv"
@@ -1968,6 +2206,14 @@ def decode_correctness(arch: str, cfg=None, one_step_opts=None, greedy_prompt=No
         check(out[dtype]["ok"], f"{arch} {dtype} greedy decode: {out[dtype]}")
         check(out[dtype]["greedy_generate_equals_loop"],
               f"{arch} {dtype}: greedy_generate's tokens differ from the decode loop's")
+    if isinstance(out["int8"], dict):
+        q = out["int8"]
+        check(q["launches"] == q["expected_launches"],
+              f"{arch} int8: launches {q['launches']} != {q['expected_launches']}")
+        for name in ("same_plain_path", "as_served"):
+            check(q[name] < q["tol"],
+                  f"{arch} int8 cache {name}: {q[name]} of max |logit| from the bf16 cache, "
+                  f"over twice bf16's own error {q['tol']}")
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -1975,25 +2221,36 @@ def decode_correctness(arch: str, cfg=None, one_step_opts=None, greedy_prompt=No
 
 def decode_state_bytes(cfg, quantized: bool, cap: int) -> int:
     """Bytes of one sequence's decode state at ``cap`` slots: K and V (and
-    their fp16 scales when int8), or rwkv's shift carries and wkv state."""
+    their fp16 scales when int8), with a hybrid's SSM state
+    (``ssm_state_bytes``), or rwkv's shift carries and wkv state."""
     if cfg.family == "ssm":
         h = cfg.d_model // cfg.rwkv_head_dim
         return cfg.n_layers * (2 * cfg.d_model * 2 + h * cfg.rwkv_head_dim ** 2 * 4)
     per_slot = cfg.n_kv_heads * (cfg.head_dim + 2 if quantized else 2 * cfg.head_dim)
-    return cfg.n_layers * cap * 2 * per_slot
+    return cfg.n_layers * cap * 2 * per_slot + ssm_state_bytes(cfg)
+
+
+def ssm_state_bytes(cfg) -> int:
+    """A hybrid's SSM state of one sequence, 0 for other families: h (fp32
+    d_inner x ssm_state) and the conv window (bf16, ssm_conv - 1 rows of
+    d_inner) a layer."""
+    if cfg.family != "hybrid":
+        return 0
+    d_inner = cfg.ssm_expand * cfg.d_model
+    return cfg.n_layers * d_inner * (cfg.ssm_state * 4 + (cfg.ssm_conv - 1) * 2)
 
 
 def fill_random(cache: dict, gen: torch.Generator) -> None:
     """Random values of each leaf's dtype: int8 values in [-127, 127],
-    fp16 scales in [0.005, 0.02], normal elsewhere (wkv states scaled to
-    0.1)."""
+    fp16 scales in [0.005, 0.02], normal elsewhere (wkv and SSM states
+    scaled to 0.1)."""
     for name, t in cache.items():
         if t.dtype == torch.int8:
             t.random_(-127, 128, generator=gen)
         elif t.dtype == torch.float16:
             t.uniform_(0.005, 0.02, generator=gen)
         else:
-            t.normal_(0.0, 0.1 if name == "wkv" else 1.0, generator=gen)
+            t.normal_(0.0, 0.1 if name in ("wkv", "h") else 1.0, generator=gen)
 
 
 def decode_timings(arch: str) -> list:
@@ -2042,17 +2299,17 @@ def decode_timing(cfg, opts, params, batch=None, kinds=DECODE_KERNEL_KINDS) -> d
     gen = torch.Generator(device=dev).manual_seed(20)
     cache = model.init_cache(b, cap, device=dev)
     fill_random(cache, gen)
-    tok = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen, device=dev)
+    inputs = model_inputs(cfg, b, 1, gen)  # one token, or one frame embedding, a sequence
     pos0 = cap - 1 - DECODE_STEPS
     counters = kernel_counters()
-    logits, cache = model.decode(params, {"tokens": tok}, cache, pos0 - 1)  # warm-up
+    logits, cache = model.decode(params, inputs, cache, pos0 - 1)  # warm-up
     sync()
     zero_counts(counters)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
     for i in range(DECODE_STEPS):
-        logits, cache = model.decode(params, {"tokens": tok}, cache, pos0 + i)
+        logits, cache = model.decode(params, inputs, cache, pos0 + i)
     end.record()
     end.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / DECODE_STEPS
@@ -2061,13 +2318,15 @@ def decode_timing(cfg, opts, params, batch=None, kinds=DECODE_KERNEL_KINDS) -> d
     per_step = decode_launches_per_step(cfg, quantized)
     expected = {**dict.fromkeys(counters, 0), **{n: DECODE_STEPS * v for n, v in per_step.items()}}
     finite = bool(torch.isfinite(logits.float()).all().item())
-    prof = profiled(lambda: model.decode(params, {"tokens": tok}, cache, cap - 1), kinds=kinds)
+    prof = profiled(lambda: model.decode(params, inputs, cache, cap - 1), kinds=kinds)
     param_bytes = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(params))
     if cfg.family == "ssm":
         state_bytes = b * decode_state_bytes(cfg, False, cap)
-    else:  # the valid slots of each timed step, on average
+    else:  # the valid slots of each timed step, on average; an SSM state
+        # is read and written whole
         n_valid = sum(min(pos0 + i + 1, slots) for i in range(DECODE_STEPS)) / DECODE_STEPS
-        state_bytes = b * decode_state_bytes(cfg, quantized, 1) * n_valid
+        ssm = ssm_state_bytes(cfg)
+        state_bytes = b * ((decode_state_bytes(cfg, quantized, 1) - ssm) * n_valid + 2 * ssm)
     bound_ms = (param_bytes + state_bytes) / HBM_BYTES_PER_S * 1e3
     if batch is not None:
         batch_cut = f"set to {batch}"
@@ -2178,6 +2437,94 @@ def phase_moe() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the last three families (hybrid, audio, vlm)
+# ---------------------------------------------------------------------------
+
+
+def hymba_prefill_profile() -> dict:
+    """One hymba-1.5b prefill of a (1, HYMBA_PROMPT) prompt at full width
+    and depth, bf16 compute through the kernels, under the profiler: its
+    device time by kind and the share of the kernels its SSM branch and
+    scan launch (``ssm_spans``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(HYMBA_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    params = build_model(cfg).init(gen)
+    batch = model_inputs(cfg, 1, HYMBA_PROMPT, gen)
+    model = build_model(cfg)
+    model.prefill(params, batch)  # warm-up
+    sync()
+    prof = profiled(lambda: model.prefill(params, batch))
+    res = {"phase": "families", "part": "hymba_prefill_profile", "prompt": [1, HYMBA_PROMPT],
+           "ssm_chunk": model.opts.ssm_chunk, **prof}
+    emit(res)
+    check(prof.get("span_device_ms", {}).get("ssm_scan", 0) > 0,
+          "hymba prefill: no device time inside the SSM scan's span")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_families() -> dict:
+    """The families no earlier phase runs, at full width: hymba-1.5b
+    (hybrid: attention under a 1024 window beside parallel SSM heads) at
+    full depth, served beside gemma-2b through ``launch.serve`` (the serve
+    cell's traffic, SSM chunks of 8), prefill parity at (1, 2560) in bf16
+    and fp32, a profiled (1, 2560) prefill (the SSM scan's share), the
+    decode checks (token 511 against the full forward; 16 greedy tokens
+    from 2560 across the ring's wrap; the int8 cache) and a timed decode
+    step at DECODE_32K's positions, batch 128, bf16 params and ring;
+    musicgen-medium (audio: frame embeddings, no embedding table) at full
+    depth, prefill parity at (1, 2048), the decode step fed a frame
+    embedding, and a timed step at DECODE_32K with a bf16 cache, the
+    batch cut to 40 GB; qwen2-vl-72b (vlm: 256 patch embeddings spliced
+    over the first tokens, M-RoPE on grid ids) at 4 of 80 layers,
+    prefill parity at (1, 1024) and the decode step fed (1, 3, 1) ids."""
+    from repro_torch.configs import DECODE_32K, get_config
+    from repro_torch.models import build_model
+    from repro_torch.train.runtime import model_options_for
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    emit({"phase": "families", "part": "start"})  # the serve, parity and decode lines below
+    res = {"serve": phase_serve([HYMBA_ARCH, "gemma-2b"])}
+    hymba_serve = res["serve"]["services"][HYMBA_ARCH]["profiled_request"]
+    check(hymba_serve.get("span_device_ms", {}).get("ssm_scan", 0) > 0,
+          "hymba request: no device time inside the SSM scan's span")
+    qwen2_vl = depth_cut(QWEN2_VL_ARCH, QWEN2_VL_DEPTH)
+    res["parity"] = [
+        phase_parity(HYMBA_ARCH, HYMBA_PROMPT),
+        phase_parity(MUSICGEN_ARCH, MUSICGEN_PROMPT),
+        phase_parity(QWEN2_VL_ARCH, QWEN2_VL_PROMPT, cfg=qwen2_vl),
+    ]
+    res["hymba_prefill_profile"] = hymba_prefill_profile()
+    res["decode"] = [
+        decode_correctness(HYMBA_ARCH, greedy_prompt=HYMBA_PROMPT),
+        decode_correctness(MUSICGEN_ARCH),
+        decode_correctness(QWEN2_VL_ARCH, cfg=qwen2_vl),
+    ]
+    res["timing"] = []
+    for arch, batch in ((HYMBA_ARCH, HYMBA_DECODE_BATCH), (MUSICGEN_ARCH, None)):
+        cfg = get_config(arch)
+        # bf16 caches: the path through K3 (an int8 cache takes the plain scan)
+        opts = replace(model_options_for(cfg, DECODE_32K), kv_quantized=False)
+        params = build_model(cfg, opts).init(torch.Generator(device="cuda").manual_seed(19))
+        res["timing"].append(decode_timing(cfg, opts, params, batch=batch))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(res["timing"][0]["profiled_step"].get("span_device_ms", {}).get("ssm_branch", 0) > 0,
+          "hymba decode step: no device time inside the SSM branch's span")
+    res["wall_s"] = time.perf_counter() - t0
+    emit({"phase": "families", "part": "end", "wall_s": res["wall_s"],
+          "peak_gb": torch.cuda.max_memory_allocated() / 2**30})
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2203,7 +2550,8 @@ def main() -> int:
     phase_serve_train()
     decode_res = phase_decode()
     moe_res = phase_moe()
-    kernels_line(k, serve_res, train_res, decode_res, moe_res)
+    families_res = phase_families()
+    kernels_line(k, serve_res, train_res, decode_res, moe_res, families_res)
     emit({"phase": "done", "wall_s": time.perf_counter() - t0})
     emit({"ok": True, "device": {
         "platform": "gpu",

@@ -1,11 +1,12 @@
 """Architecture registry of the port: ``get_config(name)``.
 
-Holds the configs the port runs so far, copied from the JAX package's
+Holds every arch of the JAX package's registry, copied from its
 ``configs/gemma_2b.py``, ``configs/qwen3_8b.py``, ``configs/rwkv6_7b.py``,
 ``configs/qwen1p5_32b.py``, ``configs/qwen2_72b.py``,
-``configs/mixtral_8x22b.py`` and ``configs/qwen3_moe_235b.py``. Any other arch
-of the JAX registry raises ``KeyError`` until it is ported. The workload
-shapes (``SHAPES``, ``TRAIN_4K``, ``DECODE_32K``) are copies of
+``configs/mixtral_8x22b.py``, ``configs/qwen3_moe_235b.py``,
+``configs/hymba_1p5b.py``, ``configs/qwen2_vl_72b.py`` and
+``configs/musicgen_medium.py``; any other name raises ``KeyError``. The
+workload shapes (``SHAPES``, ``TRAIN_4K``, ``DECODE_32K``) are copies of
 ``configs/base.py``'s.
 """
 from __future__ import annotations
@@ -140,9 +141,70 @@ QWEN3_MOE_235B = ArchConfig(
     rope_theta=1_000_000.0,
 )
 
+# hymba-1.5b — hybrid: sliding-window attention and Mamba heads in
+# parallel on the same input, their outputs averaged [arXiv:2411.13676].
+HYMBA_1P5B = ArchConfig(
+    name="hymba-1.5b",
+    family="hybrid",
+    n_layers=32,
+    d_model=1600,
+    n_heads=25,
+    n_kv_heads=5,
+    head_dim=64,
+    d_ff=5504,
+    vocab_size=32001,
+    ssm_state=16,
+    ssm_expand=2,
+    ssm_conv=4,
+    sliding_window=1024,
+    gated_act="silu",
+    rope_variant="rope",
+    rope_theta=10_000.0,
+    tie_embeddings=True,
+)
+
+# qwen2-vl-72b — the qwen2-72b backbone with M-RoPE; the vision tower is a
+# stub: precomputed patch embeddings are spliced over the first tokens,
+# and positions are (temporal, height, width) ids [arXiv:2409.12191].
+QWEN2_VL_72B = ArchConfig(
+    name="qwen2-vl-72b",
+    family="vlm",
+    n_layers=80,
+    d_model=8192,
+    n_heads=64,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=29568,
+    vocab_size=152064,
+    qkv_bias=True,
+    gated_act="silu",
+    rope_variant="mrope",
+    rope_theta=1_000_000.0,
+    frontend="vision_patches",
+    n_frontend_tokens=256,
+)
+
+# musicgen-medium — a decoder over EnCodec audio tokens; the EnCodec
+# frontend is a stub: precomputed frame embeddings take the place of an
+# embedding table [arXiv:2306.05284].
+MUSICGEN_MEDIUM = ArchConfig(
+    name="musicgen-medium",
+    family="audio",
+    n_layers=48,
+    d_model=1536,
+    n_heads=24,
+    n_kv_heads=24,
+    head_dim=64,
+    d_ff=6144,
+    vocab_size=2048,
+    gated_act="gelu",
+    rope_variant="none",
+    frontend="audio_frames",
+)
+
 ARCHS: Dict[str, ArchConfig] = {
     c.name: c for c in (GEMMA_2B, QWEN3_8B, RWKV6_7B, QWEN1P5_32B, QWEN2_72B, MIXTRAL_8X22B,
-                        QWEN3_MOE_235B)
+                        QWEN3_MOE_235B, HYMBA_1P5B, QWEN2_VL_72B, MUSICGEN_MEDIUM)
 }
 
 
@@ -150,14 +212,12 @@ def get_config(name: str) -> ArchConfig:
     if name.endswith("-smoke"):
         return get_config(name[: -len("-smoke")]).smoke()
     if name not in ARCHS:
-        raise KeyError(
-            f"arch {name!r} is not yet ported to repro_torch; ported: {sorted(ARCHS)}"
-        )
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]
 
 
 __all__ = [
-    "ArchConfig", "ARCHS", "DECODE_32K", "GEMMA_2B", "MIXTRAL_8X22B", "QWEN1P5_32B",
-    "QWEN2_72B", "QWEN3_8B", "QWEN3_MOE_235B", "RWKV6_7B", "SHAPES", "ShapeConfig", "TRAIN_4K",
-    "get_config",
+    "ArchConfig", "ARCHS", "DECODE_32K", "GEMMA_2B", "HYMBA_1P5B", "MIXTRAL_8X22B",
+    "MUSICGEN_MEDIUM", "QWEN1P5_32B", "QWEN2_72B", "QWEN2_VL_72B", "QWEN3_8B", "QWEN3_MOE_235B",
+    "RWKV6_7B", "SHAPES", "ShapeConfig", "TRAIN_4K", "get_config",
 ]

@@ -5,7 +5,10 @@ training job that the PRIORITY policy preempts at iteration boundaries,
 and report per-service p50/p95/p99 request latency and the trainer's
 iterations and preemptions. Each request is one prefill of a ``(4, 16)``
 prompt followed by an argmax over the last position; each training
-iteration is one gradient step on ``(2, 16)`` tokens.
+iteration is one gradient step on ``(2, 16)`` tokens. Requests and
+batches hold tokens only, as the JAX driver's do, so musicgen-medium
+(frame embeddings) and qwen2-vl-72b (M-RoPE positions) are not served
+here; they run through ``Model.prefill`` and ``Model.decode``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --archs gemma-2b,qwen3-8b,rwkv6-7b --rps 2 --duration 10 \\
@@ -35,11 +38,11 @@ from repro_torch.train.train_step import stack_grads, value_and_grad
 
 PROMPT_SHAPE = (4, 16)
 TRAIN_SHAPE = (2, 16)
-# the options of the JAX package's launch/serve.py: a (4, 16) rwkv prompt
-# is two WKV chunks, MoE routes groups of 16 tokens, and the trainer's
-# loss head runs over chunks of 8
-SERVE_OPTS = ModelOptions(wkv_chunk=8, moe_group=16)
-TRAIN_OPTS = ModelOptions(wkv_chunk=8, loss_chunk=8, moe_group=16)
+# the options of the JAX package's launch/serve.py: a (4, 16) prompt is
+# two WKV chunks for rwkv and two SSM chunks for hymba, MoE routes groups
+# of 16 tokens, and the trainer's loss head runs over chunks of 8
+SERVE_OPTS = ModelOptions(wkv_chunk=8, moe_group=16, ssm_chunk=8)
+TRAIN_OPTS = ModelOptions(wkv_chunk=8, loss_chunk=8, moe_group=16, ssm_chunk=8)
 TRAIN_LR = 1e-4
 
 

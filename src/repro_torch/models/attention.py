@@ -18,7 +18,8 @@ non-causal, with a GQA group's query heads as query rows of its kv head
 on every device (the JAX package computes it in jnp, not in a kernel).
 Under ``"reference"`` decode follows the JAX code: masked attention over
 the whole cache, or the chunked scan at ``cap >= 8192``. Sliding-window
-chunking and M-RoPE are not ported yet.
+chunking is not ported yet. Positions are (b, s) ids under RoPE and (b,
+3, s) (temporal, height, width) ids under M-RoPE.
 """
 from __future__ import annotations
 
@@ -29,7 +30,13 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref
-from repro_torch.models.layers import Params, apply_rope, dense_init, rmsnorm_head
+from repro_torch.models.layers import (
+    Params,
+    apply_mrope,
+    apply_rope,
+    dense_init,
+    rmsnorm_head,
+)
 
 
 def attention_init(
@@ -104,11 +111,11 @@ def _project_qkv(p: Params, cfg: ArchConfig, x: torch.Tensor, *, kernel_mode: st
 
 
 def _apply_positions(cfg: ArchConfig, q, k, positions):
+    """RoPE on (b, s) positions, M-RoPE on (b, 3, s) ones, or nothing."""
     if cfg.rope_variant == "none":
         return q, k
-    if cfg.rope_variant != "rope":
-        raise NotImplementedError(f"rope_variant {cfg.rope_variant!r} is not ported yet")
-    return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta)
+    rope = apply_mrope if cfg.rope_variant == "mrope" else apply_rope
+    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta)
 
 
 def attend(
@@ -277,7 +284,7 @@ def attention_decode(
     p: Params,
     cfg: ArchConfig,
     x: torch.Tensor,  # (b, 1, d_model)
-    positions: torch.Tensor,  # (b, 1)
+    positions: torch.Tensor,  # (b, 1); M-RoPE: (b, 3, 1)
     layer_cache: Dict[str, torch.Tensor],  # "k", "v": (b, cap, hkv, d) (+ int8 scales)
     pos: int,  # tokens cached so far
     *,

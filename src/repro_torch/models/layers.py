@@ -106,6 +106,35 @@ def apply_rope(
     return out.to(x.dtype)
 
 
+def mrope_sections(head_dim: int) -> Tuple[int, int, int]:
+    """Split of the head_dim//2 frequency planes into (t, h, w) sections:
+    Qwen2-VL's [16, 24, 24] at head_dim 128, in the ratio 2:3:3 at others."""
+    half = head_dim // 2
+    t = max(1, round(half * 2 / 8))
+    h = max(1, round(half * 3 / 8))
+    return t, h, half - t - h
+
+
+def apply_mrope(
+    x: torch.Tensor,  # (batch, seq, heads, head_dim)
+    positions: torch.Tensor,  # (batch, 3, seq): (temporal, height, width) ids
+    theta: float,
+) -> torch.Tensor:
+    """Multimodal RoPE: frequency plane ``i`` turns by the position id of
+    the section that owns it (the first ``t`` planes by the temporal id,
+    the next ``h`` by the height id, the rest by the width id)."""
+    inv_freq = rope_frequencies(x.shape[-1], theta, x.device)
+    sec = torch.tensor(mrope_sections(x.shape[-1]), device=x.device)
+    owner = torch.repeat_interleave(torch.arange(3, device=x.device), sec)  # (half,)
+    ang = positions[..., None].float() * inv_freq  # (b, 3, s, half)
+    angles = torch.gather(ang, 1, owner.expand(ang.shape[0], 1, ang.shape[2], -1))[:, 0]
+    cos = torch.cos(angles)[..., None, :]  # (b, s, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 def positions_from_tokens(
     batch: int, seq: int, offset: int = 0, *, device: Union[str, torch.device]
 ) -> torch.Tensor:

@@ -1,9 +1,16 @@
 """Model: ``build_model(cfg)`` -> a :class:`Model` with init / apply /
-loss / prefill / init_cache / decode for the dense decoder, MoE and rwkv
-(``ssm``) families (the JAX package's ``models/model.py``; the other
-families come in later slices). ``loss`` is the causal LM loss with a
+loss / prefill / init_cache / decode for every family of the JAX
+package's ``models/model.py``: dense, MoE, rwkv (``ssm``), hybrid
+(hymba), vlm and audio. ``loss`` is the causal LM loss with a
 seq-chunked head that never materializes the full logits, plus
 ``aux_coeff`` times the MoE layers' mean load-balance loss.
+
+The modality frontends are stubs, as in the JAX package: an
+``audio_frames`` model has no embedding table and takes
+``batch["frame_embeds"]`` (b, s, d_model) in place of tokens; a
+``vision_patches`` model splices ``batch["patch_embeds"]`` (b, n, d_model)
+over its first n token embeddings, and under M-RoPE every call takes
+``batch["positions"]`` (b, 3, s), decode's (b, 3, 1).
 
 Serving: ``prefill`` runs a prompt and emits the decode cache (int8 K/V
 with fp16 scales under ``kv_quantized``, as the JAX package's prefill
@@ -20,7 +27,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, rwkv, transformer
+from repro_torch.models import attention, rwkv, ssm, transformer
 from repro_torch.models.layers import (
     Params,
     check_kernel_mode,
@@ -44,6 +51,7 @@ class ModelOptions:
     # the plain attention's query chunk (memory only: the same result)
     attn_q_chunk: int = 4096
     moe_group: int = 4096  # MoE: tokens a routing group (moe.moe_apply)
+    ssm_chunk: int = 128  # hybrid: time steps a chunk of the SSM scan
     decode_cache_mode: str = "carry"  # carry | stream (transformer.stack_decode)
     kv_quantized: bool = False  # int8 KV cache with fp16 scales (serving)
     aux_coeff: float = 0.01
@@ -51,10 +59,6 @@ class ModelOptions:
 
 class Model:
     def __init__(self, cfg: ArchConfig, opts: Optional[ModelOptions] = None):
-        if cfg.family not in ("dense", "moe", "ssm") or cfg.frontend != "none":
-            raise NotImplementedError(
-                f"{cfg.name}: only the dense, MoE and rwkv text families are ported so far"
-            )
         self.cfg = cfg
         self.opts = opts or ModelOptions()
         check_kernel_mode(self.opts.kernel_mode)
@@ -68,11 +72,11 @@ class Model:
         """Random params on ``generator.device``, drawn from ``generator``."""
         cfg = self.cfg
         dtype = getattr(torch, self.opts.param_dtype)
-        params: Params = {
-            "embed": {"table": embed_init(generator, cfg.vocab_size, cfg.d_model, dtype)},
-            "layers": transformer.layer_init(generator, cfg, dtype),
-            "final_norm": rmsnorm_init(cfg.d_model, dtype, generator.device),
-        }
+        params: Params = {}
+        if cfg.frontend != "audio_frames":  # audio frames stand in for the table
+            params["embed"] = {"table": embed_init(generator, cfg.vocab_size, cfg.d_model, dtype)}
+        params["layers"] = transformer.layer_init(generator, cfg, dtype)
+        params["final_norm"] = rmsnorm_init(cfg.d_model, dtype, generator.device)
         if not cfg.tie_embeddings:
             params["lm_head"] = {
                 "table": embed_init(generator, cfg.vocab_size, cfg.d_model, dtype)
@@ -83,10 +87,17 @@ class Model:
         return getattr(torch, self.opts.compute_dtype)
 
     def _embed(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        cdt = self._compute_dtype()
-        x = params["embed"]["table"][batch["tokens"]].to(cdt)
-        if self.cfg.scale_embeddings:
-            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=cdt, device=x.device)
+        cfg, cdt = self.cfg, self._compute_dtype()
+        if cfg.frontend == "audio_frames":
+            x = batch["frame_embeds"].to(cdt)
+        else:
+            x = params["embed"]["table"][batch["tokens"]].to(cdt)
+            if cfg.scale_embeddings:
+                x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt, device=x.device)
+        if cfg.frontend == "vision_patches" and "patch_embeds" in batch:
+            n = batch["patch_embeds"].shape[1]
+            if x.shape[1] >= n:  # the patch embeddings over the first n slots
+                x = torch.cat([batch["patch_embeds"].to(cdt), x[:, n:]], dim=1)
         return x
 
     def _head_table(self, params: Params) -> torch.Tensor:
@@ -94,20 +105,27 @@ class Model:
             return params["embed"]["table"]
         return params["lm_head"]["table"]
 
+    def _positions(self, batch: Dict, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The rotary positions of ``x`` (b, s, d): the batch's (b, 3, s) ids
+        under M-RoPE, ``0 .. s - 1`` under RoPE, none without rotation."""
+        if self.cfg.rope_variant == "mrope":
+            return batch["positions"]
+        if self.cfg.rope_variant == "none":
+            return None
+        return positions_from_tokens(x.shape[0], x.shape[1], device=x.device)
+
     def _trunk(
         self, params: Params, batch: Dict,
         on_cache: Optional[transformer.CacheSink] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(the layers' output, the mean aux loss)."""
         x = self._embed(params, batch)
-        positions = None
-        if self.cfg.rope_variant != "none":
-            positions = positions_from_tokens(x.shape[0], x.shape[1], device=x.device)
+        o = self.opts
         return transformer.stack_apply(
-            params["layers"], self.cfg, x, positions,
-            compute_dtype=self._compute_dtype(), kernel_mode=self.opts.kernel_mode,
-            wkv_chunk=self.opts.wkv_chunk, attn_q_chunk=self.opts.attn_q_chunk,
-            moe_group=self.opts.moe_group, on_cache=on_cache, remat=self.opts.remat,
+            params["layers"], self.cfg, x, self._positions(batch, x),
+            compute_dtype=self._compute_dtype(), kernel_mode=o.kernel_mode,
+            wkv_chunk=o.wkv_chunk, attn_q_chunk=o.attn_q_chunk, moe_group=o.moe_group,
+            ssm_chunk=o.ssm_chunk, on_cache=on_cache, remat=o.remat,
         )
 
     def apply(self, params: Params, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -165,6 +183,8 @@ class Model:
             cache = attention.init_kv_cache(
                 cfg, batch, cap, cdt, quantized=self.opts.kv_quantized, device=device
             )
+            if cfg.family == "hybrid":
+                cache.update(ssm.ssm_init_state(cfg, batch, cdt, device))
         return cache if stacked else unstack_cache(cache, cfg.n_layers)
 
     def prefill(
@@ -178,6 +198,11 @@ class Model:
         cache_capacity(cfg, max_len)``: the last ``cap`` tokens, zero-padded
         at the end when the prompt is shorter (room for decode steps).
         ``max_len`` defaults to the prompt length.
+
+        Hybrid: also the SSM state of ``ssm.ssm_init_state``, ``h``
+        ``(n_layers, b, d_inner, n)`` fp32 and ``conv`` ``(n_layers, b,
+        ssm_conv - 1, d_inner)`` (fewer slots when the prompt is shorter,
+        as in the JAX package) in the compute dtype.
 
         rwkv: the recurrent state of ``rwkv.rwkv_init_state``, the
         token-shift carries ``tmix_shift``/``cmix_shift`` ``(n_layers, b, 1,
@@ -196,11 +221,11 @@ class Model:
 
     def _prefill_trunk(self, params: Params, batch: Dict, max_len: Optional[int] = None):
         cfg = self.cfg
-        tokens = batch["tokens"]
-        b, s = tokens.shape
+        inputs = batch["frame_embeds"] if cfg.frontend == "audio_frames" else batch["tokens"]
+        b, s, dev = inputs.shape[0], inputs.shape[1], inputs.device
         cdt = self._compute_dtype()
         if cfg.family == "ssm":
-            cache = rwkv.rwkv_init_state(cfg, b, cdt, tokens.device)
+            cache = rwkv.rwkv_init_state(cfg, b, cdt, dev)
 
             def keep(i: int, entries: transformer.CacheEntries) -> None:
                 for name, t in entries.items():
@@ -210,7 +235,11 @@ class Model:
 
         cap = attention.cache_capacity(cfg, max_len if max_len is not None else s)
         quantized = self.opts.kv_quantized
-        cache = attention.init_kv_cache(cfg, b, cap, cdt, quantized, device=tokens.device)
+        cache = attention.init_kv_cache(cfg, b, cap, cdt, quantized, device=dev)
+        if cfg.family == "hybrid":
+            state = ssm.ssm_init_state(cfg, b, cdt, dev)
+            cache.update(h=state["h"],
+                         conv=state["conv"][:, :, : min(s, cfg.ssm_conv - 1)].contiguous())
 
         def keep_kv(i: int, entries: transformer.CacheEntries) -> None:
             # the last `cap` tokens; a ring cache (sliding window) aligns
@@ -225,23 +254,30 @@ class Model:
                 v, cache["v_scale"][i, :, :n] = attention.quantize_kv(v)
             cache["k"][i, :, :n] = k
             cache["v"][i, :, :n] = v
+            if cfg.family == "hybrid":
+                cache["h"][i] = entries["h"]
+                cache["conv"][i] = entries["conv"]
 
         return self._trunk(params, batch, on_cache=keep_kv)[0], cache
 
     def decode(
         self, params: Params, batch: Dict, cache: transformer.Cache, pos: Union[int, torch.Tensor]
     ) -> Tuple[torch.Tensor, transformer.Cache]:
-        """One token ``batch["tokens"]`` (b, 1) for every sequence against
-        ``cache``; ``pos`` is the count of tokens already cached (a host
-        int: a tensor is read back to the host). Returns ``(logits (b, 1,
-        vocab) in the compute dtype, new cache)``; the cache keeps its form
-        (stacked or per layer), and ``decode_cache_mode`` says whether it
-        is updated in place (``"carry"``) or left as it is (``"stream"``)."""
+        """One token ``batch["tokens"]`` (b, 1) (``frame_embeds`` (b, 1,
+        d_model) for audio; M-RoPE also takes ``positions`` (b, 3, 1)) for
+        every sequence against ``cache``; ``pos`` is the count of tokens
+        already cached (a host int: a tensor is read back to the host).
+        Returns ``(logits (b, 1, vocab) in the compute dtype, new cache)``;
+        the cache keeps its form (stacked or per layer), and
+        ``decode_cache_mode`` says whether it is updated in place
+        (``"carry"``) or left as it is (``"stream"``)."""
         cfg, o = self.cfg, self.opts
         pos = int(pos)
         x = self._embed(params, batch)
         positions = None
-        if cfg.rope_variant != "none":
+        if cfg.rope_variant == "mrope":
+            positions = batch["positions"]
+        elif cfg.rope_variant != "none":
             positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
         x, new_cache = transformer.stack_decode(
             params["layers"], cfg, x, positions, cache, pos,

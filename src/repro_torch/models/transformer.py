@@ -1,5 +1,7 @@
-"""Decoder blocks and the layer stack, for the dense, MoE and rwkv
-(``family == "ssm"``) families.
+"""Decoder blocks and the layer stack, for every family: the attention
+families (dense, MoE, hybrid, audio, vlm) and rwkv (``family == "ssm"``).
+A hybrid (hymba) block runs attention and the SSM branch in parallel on
+the same normed input and averages them, ``0.5 * (attn + ssm)``.
 
 Layer params are a dict whose leaves carry a leading ``n_layers`` axis,
 as in the JAX package's ``models/transformer.py``; ``stack_apply`` is a
@@ -16,11 +18,12 @@ With ``remat`` and a gradient to take, each layer runs under
 the layer, its cast to the compute dtype included.
 
 Every block also hands back its layer's aux loss (the MoE load-balance
-loss; 0 for a dense or rwkv block), which ``stack_apply`` averages over
+loss; 0 for any other block), which ``stack_apply`` averages over
 the layers, and its layer's cache entries, which ``stack_apply`` passes
-to an optional sink: ``k``/``v`` (rotated keys and
-values) for a dense or MoE block, ``tmix_shift``/``cmix_shift``/``wkv`` (the
-token-shift carries and the fp32 wkv state) for an rwkv block.
+to an optional sink: ``k``/``v`` (rotated keys and values) for an
+attention block, and a hybrid block's SSM state besides, ``h`` (fp32)
+and ``conv`` (the last pre-conv inputs); ``tmix_shift``/``cmix_shift``/``wkv``
+(the token-shift carries and the fp32 wkv state) for an rwkv block.
 
 Decode (``block_decode``, ``stack_decode``) runs one token through the
 layers against the cache. The cache is stacked (leaves with a leading
@@ -39,7 +42,7 @@ from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, moe, rwkv
+from repro_torch.models import attention, moe, rwkv, ssm
 from repro_torch.models.layers import Params, mlp_apply, mlp_init, rmsnorm, rmsnorm_init
 
 CacheEntries = Dict[str, torch.Tensor]
@@ -62,13 +65,13 @@ def layer_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> Par
             "norm2": rmsnorm_init(cfg.d_model, dtype, gen.device, lead),
             "cmix": rwkv.cmix_init(gen, cfg, dtype, lead),
         }
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     p = {
         "attn_norm": rmsnorm_init(cfg.d_model, dtype, gen.device, lead),
         "attn": attention.attention_init(gen, cfg, dtype, lead),
         "mlp_norm": rmsnorm_init(cfg.d_model, dtype, gen.device, lead),
     }
+    if cfg.family == "hybrid":
+        p["ssm"] = ssm.ssm_init(gen, cfg, dtype, lead)
     if cfg.is_moe:
         p["moe"] = moe.moe_init(gen, cfg, dtype, lead)
     else:
@@ -91,11 +94,11 @@ def layer_slice(layers: Params, i: int, dtype: torch.dtype) -> Params:
 def block_apply(
     p: Params, cfg: ArchConfig, x: torch.Tensor, positions: Optional[torch.Tensor], *,
     kernel_mode: str = "kernel", wkv_chunk: int = 64, attn_q_chunk: Optional[int] = None,
-    moe_group: int = 4096,
+    moe_group: int = 4096, ssm_chunk: int = 128,
 ) -> Tuple[torch.Tensor, Aux, CacheEntries]:
     """One block; returns (x_out, the layer's aux loss, its cache entries).
-    The aux loss is an fp32 scalar for an MoE block and the float 0 for a
-    dense or rwkv block."""
+    The aux loss is an fp32 scalar for an MoE block and the float 0 for
+    any other."""
     if cfg.family == "ssm":
         h = rmsnorm(p["norm1"], x, cfg.norm_eps, kernel_mode=kernel_mode)
         out, (tshift, state) = rwkv.tmix_apply(
@@ -109,6 +112,12 @@ def block_apply(
     attn_out, k, v = attention.attend(
         p["attn"], cfg, h, positions, kernel_mode=kernel_mode, q_chunk=attn_q_chunk
     )
+    entries = {"k": k, "v": v}
+    if cfg.family == "hybrid":  # hymba's parallel heads, on the same input
+        ssm_out, (entries["h"], entries["conv"]) = ssm.ssm_apply(
+            p["ssm"], cfg, h, chunk=ssm_chunk, return_state=True
+        )
+        attn_out = 0.5 * (attn_out + ssm_out)
     x = x + attn_out
     h = rmsnorm(p["mlp_norm"], x, cfg.norm_eps, kernel_mode=kernel_mode)
     aux: Aux = 0.0
@@ -116,13 +125,13 @@ def block_apply(
         out, aux = moe.moe_apply(p["moe"], cfg, h, group_size=moe_group)
     else:
         out = mlp_apply(p["mlp"], h, cfg.gated_act)
-    return x + out, aux, {"k": k, "v": v}
+    return x + out, aux, entries
 
 
 def stack_apply(
     layers: Params, cfg: ArchConfig, x: torch.Tensor, positions: Optional[torch.Tensor], *,
     compute_dtype: torch.dtype, kernel_mode: str = "kernel", wkv_chunk: int = 64,
-    attn_q_chunk: Optional[int] = None, moe_group: int = 4096,
+    attn_q_chunk: Optional[int] = None, moe_group: int = 4096, ssm_chunk: int = 128,
     on_cache: Optional[CacheSink] = None, remat: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run all layers in order; returns (x, the mean of the layers' aux
@@ -131,7 +140,7 @@ def stack_apply(
     requires grad) and no cache sink is given; otherwise it changes
     nothing."""
     kw = dict(kernel_mode=kernel_mode, wkv_chunk=wkv_chunk, attn_q_chunk=attn_q_chunk,
-              moe_group=moe_group)
+              moe_group=moe_group, ssm_chunk=ssm_chunk)
     total: Aux = 0.0
     if remat and on_cache is None and _needs_grad(layers, x):
         for i in range(cfg.n_layers):
@@ -171,9 +180,10 @@ def block_decode(
     cache: CacheEntries, pos: int, *, kernel_mode: str = "kernel",
 ) -> Tuple[torch.Tensor, CacheEntries]:
     """One token ``x`` (b, 1, d) through one block against this layer's
-    cache entries. Returns ``(x_out, new entries)``: a dense block's K/V
-    are written into ``cache``'s tensors in place and returned; an rwkv
-    block returns new shift carries and wkv state."""
+    cache entries. Returns ``(x_out, new entries)``: an attention block's
+    K/V are written into ``cache``'s tensors in place and returned, with a
+    hybrid block's new SSM state; an rwkv block returns new shift carries
+    and wkv state."""
     if cfg.family == "ssm":
         h = rmsnorm(p["norm1"], x, cfg.norm_eps, kernel_mode=kernel_mode)
         out, (shift, state) = rwkv.tmix_apply(
@@ -184,19 +194,21 @@ def block_decode(
         h = rmsnorm(p["norm2"], x, cfg.norm_eps, kernel_mode=kernel_mode)
         out, cshift = rwkv.cmix_apply(p["cmix"], cfg, h, shift_prev=cache["cmix_shift"])
         return x + out, {"tmix_shift": shift, "cmix_shift": cshift, "wkv": state}
-    if cfg.family == "hybrid":
-        raise NotImplementedError("hybrid decode (attention + SSM) waits for queue A5")
     h = rmsnorm(p["attn_norm"], x, cfg.norm_eps, kernel_mode=kernel_mode)
-    attn_out, kv = attention.attention_decode(
+    attn_out, new = attention.attention_decode(
         p["attn"], cfg, h, positions, cache, pos, kernel_mode=kernel_mode
     )
+    if cfg.family == "hybrid":
+        ssm_out, state = ssm.ssm_decode(p["ssm"], cfg, h, {"conv": cache["conv"], "h": cache["h"]})
+        attn_out = 0.5 * (attn_out + ssm_out)
+        new = {**new, **state}
     x = x + attn_out
     h = rmsnorm(p["mlp_norm"], x, cfg.norm_eps, kernel_mode=kernel_mode)
     if cfg.is_moe:  # one group of the batch's tokens
         out, _ = moe.moe_apply(p["moe"], cfg, h, group_size=h.shape[0], capacity_factor=2.0)
     else:
         out = mlp_apply(p["mlp"], h, cfg.gated_act)
-    return x + out, kv
+    return x + out, new
 
 
 def stack_decode(

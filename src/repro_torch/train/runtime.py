@@ -1,7 +1,7 @@
 """Per-(arch x shape) runtime knobs: microbatching, dtypes, chunk sizes
 (the JAX package's ``train/runtime.py``, its table as it is, mapped onto
-the port's ``ModelOptions``: the port has no layer scan or SSM chunks
-yet, and its ``kernel_mode`` defaults to ``"kernel"``, the hand-written
+the port's ``ModelOptions``: the port has no layer scan, and its
+``kernel_mode`` defaults to ``"kernel"``, the hand-written
 CUDA kernels). Serving shapes (decode and prefill) hold bf16 params and
 an int8 KV cache, as in the JAX package."""
 from __future__ import annotations
@@ -36,6 +36,7 @@ def model_options_for(
     return ModelOptions(
         kernel_mode=kernel_mode,
         remat=shape.kind == "train",
+        ssm_chunk=128,
         wkv_chunk=64,
         moe_group=4096,
         attn_q_chunk=1024 if shape.kind == "prefill" else 4096,

@@ -54,13 +54,14 @@ def greedy_generate(
     n_tokens: int,
     max_len: int,
 ) -> torch.Tensor:
-    """Prefill ``prompt["tokens"]`` (b, s) into a cache of ``max_len``,
-    then decode greedily: ``n_tokens`` tokens (b, n_tokens) int32, the
-    first from the prefill's logits, on the params' device."""
-    dev = params["embed"]["table"].device
-    tokens = prompt["tokens"].to(dev)
-    logits, cache = model.prefill(params, {"tokens": tokens}, max_len=max_len)
-    pos = tokens.shape[1]
+    """Prefill ``prompt`` (its ``tokens`` (b, s), or ``frame_embeds`` for
+    audio) into a cache of ``max_len``, then decode greedily, feeding
+    back tokens: ``n_tokens`` tokens (b, n_tokens) int32, the first from
+    the prefill's logits, on the params' device."""
+    dev = params["final_norm"]["scale"].device
+    prompt = {name: t.to(dev) for name, t in prompt.items()}
+    logits, cache = model.prefill(params, prompt, max_len=max_len)
+    pos = (prompt["tokens"] if "tokens" in prompt else prompt["frame_embeds"]).shape[1]
     out = [sample_token(logits, None, 0.0)[:, None]]
     for i in range(n_tokens - 1):
         logits, cache = model.decode(params, {"tokens": out[-1]}, cache, pos + i)

@@ -8,7 +8,11 @@ bounds of ``tests/test_kv_quant.py``, and 5e-3 through a ring cache's
 wrap (``tests/test_paper_scenarios.py``). The JAX references are jitted
 and shared across cases. The MoE configs (mixtral-8x22b with its sliding
 window, qwen3-moe-235b-a22b) decode through ``block_decode``'s MoE branch:
-one routing group of the batch's tokens at capacity factor 2."""
+one routing group of the batch's tokens at capacity factor 2. hymba-1.5b
+carries its SSM state (``h``, ``conv``) beside a ring of 32, in SSM
+chunks of 8; qwen2-vl-72b takes patch embeddings and distinct grid
+M-RoPE ids ((b, 3, 1) a decode step), musicgen-medium frame embeddings
+(``test_torch_ssm.family_batch``)."""
 import dataclasses
 import functools
 
@@ -41,9 +45,12 @@ from repro_torch.train.serve_step import (  # noqa: E402
     sample_token,
 )
 from repro_torch.weights import from_jax  # noqa: E402
+from test_torch_ssm import FAMILY_ARCHS, family_batch  # noqa: E402
+
+from chip_smoke import steps  # noqa: E402
 
 ARCHS = ["gemma-2b", "qwen3-8b", "rwkv6-7b", "qwen1.5-32b", "qwen2-72b", "mixtral-8x22b",
-         "qwen3-moe-235b-a22b"]
+         "qwen3-moe-235b-a22b"] + FAMILY_ARCHS
 TOL = dict(rtol=2e-4, atol=2e-4)  # test_arch_smoke.py::test_smoke_decode_consistency
 RING_TOL = dict(rtol=5e-3, atol=5e-3)  # test_paper_scenarios.py::TestRingCacheWrap
 B, S = 2, 16
@@ -82,16 +89,35 @@ def _setup(arch, sliding_window=0, seed=0):
     return jmodel, jparams, cfg, from_jax(np_params, "cpu"), tokens
 
 
+@functools.lru_cache(maxsize=None)
+def _inputs(arch):
+    """numpy inputs of ``B`` sequences of ``S + 8`` steps: ``_setup``'s
+    tokens, or the frontend's (``family_batch``: frame embeddings, patch
+    embeddings and grid M-RoPE ids)."""
+    cfg = _setup(arch)[2]
+    if arch not in FAMILY_ARCHS or cfg.frontend == "none":
+        return {"tokens": _setup(arch)[4]}
+    batch = family_batch(cfg, B, S + 8, seed=1)
+    del batch["labels"]
+    return batch
+
+
+def _torch(batch):
+    return {k: torch.from_numpy(np.array(v)).long() if v.dtype == np.int32
+            else torch.from_numpy(np.array(v)) for k, v in batch.items()}
+
+
 # MoE routes groups of 16, as tests/test_arch_smoke.py does: a smoke
 # group of 16 has room for every assignment (capacity 16), so the full
 # forward drops none and decode can equal it
 def _jax_opts(**kw):
     return JaxOptions(compute_dtype="float32", param_dtype="float32", wkv_chunk=8,
-                      loss_chunk=8, moe_group=16, **kw)
+                      loss_chunk=8, moe_group=16, ssm_chunk=8, **kw)
 
 
 def _model(cfg, **kw):
-    return build_model(cfg, ModelOptions(compute_dtype="float32", wkv_chunk=8, moe_group=16, **kw))
+    return build_model(cfg, ModelOptions(compute_dtype="float32", wkv_chunk=8, moe_group=16,
+                                         ssm_chunk=8, **kw))
 
 
 def _t(a):
@@ -112,13 +138,13 @@ def _stacked(cache):
 def _jax_decode(arch):
     """JAX: full-forward logits, prefill of S - 1 tokens (max_len S) and
     one decode step: its logits and its new cache."""
-    jmodel, jparams, _, _, tokens = _setup(arch)
-    tok = tokens[:, :S]
-    full, _ = jax.jit(jmodel.apply)(jparams, {"tokens": tok})
+    jmodel, jparams, _, _, _ = _setup(arch)
+    batch = _inputs(arch)
+    full, _ = jax.jit(jmodel.apply)(jparams, steps(batch, 0, S))
     pre_logits, cache = jax.jit(lambda p, b: jmodel.prefill(p, b, max_len=S))(
-        jparams, {"tokens": tok[:, : S - 1]})
+        jparams, steps(batch, 0, S - 1))
     logits, new = jax.jit(jmodel.decode)(
-        jparams, {"tokens": tok[:, S - 1 :]}, cache, jnp.asarray(S - 1, jnp.int32))
+        jparams, steps(batch, S - 1, S), cache, jnp.asarray(S - 1, jnp.int32))
     to_np = functools.partial(jax.tree_util.tree_map, np.asarray)
     return to_np(full), to_np(pre_logits), to_np(logits), to_np(new)
 
@@ -137,18 +163,18 @@ def test_decode_consistency_matches_jax(arch, cache_mode, stacked, kernel_mode):
     port's own full forward at the last position. ``carry`` updates the
     given cache in place, ``stream`` leaves it as it was."""
     jfull, jpre, jlogits, jcache = _jax_decode(arch)
-    _, _, cfg, params, tokens = _setup(arch)
-    tok = _t(tokens[:, :S])
+    _, _, cfg, params, _ = _setup(arch)
+    batch = _inputs(arch)
     model = _model(cfg, decode_cache_mode=cache_mode, kernel_mode=kernel_mode)
-    full, _ = model.apply(params, {"tokens": tok})
-    pre_logits, cache = model.prefill(params, {"tokens": tok[:, : S - 1]}, max_len=S)
+    full, _ = model.apply(params, _torch(steps(batch, 0, S)))
+    pre_logits, cache = model.prefill(params, _torch(steps(batch, 0, S - 1)), max_len=S)
     np.testing.assert_allclose(pre_logits.numpy(), jpre, **TOL)
     np.testing.assert_allclose(pre_logits.numpy(), full[:, S - 2].numpy(), **TOL)
     if not stacked:
         cache = unstack_cache(cache, cfg.n_layers)
         assert len(cache) == cfg.n_layers
     before = {n: t.clone() for n, t in _stacked(cache).items()}
-    logits, new = model.decode(params, {"tokens": tok[:, S - 1 :]}, cache, S - 1)
+    logits, new = model.decode(params, _torch(steps(batch, S - 1, S)), cache, S - 1)
     assert logits.shape == (B, 1, cfg.vocab_size)
     np.testing.assert_allclose(logits.numpy(), jlogits, **TOL)
     np.testing.assert_allclose(logits[:, 0].numpy(), full[:, S - 1].numpy(), **TOL)
@@ -181,7 +207,7 @@ def test_decode_cache_mode_is_checked():
 
 
 @pytest.mark.parametrize("stacked", [True, False])
-@pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-7b", "hymba-1.5b"])
 def test_init_cache_matches_jax_layout(arch, stacked):
     """Leaf names, shapes and dtypes of ``init_cache``, all zeros."""
     jmodel = jax_build_model(jax_get_config(arch).smoke(), JaxOptions())
@@ -314,6 +340,47 @@ def test_mixtral_ring_prefill_roll_and_decode_through_the_wrap(kv_quantized):
         np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
 
 
+@pytest.mark.parametrize("kv_quantized", [False, True])
+def test_hymba_ring_and_ssm_state_through_the_wrap(kv_quantized):
+    """hymba smoke, window 32: a 40-token prompt (past the window, no
+    multiple of it; five SSM chunks of 8) lands rolled beside its SSM
+    state, then four decode steps carry both; logits and every cache leaf
+    against JAX's (an int8 run decodes each step from JAX's cache, as the
+    mixtral twin above)."""
+    jmodel, jparams, cfg, params, _ = _setup("hymba-1.5b")
+    jm = jax_build_model(jmodel.cfg, _jax_opts(kv_quantized=kv_quantized))
+    model = _model(cfg, kv_quantized=kv_quantized)
+    tokens = np.random.default_rng(41).integers(0, cfg.vocab_size, (B, 44), dtype=np.int32)
+    jl, jc = jm.prefill(jparams, {"tokens": tokens[:, :40]}, max_len=48)
+    logits, c = model.prefill(params, {"tokens": _t(tokens[:, :40])}, max_len=48)
+    assert c["k"].shape[2] == cfg.sliding_window == 32 and set(c) == set(jc)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+    for n in ("h", "conv") if kv_quantized else ("k", "v", "h", "conv"):
+        np.testing.assert_allclose(c[n].numpy(), np.asarray(jc[n]), **TOL)
+    dec = jax.jit(jm.decode)
+    for pos in range(40, 44):
+        if kv_quantized:
+            c = {n: torch.from_numpy(np.array(t)) for n, t in jc.items()}
+        jl, jc = dec(jparams, {"tokens": tokens[:, pos : pos + 1]}, jc, jnp.asarray(pos, jnp.int32))
+        logits, c = model.decode(params, {"tokens": _t(tokens[:, pos : pos + 1])}, c, pos)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+        for n in ("h", "conv"):
+            np.testing.assert_allclose(c[n].numpy(), np.asarray(jc[n]), **TOL)
+
+
+def test_greedy_generate_from_frame_embeds_matches_jax():
+    """musicgen: a prompt of frame embeddings (no tokens); the position
+    count comes from them, as in the JAX loop. One token: the next
+    decode step would feed a token back, which an audio model (no
+    embedding table) does not take, in either package."""
+    jmodel, jparams, cfg, params, _ = _setup("musicgen-medium")
+    frames = steps(_inputs("musicgen-medium"), 0, 12)
+    want = np.asarray(jax_greedy_generate(jmodel, jparams, frames, 1, 20))
+    got = greedy_generate(_model(cfg), params, _torch(frames), 1, 20)
+    assert got.dtype == torch.int32 and got.shape == (B, 1)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 # ---------------------------------------------------------------------------
 # int8 KV cache (twins of tests/test_kv_quant.py)
 # ---------------------------------------------------------------------------
@@ -333,7 +400,7 @@ def test_quantize_roundtrip_bound():
     np.testing.assert_array_equal(s.numpy(), np.asarray(js))
 
 
-@pytest.mark.parametrize("name", ["qwen1.5-32b", "qwen2-72b", "mixtral-8x22b"])
+@pytest.mark.parametrize("name", ["qwen1.5-32b", "qwen2-72b", "mixtral-8x22b", "hymba-1.5b"])
 def test_int8_decode_close_to_fp(name):
     """Token-by-token decode through an int8 cache lands within 5% of max
     |logit| of the full forward."""
@@ -393,7 +460,8 @@ def test_int8_prefill_cache_matches_jax(arch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-8b", "rwkv6-7b", "mixtral-8x22b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-8b", "rwkv6-7b", "mixtral-8x22b",
+                                  "hymba-1.5b"])
 def test_greedy_generate_matches_jax(arch):
     """Greedy tokens from a 12-token prompt, 6 of them, fp32: identical to
     JAX's, int32, on the params' device."""

@@ -1022,3 +1022,105 @@ def test_mixtral_smoke_prefill_and_ring_decode_kernel_matches_plain(cuda):
     _close(out["kernel"][0], out["reference"][0], 1e-4)
     for name in ("k", "v"):
         _close(out["kernel"][1][name], out["reference"][1][name], 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the last three families: hymba (window + SSM state), qwen2-vl (patches,
+# M-RoPE), and K3 at hymba's GQA group of five
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("sk", [1, 5, 33, 1024, 4097])
+def test_flash_decode_folded_five_query_heads_a_kv_head(cuda, sk):
+    """hymba's decode attention: 25 query heads over 5 kv heads of 64,
+    bf16, folded as ``attention.attend_prefix_folded`` does, so that each
+    kv head takes 5 query rows (an odd count in a 64-row tile) through a
+    strided view whose head stride is 640 bytes; against the plain
+    version, elementwise and by relative Frobenius, with a control
+    without the last keys that must miss the bound."""
+    from repro_torch.models.attention import attend_prefix_folded
+
+    b, hq, hkv, d, cap = 4, 25, 5, 64, 4097 + 64
+    gen = torch.Generator(device=cuda).manual_seed(sk)
+    cache = torch.randn(2, b, cap, hkv, d, generator=gen, device=cuda).bfloat16()
+    k, v = cache[0, :, :sk], cache[1, :, :sk]
+    q = torch.randn(b, 1, hq, d, generator=gen, device=cuda).bfloat16()
+    rows = q.reshape(b, hkv, hq // hkv, d).transpose(1, 2)
+    assert rows.stride()[2] * rows.element_size() == 640
+    before = fa_ops.flash_attention.launches
+    out = attend_prefix_folded(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    ref = attention_ref(q, k, v, causal=False)
+    _close(out, ref, TOL[torch.bfloat16])
+    assert _rel(out, ref) <= 2.0 ** -7
+    if sk > 1:
+        n = sk - min(64, (sk + 1) // 2)
+        assert _rel(attend_prefix_folded(q, k[:, :n], v[:, :n]), ref) > 2.0 ** -7
+
+
+def test_hymba_smoke_prefill_past_its_window_and_ring_decode_kernel_matches_plain(cuda):
+    """hymba smoke (window 32, SSM chunks of 8), fp32: a (2, 40) prompt
+    (the window binds, the ring is rolled by 40 % 32, and five SSM
+    chunks run), then six decode steps that carry the ring and the SSM
+    state, through the kernels against the plain path: logits and every
+    cache leaf at 1e-4, and the launches (the SSM branch launches none)."""
+    cfg = get_config("hymba-1.5b").smoke()
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    params = build_model(cfg).init(gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 46), generator=gen, device=cuda)
+    out, launched = {}, {}
+    for mode in ("kernel", "reference"):
+        model = build_model(cfg, ModelOptions(kernel_mode=mode, compute_dtype="float32",
+                                              ssm_chunk=8))
+        counts = (rms_ops.rmsnorm.launches, fa_ops.flash_attention.launches)
+        logits, cache = model.prefill(params, {"tokens": tokens[:, :40]}, max_len=64)
+        steps = [logits]
+        for pos in range(40, 46):
+            step, cache = model.decode(params, {"tokens": tokens[:, pos : pos + 1]}, cache, pos)
+            steps.append(step[:, 0])
+        torch.cuda.synchronize()
+        launched[mode] = (rms_ops.rmsnorm.launches - counts[0],
+                          fa_ops.flash_attention.launches - counts[1])
+        out[mode] = (torch.stack(steps), cache)
+    assert out["kernel"][1]["k"].shape[2] == cfg.sliding_window == 32
+    assert set(out["kernel"][1]) == {"k", "v", "h", "conv"}
+    assert launched["kernel"] == (7 * (2 * cfg.n_layers + 1), 7 * cfg.n_layers)
+    assert launched["reference"] == (0, 0)
+    _close(out["kernel"][0], out["reference"][0], 1e-4)
+    for name, t in out["kernel"][1].items():
+        _close(t, out["reference"][1][name], 1e-4)
+
+
+def test_qwen2_vl_smoke_prefill_with_spliced_patches_kernel_matches_plain(cuda):
+    """qwen2-vl smoke, fp32: a (2, 24) prompt whose first four embeddings
+    are patch embeddings, on distinct grid M-RoPE ids, through the kernels
+    against the plain path (logits and K/V at 1e-4); the patches move the
+    logits, and so do the grid ids against plain RoPE-like ids."""
+    cfg = get_config("qwen2-vl-72b").smoke()
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    params = build_model(cfg).init(gen)
+    b, s, n = 2, 24, cfg.n_frontend_tokens
+    grid = torch.tensor([[0, i // 2, i % 2] for i in range(n)], device=cuda).T
+    text = (grid.max() + 1 + torch.arange(s - n, device=cuda)).expand(3, -1)
+    batch = {
+        "tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=cuda),
+        "patch_embeds": torch.randn(b, n, cfg.d_model, generator=gen, device=cuda),
+        "positions": torch.cat([grid, text], dim=1).expand(b, 3, s).int(),
+    }
+    models = {mode: build_model(cfg, ModelOptions(kernel_mode=mode, compute_dtype="float32"))
+              for mode in ("kernel", "reference")}
+    counts = (rms_ops.rmsnorm.launches, fa_ops.flash_attention.launches)
+    logits, cache = models["kernel"].prefill(params, batch)
+    torch.cuda.synchronize()
+    assert (rms_ops.rmsnorm.launches - counts[0], fa_ops.flash_attention.launches - counts[1]) \
+        == (2 * cfg.n_layers + 1, cfg.n_layers)
+    ref, ref_cache = models["reference"].prefill(params, batch)
+    _close(logits, ref, 1e-4)
+    for name in ("k", "v"):
+        _close(cache[name], ref_cache[name], 1e-4)
+    no_patches = models["kernel"].prefill(params, {k: batch[k] for k in ("tokens", "positions")})[0]
+    assert (no_patches - logits).abs().max() > 1e-3
+    linear = torch.arange(s, device=cuda).expand(b, 3, s).int()
+    assert (models["kernel"].prefill(params, {**batch, "positions": linear})[0]
+            - logits).abs().max() > 1e-3

@@ -397,13 +397,26 @@ class TestMoETwins:
 # twins of tests/test_arch_smoke.py's forward and train-step tests
 # ---------------------------------------------------------------------------
 
-SMOKE_OPTS = dict(loss_chunk=8, moe_group=16, wkv_chunk=8, compute_dtype="float32")
+SMOKE_OPTS = dict(loss_chunk=8, moe_group=16, wkv_chunk=8, ssm_chunk=8, compute_dtype="float32")
 
 
 def _tiny_batch(cfg, b=2, s=16, seed=1):
+    """tests/conftest.py's ``tiny_batch`` inputs: frame embeddings in
+    place of tokens for audio, patch embeddings for vision, equal (t, h,
+    w) ids under M-RoPE."""
     rng = np.random.default_rng(seed)
-    return {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))),
-            "labels": torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)))}
+    if cfg.frontend == "audio_frames":
+        batch = {"frame_embeds": torch.from_numpy(
+            rng.standard_normal((b, s, cfg.d_model)).astype(np.float32))}
+    else:
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)))}
+    batch["labels"] = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)))
+    if cfg.frontend == "vision_patches":
+        batch["patch_embeds"] = torch.from_numpy(
+            rng.standard_normal((b, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32))
+    if cfg.rope_variant == "mrope":
+        batch["positions"] = torch.arange(s).expand(b, 3, s)
+    return batch
 
 
 @pytest.mark.parametrize("name", sorted(PORTED))

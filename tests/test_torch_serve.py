@@ -2,7 +2,8 @@
 handle, fed the JAX service's params, gives the JAX handle's next tokens;
 request streams and seeds match the JAX driver; the device is the card
 unless the caller asks for the CPU. mixtral-8x22b (MoE, routing groups of
-16 as in the JAX driver) serves and trains beside them."""
+16 as in the JAX driver) serves and trains beside them, and so does
+hymba-1.5b (SSM chunks of 8, as in the JAX driver)."""
 import dataclasses
 import random
 
@@ -71,6 +72,24 @@ def test_moe_service_beside_a_moe_trainer():
             assert all(m["next_token"].shape == (serve.PROMPT_SHAPE[0],) for m in sess.metrics_log)
 
 
+def test_hymba_service_beside_gemma():
+    """``--archs hymba-1.5b,gemma-2b``: the hybrid family on the serving
+    path, every request served; each next token is the argmax of the
+    service's own prefill of that request."""
+    report, ex = serve.serve(serve.build_parser().parse_args(
+        ARGV + ["--archs", "hymba-1.5b,gemma-2b"]))
+    assert not report.failures
+    assert sorted(s.name for s in ex.sessions.values()) == ["gemma-2b", "hymba-1.5b"]
+    for jid, st in report.stats.items():
+        sess = ex.sessions[jid]
+        assert st.iterations_done == sess.n_iters > 0
+        if sess.name == "hymba-1.5b":
+            assert "ssm" in sess.state["layers"]
+            handle, _, data_fn = serve.make_service("hymba-1.5b", smoke=True, device="cpu")
+            _, out = handle(sess.state, data_fn(0))
+            assert torch.equal(out["next_token"], sess.metrics_log[0]["next_token"])
+
+
 def test_serve_takes_a_config_in_place_of_the_registry():
     """``serve(args, configs)`` serves a given config under a service's
     name (how a full-width model is cut in depth to fit one card)."""
@@ -91,7 +110,7 @@ def test_train_background_report_prints_iterations(capsys):
     assert "train:qwen3-8b: 2 training iterations (" in out and "boundary preemptions)" in out
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["mixtral-8x22b"])
+@pytest.mark.parametrize("arch", ARCHS + ["mixtral-8x22b", "hymba-1.5b"])
 def test_trainer_step_matches_jax(arch, monkeypatch):
     """The trainer's step on the JAX trainer's params and batch gives JAX's
     loss and new params (fp32 compute on both sides)."""
@@ -122,7 +141,7 @@ def test_trainer_step_matches_jax(arch, monkeypatch):
     assert serve.TRAIN_OPTS.loss_chunk == jax_serve._MODEL_OPTS.loss_chunk
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["mixtral-8x22b"])
+@pytest.mark.parametrize("arch", ARCHS + ["mixtral-8x22b", "hymba-1.5b"])
 def test_handle_gives_jax_next_tokens(arch, monkeypatch):
     """Each driver's own service options, in fp32 on both sides, so the
     argmax compares the algorithm and not where the two frameworks round
@@ -155,6 +174,7 @@ def test_requests_and_seeds_match_jax():
     assert serve.SERVE_OPTS.wkv_chunk == jax_serve._MODEL_OPTS.wkv_chunk
     for opts in (serve.SERVE_OPTS, serve.TRAIN_OPTS):
         assert opts.moe_group == jax_serve._MODEL_OPTS.moe_group == 16
+        assert opts.ssm_chunk == jax_serve._MODEL_OPTS.ssm_chunk == 8
 
 
 def test_service_is_deterministic_in_its_seeds():
