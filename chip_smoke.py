@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, at
-first use), then runs eleven phases, each printing JSON lines:
+first use), then runs twelve phases, each printing JSON lines:
 
 1. env      — the card's name and power limit (nvidia-smi), torch/CUDA
               versions, the kernels' build time, and ptxas's registers and
@@ -104,6 +104,25 @@ first use), then runs eleven phases, each printing JSON lines:
               layers) prefill parity at (1, 1024) with 256 patch
               embeddings spliced in and distinct grid M-RoPE ids, and the
               decode step fed (1, 3, 1) ids.
+12. differential — the live ``SalusExecutor`` against the port's own
+              ``Simulator`` (``repro_torch.core.simulator``) on the same
+              JobSpecs (measured profiles, declared iteration times),
+              nominal accounting, gemma-2b at full width and depth in fp32
+              through K1 and K3: D1, three sessions of the serve driver's
+              (4, 16) prefill, each on params from its own seed, at a
+              capacity of two sessions' persistent bytes and the largest
+              ephemeral (the third's arrival pages one out), under FIFO,
+              SRTF and FAIR; D2, two services on the request streams of
+              the port's ``request_trace`` beside a background SGD trainer,
+              PRIORITY. Decision logs, each lane's iteration order (FAIR:
+              the lane's iterations, and their order against a nominal
+              replay on the CPU) and request latencies equal the
+              Simulator's; a page-out and page-in in D1, tokens bit for
+              bit across the round trip, the page-out freeing 0.99 of the
+              victim's bytes; every request served; exact launch counts.
+              Page moves in seconds and GB/s beside the paging phase's,
+              the device's busy share of each run, the card and its
+              power limit.
 Then the ``{"kernels": [...]}`` summary line.
 
 Any failed check raises and the script exits non-zero. The last line is
@@ -2525,6 +2544,283 @@ def phase_families() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: differential — the live executor against the port's Simulator
+# ---------------------------------------------------------------------------
+
+DIFF_ARCH = "gemma-2b"
+DIFF_POLICIES = ("fifo", "srtf", "fair")
+# D1's three sessions: prefill requests each, and declared seconds an
+# iteration (distinct, so that SRTF's and FAIR's picks depend on them)
+DIFF_ITERS = (3, 2, 3)
+DIFF_ITER_TIMES = (0.03, 0.05, 0.02)
+# D2's arrivals: two services' request streams and a background trainer's
+# iteration count, from the port's request_trace; the services take the
+# trace's request times and iteration times, the trainer its iterations
+DIFF_TRACE = dict(n_services=2, seed=0, rps=4.0, duration=2.0, names=["resnet50_25"],
+                  train_background="resnet50_25", train_iters=8)
+DIFF_OPEN_CAPACITY_GB = 76  # two fp32 services and the trainer's step, no paging
+
+
+def nominal_replay(sessions, capacity: int, policy: str, memory) -> dict:
+    """Each lane's iteration order when a nominal ``SalusExecutor`` on the
+    CPU runs stand-in sessions of the same JobSpecs (a step that returns
+    its state): under nominal accounting the order is a function of the
+    JobSpecs alone."""
+    from repro_torch.core import SalusExecutor, Session, get_policy
+
+    cpu = torch.device("cpu")
+    ex = SalusExecutor(capacity, get_policy(policy), memory=memory, accounting="nominal",
+                       device=cpu)
+    names = {}
+    for j in (s.job for s in sessions):
+        stub = Session(j.name, lambda state, batch: state, torch.zeros(1), lambda i: None,
+                       j.n_iters, profile=j.profile, iter_time=j.iter_time,
+                       utilization=j.utilization, arrival_time=j.arrival_time, kind=j.kind,
+                       priority=j.priority, request_times=j.request_times, device=cpu)
+        names[stub.job.job_id] = j.name
+        ex.submit(stub)
+    return lane_orders(ex.run().records, names)
+
+
+def lane_orders(records, names: dict) -> dict:
+    """Each lane's iterations in the order they ran, as (job name, index)."""
+    lanes = {}
+    for r in records:
+        lanes.setdefault(r.lane_id, []).append((names[r.job_id], r.index))
+    return lanes
+
+
+def drive_executor(ex, vdev, sessions, policy: str, counters: dict) -> dict:
+    """Run the executor: on the card under ``profiled`` (the device's busy
+    share of the run's wall time) with the kernels' launch counts zeroed
+    just before and read just after. Then hold its decision log, the order
+    of iterations in each lane and the request latencies against the port's
+    ``Simulator`` run on the sessions' own JobSpecs (measured profiles,
+    declared iteration times, request streams; raises on a difference), and
+    return its page moves as (kind, session, seconds, GB, GB/s)."""
+    from repro_torch.core import MemoryEventKind, Simulator, get_policy
+
+    zero_counts(counters)
+    out = {}
+
+    def go():
+        out["report"] = vdev.run()
+
+    if ex.device.type == "cuda":
+        busy = profiled(go)
+        busy = {k: busy[k] for k in ("wall_ms", "device_ms", "device_busy_share")}
+    else:
+        go()
+        busy = None
+    report = out["report"]
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check(not report.failures, f"differential {policy}: failures {report.failures}")
+    names = {s.job.job_id: s.name for s in sessions}
+    for s in sessions:
+        st = report.stats[s.job.job_id]
+        check(st.iterations_done == s.n_iters and s.finished,
+              f"differential {policy}: {s.name} ran {st.iterations_done} of {s.n_iters}")
+    sim = Simulator(ex.registry.capacity, get_policy(policy), memory=ex.memory.config).run(
+        [s.job for s in sessions])
+    check(list(report.decision_log) == list(sim.decision_log),
+          f"differential {policy}: decision log {list(report.decision_log)} != the "
+          f"Simulator's {list(sim.decision_log)}")
+    lanes, sim_lanes = lane_orders(report.records, names), lane_orders(sim.records, names)
+    if policy == "fair":
+        # FAIR equalises service rates. The Simulator's service includes
+        # the modeled page-in delay, the nominal executor's only declared
+        # iteration times, so near ties inside a lane may resolve apart:
+        # the JAX package's two engines differ so on this run too, and its
+        # differential suite holds FAIR to the lane's iterations, not their
+        # order. The order is held against the nominal executor's replay of
+        # the same JobSpecs on the CPU: the card's timing took no decision.
+        same = {k: sorted(v) for k, v in lanes.items()} == {
+            k: sorted(v) for k, v in sim_lanes.items()}
+        check(same, f"differential fair: lane iterations {lanes} != {sim_lanes}")
+        replay = nominal_replay(sessions, ex.registry.capacity, policy, ex.memory.config)
+        check(lanes == replay, f"differential fair: lane order {lanes} != the replay's {replay}")
+    else:
+        check(lanes == sim_lanes, f"differential {policy}: lane order {lanes} != {sim_lanes}")
+    lat = {names[j]: st.request_latencies for j, st in report.stats.items()}
+    sim_lat = {names[j]: st.request_latencies for j, st in sim.stats.items()}
+    check(set(lat) == set(sim_lat) and all(
+        len(lat[n]) == len(sim_lat[n])
+        and all(abs(a - b) <= 1e-9 for a, b in zip(lat[n], sim_lat[n])) for n in lat),
+        f"differential {policy}: request latencies {lat} != the Simulator's {sim_lat}")
+    moves = []
+    for ev in report.memory_events:
+        if ev.kind in (MemoryEventKind.PAGE_OUT, MemoryEventKind.PAGE_IN):
+            gb = (ev.nbytes or ev.job.profile.persistent) / 1e9
+            moves.append({"kind": ev.kind.value, "session": ev.name, "s": ev.cost, "gb": gb,
+                          "gb_per_s": gb / ev.cost if ev.cost else None})
+    return {"policy": policy, "decision_log": list(report.decision_log), "lanes": lanes,
+            "page_moves": moves, "launches": launches, "busy": busy, "report": report}
+
+
+def differential_closed_loop(cfg, dev, policy: str, counters: dict) -> dict:
+    """D1: three sessions of ``cfg`` on one ``SalusExecutor`` (nominal
+    accounting, paging on), each the serve driver's (4, 16) prefill handle
+    on params from its own seed (``make_service`` seeds by name), with its
+    measured ``profile_step`` profile and a declared iteration time. The
+    capacity holds two sessions' persistent bytes and the largest
+    ephemeral, so the third's arrival pages one out. Checks (raising):
+    the Simulator's decisions and lane order (``drive_executor``), a
+    page-out and page-in, every session's tokens equal to those of its
+    params before they were handed over, bit for bit, and on the card the
+    page-out freeing 0.99 of the victim's persistent bytes."""
+    from repro_torch.core import MemoryConfig, SalusExecutor, VirtualDevice, get_policy
+    from repro_torch.core.profiles import profile_step
+    from repro_torch.core.session import synchronize
+    from repro_torch.launch import serve
+
+    specs = []
+    for i, (n, iter_time) in enumerate(zip(DIFF_ITERS, DIFF_ITER_TIMES)):
+        name = f"{cfg.name}#{i}"
+        handle, params, data_fn = serve.make_service(name, smoke=False, device=dev, cfg=cfg)
+        with torch.no_grad():
+            before = [handle(params, data_fn(k))[1]["next_token"].cpu() for k in range(n)]
+        specs.append({"name": name, "handle": handle, "params": params, "data_fn": data_fn,
+                      "n": n, "iter_time": iter_time, "before": before,
+                      "profile": profile_step(handle, params, data_fn(0), dev)})
+        del params
+    persistent = sorted(s["profile"].persistent for s in specs)
+    capacity = persistent[-1] + persistent[-2] + max(s["profile"].ephemeral for s in specs)
+    ex = SalusExecutor(capacity, get_policy(policy), memory=MemoryConfig(paging=True),
+                       accounting="nominal", device=dev)
+    vdev = VirtualDevice(ex)
+    sessions, allocated = [], []
+    for spec in specs:
+        state = spec.pop("params")  # the session holds the only reference
+        synchronize(dev)
+        if dev.type == "cuda":
+            allocated.append(torch.cuda.memory_allocated(dev))
+        sessions.append(vdev.create_session(spec["name"], spec["handle"], state, spec["data_fn"],
+                                            n_iters=spec["n"], profile=spec["profile"],
+                                            iter_time=spec["iter_time"]))
+        del state
+    synchronize(dev)
+    freed = allocated[-1] - torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
+    res = drive_executor(ex, vdev, sessions, policy, counters)
+    kinds = [(k, name) for k, _o, name, _l in res["decision_log"]]
+    paged = [name for k, name in kinds if k == "page_out"]
+    check(bool(paged) and any(k == "page_in" for k, _ in kinds),
+          f"differential {policy}: no page-out/page-in pair: {kinds}")
+    for spec, sess in zip(specs, sessions):
+        after = [m["next_token"].cpu() for m in sess.metrics_log]
+        check(len(after) == spec["n"] and all(torch.equal(a, b)
+                                              for a, b in zip(after, spec["before"])),
+              f"differential {policy}: {sess.name}'s tokens changed: {spec['before']} -> {after}")
+    victim = next(s for s in specs if s["name"] == paged[0])["profile"].persistent
+    if freed is not None:
+        check(freed >= 0.99 * victim,
+              f"differential {policy}: the page-out freed {freed} of {victim} bytes")
+    res.update(capacity_gb=capacity / 2**30, persistent_gb=[p / 2**30 for p in persistent],
+               ephemeral_gb=[s["profile"].ephemeral / 2**30 for s in specs],
+               freed_by_arrival_page_out_gb=None if freed is None else freed / 2**30,
+               victim_persistent_gb=victim / 2**30,
+               expected_launches={n: per * sum(DIFF_ITERS)
+                                  for n, per in launches_per_request(cfg).items()})
+    return res
+
+
+def differential_open_loop(cfg, smoke: bool, dev, counters: dict) -> dict:
+    """D2, the Fig. 9/10 regime: two services of ``cfg`` on the request
+    streams of the port's ``request_trace`` (``DIFF_TRACE``) and a
+    background SGD trainer of the same arch (``make_trainer``, its
+    iteration count from the trace) under PRIORITY, nominal accounting,
+    no paging. Every request served, the trainer's iterations all run,
+    and ``drive_executor``'s checks."""
+    from repro_torch.core import SalusExecutor, VirtualDevice, get_policy
+    from repro_torch.core.profiles import profile_step
+    from repro_torch.core.tracegen import request_trace
+    from repro_torch.launch import serve
+
+    trace = request_trace(**DIFF_TRACE)
+    ex = SalusExecutor(int(DIFF_OPEN_CAPACITY_GB * 2**30), get_policy("priority"),
+                       accounting="nominal", device=dev)
+    vdev = VirtualDevice(ex)
+    sessions = []
+    for i, job in enumerate(j for j in trace if j.kind == "inference"):
+        name = f"svc{i}:{cfg.name}"
+        handle, params, data_fn = serve.make_service(name, smoke=False, device=dev, cfg=cfg)
+        prof = profile_step(handle, params, data_fn(0), dev)
+        sessions.append(vdev.create_session(
+            name, handle, params, data_fn, n_iters=job.n_iters, profile=prof, kind="inference",
+            utilization=job.utilization, iter_time=job.iter_time,
+            request_times=job.request_times))
+        del params
+    train = next(j for j in trace if j.kind == "train")
+    step, params, data_fn = serve.make_trainer(DIFF_ARCH, smoke, device=dev)
+    prof = profile_step(step, params, data_fn(0), dev)
+    sessions.append(vdev.create_session(
+        f"train:{cfg.name}", step, params, data_fn, n_iters=train.n_iters, profile=prof,
+        kind="train", utilization=train.utilization, iter_time=train.iter_time))
+    del params
+    res = drive_executor(ex, vdev, sessions, "priority", counters)
+    trainer = res["report"].stats[sessions[-1].job.job_id]
+    losses = [float(m["loss"]) for m in sessions[-1].metrics_log]
+    check(all(math.isfinite(x) for x in losses), f"differential trainer losses {losses}")
+    per_req, per_step = launches_per_request(cfg), launches_per_microbatch(cfg)
+    requests = sum(s.n_iters for s in sessions[:-1])
+    res.update(requests=requests, trainer_iterations=trainer.iterations_done,
+               trainer_preemptions=trainer.preemptions, losses=losses,
+               latency_ms=[x * 1e3 for x in res["report"].request_latencies],
+               expected_launches={n: per_req.get(n, 0) * requests
+                                  + per_step[n] * trainer.iterations_done for n in per_step})
+    return res
+
+
+def phase_differential(paging_res: dict) -> dict:
+    """The live ``SalusExecutor`` on the card against the port's own
+    ``Simulator``: D1 (closed loop with paging, FIFO, SRTF and FAIR) and
+    D2 (open loop under PRIORITY with a background trainer), gemma-2b at
+    full width and depth in fp32, every session through K1 and K3. Its
+    page moves are printed beside the paging phase's (``paging_res``)."""
+    from repro_torch.configs import get_config
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the differential phase runs on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    cfg = get_config(DIFF_ARCH)
+    dev = torch.device("cuda")
+    counters = kernel_counters()
+    t0 = time.perf_counter()
+    runs = []
+
+    def record(r: dict) -> None:
+        del r["report"]
+        emit({"phase": "differential", "nvidia_smi": smi, **r})
+        want = {**dict.fromkeys(counters, 0), **r["expected_launches"]}
+        check(r["launches"] == want,
+              f"differential {r['policy']}: launches {r['launches']} != {want}")
+        check(r["launches"]["rmsnorm"] > 0 and r["launches"]["flash_attention"] > 0,
+              f"differential {r['policy']}: K1 or K3 never launched")
+        runs.append(r)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for policy in DIFF_POLICIES:
+        record(differential_closed_loop(cfg, dev, policy, counters))
+    record(differential_open_loop(cfg, False, dev, counters))
+    wall_s = time.perf_counter() - t0
+    res = {"phase": "differential", "part": "end", "nvidia_smi": smi, "wall_s": wall_s,
+           "busy_share": {r["policy"]: r["busy"]["device_busy_share"] for r in runs},
+           "page_moves": {r["policy"]: r["page_moves"] for r in runs},
+           "paging_phase": {k: paging_res[k] for k in ("persistent_gb", "transfer_latencies_s",
+                                                       "transfer_gb_per_s")}}
+    emit(res)
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2544,13 +2840,14 @@ def main() -> int:
     serve_res = phase_serve()
     for arch in ("qwen3-8b", "rwkv6-7b"):
         phase_parity(arch)
-    phase_paging()
+    paging_res = phase_paging()
     train_res = phase_train()
     phase_train_parity()
     phase_serve_train()
     decode_res = phase_decode()
     moe_res = phase_moe()
     families_res = phase_families()
+    phase_differential(paging_res)
     kernels_line(k, serve_res, train_res, decode_res, moe_res, families_res)
     emit({"phase": "done", "wall_s": time.perf_counter() - t0})
     emit({"ok": True, "device": {

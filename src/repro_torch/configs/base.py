@@ -20,13 +20,6 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
 
-    @property
-    def tokens_per_step(self) -> int:
-        if self.kind == "decode":
-            return self.global_batch  # one new token per sequence
-        return self.seq_len * self.global_batch
-
-
 TRAIN_4K = ShapeConfig("train_4k", "train", 4096, 256)
 PREFILL_32K = ShapeConfig("prefill_32k", "prefill", 32768, 32)
 DECODE_32K = ShapeConfig("decode_32k", "decode", 32768, 128)

@@ -1,19 +1,41 @@
-"""Result surface shared by the executor's reports (copy of the JAX
-package's ``core/engine.py``, reduced to what the live executor uses).
+"""The Engine surface shared by the port's execution backends (copy of the
+JAX package's ``core/engine.py``).
 
-:class:`ResultSurface` defines the canonical accessor set (``jcts`` /
-``avg_jct`` / ``p95_jct`` / ``utilization`` / ``completed`` / ``per_job``
-/ ``request_latencies``) computed from per-job :class:`JobStats` and a
-makespan. ``decision_log`` appears both as a dataclass *field*
+Engines — the discrete-event :class:`~repro_torch.core.simulator.Simulator`
+and the live :class:`~repro_torch.core.executor.SalusExecutor` — satisfy
+the :class:`Engine` protocol (``submit`` / ``run`` / ``result`` /
+``decision_log``), so tests can be written once against the protocol and
+handed either backend. :class:`ResultSurface` defines the canonical
+accessor set (``jcts`` / ``avg_jct`` / ``p95_jct`` / ``utilization`` /
+``completed`` / ``per_job`` / ``request_latencies``) computed from per-job
+:class:`JobStats` and a makespan. ``decision_log`` appears both as a dataclass *field*
 (``res.decision_log == [...]``) and as the engine's *method*
 (``engine.decision_log()``); :class:`DecisionLog` — a list that is also
 callable, returning its own entries — bridges the two.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+import enum
+from typing import Any, Dict, List, Protocol, Sequence, runtime_checkable
 
 from repro_torch.core.types import IterationRecord, JobStats, percentile
+
+
+@runtime_checkable
+class Engine(Protocol):
+    """What every execution backend speaks: submit work, run it, read the
+    result, inspect the decision sequence. ``run`` signatures differ per
+    backend (traces vs sessions, ``until`` vs ``max_wall``), so the
+    protocol only pins the method names; the *result* shape is unified via
+    :class:`ResultSurface` instead."""
+
+    def submit(self, work: Any) -> None: ...
+
+    def run(self, *args: Any, **kwargs: Any) -> Any: ...
+
+    def result(self) -> Any: ...
+
+    def decision_log(self) -> List[tuple]: ...
 
 
 class DecisionLog(list):
@@ -22,6 +44,28 @@ class DecisionLog(list):
 
     def __call__(self) -> List[tuple]:
         return list(self)
+
+
+def encode_decision(entry: Sequence[Any]) -> List[Any]:
+    """JSON-able form of one decision-log entry. Engine logs are tuples of
+    primitives (kind, ordinal, name, lane/device); enums are flattened to
+    their values so a persisted log is stable across enum identity."""
+    return [x.value if isinstance(x, enum.Enum) else x for x in entry]
+
+
+def decode_decision(obj: Sequence[Any]) -> tuple:
+    """Inverse of :func:`encode_decision` up to enum flattening: a JSON
+    round-trip turns tuples into lists, so a reader re-tuples them before
+    comparing against a live engine's ``decision_log()`` entries."""
+    return tuple(obj)
+
+
+def encode_decision_log(entries: Sequence[Sequence[Any]]) -> List[List[Any]]:
+    return [encode_decision(e) for e in entries]
+
+
+def decode_decision_log(objs: Sequence[Sequence[Any]]) -> List[tuple]:
+    return [decode_decision(o) for o in objs]
 
 
 def busy_seconds(records: Sequence[IterationRecord]) -> float:

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch.utils import _pytree as pytree
@@ -80,8 +80,8 @@ class SalusExecutor:
     ) -> None:
         if accounting not in ("wall", "nominal"):
             raise ValueError(f"accounting must be wall|nominal, got {accounting!r}")
-        # the torch device this executor owns: paged-in state and migrated
-        # sessions land here, and sessions synchronize on it
+        # the torch device this executor owns: paged-in state lands here,
+        # and sessions synchronize on it
         self.device = torch.device(device)
         self.registry = LaneRegistry(capacity)
         self.memory = MemoryManager(self.registry, memory, pager=self._do_transfer)
@@ -213,21 +213,11 @@ class SalusExecutor:
             self.stats[ev.job_id].second_chances = self.memory.chances.get(
                 ev.job_id, 0
             )
-        elif ev.kind is MemoryEventKind.MIGRATE_OUT:
-            # stats still present (migrate_out pops them after the mm call);
-            # the nominal-clock charge travels via migrate_out's return value
-            self.stats[ev.job_id].transfer_time += ev.cost
-        elif ev.kind is MemoryEventKind.MIGRATE_IN:
-            self.stats[ev.job_id].transfer_time += ev.cost
-            # nominal clock charges the *modeled* in-cost, mirroring the
-            # simulator's transfer_delay (same pattern as PAGE_IN)
-            self._vtransfer[ev.job_id] = (
-                self._vtransfer.get(ev.job_id, 0.0) + self._modeled_cost(ev.job)
-            )
         else:
             # explicit default (RPL010): ADMIT / QUEUE / LANE_MOVED carry no
             # stats or state change here — mirrors the simulator branch for
-            # branch-for-branch parity (RPL020)
+            # branch-for-branch parity (RPL020); no MIGRATE_* event arises
+            # without a migration surface
             assert ev.kind in (
                 MemoryEventKind.ADMIT,
                 MemoryEventKind.QUEUE,
@@ -329,92 +319,17 @@ class SalusExecutor:
         return best
 
     # ------------------------------------------------------------------
-    # Migration surface (driven by ClusterExecutor at epoch boundaries)
-    # ------------------------------------------------------------------
-
-    def migrate_out(self, job_id: int) -> Tuple[Session, JobStats, float]:
-        """Remove a session from this device for migration: the memory
-        manager logs MIGRATE_OUT and (for resident jobs) really pages the
-        session's persistent arrays to host via the pager. Returns the
-        session, its stats (carried to the destination), and the *modeled*
-        pending delay the destination's nominal clock must charge — the
-        mirror of ``Simulator.migrate_out``'s return."""
-        sess = self.sessions[job_id]
-        job = sess.job
-        if self.state.get(job_id) is JobState.RUNNING:
-            raise RuntimeError(
-                f"migrate_out of RUNNING job {job.name}: migrations happen at "
-                "iteration boundaries only"
-            )
-        resident = (
-            job_id in self.registry.assignment and job_id not in self.registry.paged
-        )
-        self.memory.migrate_out(job, self._clock())  # pager moves state to host
-        st = self.stats.pop(job_id)
-        self.sessions.pop(job_id)
-        self.state.pop(job_id)
-        carry = self._vtransfer.pop(job_id, 0.0)
-        if self._last_ran == job_id:
-            self._last_ran = None
-        modeled = self._modeled_cost(job) if resident else 0.0
-        return sess, st, modeled + carry
-
-    def migrate_in(
-        self,
-        session: Session,
-        st: JobStats,
-        extra_delay: float = 0.0,
-        put_fn: Optional[Callable] = None,
-    ) -> None:
-        """Land a migrated session here: really move its host-side state
-        back onto the device (``put_fn`` defaults to ``.to(self.device)`` on
-        every tensor; pass another put to land it in a different layout),
-        then run the
-        ordinary admission path. ``extra_delay`` is the source-side modeled
-        cost from ``migrate_out``, charged to the nominal clock before this
-        job's first iteration here."""
-        job = session.job
-        jid = job.job_id
-        self.sessions[jid] = session
-        self.stats[jid] = st
-        self.state[jid] = JobState.QUEUED
-        if extra_delay:
-            self._vtransfer[jid] = self._vtransfer.get(jid, 0.0) + extra_delay
-        cost = None
-        if session.state is not None:
-            t0 = time.perf_counter()
-            put = put_fn or (lambda tree: pytree.tree_map(self._to_device, tree))
-            session.state = put(session.state)
-            synchronize(self.device)
-            cost = time.perf_counter() - t0
-            self.transfer_latencies.append(cost)
-        # logs MIGRATE_IN (the on-event hook charges the modeled in-cost to
-        # the nominal clock), then admission: admit / queue / reject
-        self.memory.migrate_in(job, self._clock(), cost=cost)
-
-    # ------------------------------------------------------------------
 
     def run(self, max_wall: Optional[float] = None) -> ExecutorReport:
         """Drive all submitted sessions to completion."""
-        self._drive(until=None, max_wall=max_wall)
+        self._drive(max_wall)
         return self.report()
 
-    def run_epoch(self, until: float, max_wall: Optional[float] = None) -> int:
-        """Drive until the epoch horizon: iterations may *start* while the
-        scheduling clock is <= ``until`` (the crossing iteration completes —
-        the device always stops quiescent, which is what makes migration at
-        the boundary safe). Returns the number of iterations executed, the
-        fleet driver's progress signal. Unlike ``run``, a device left with
-        nothing runnable before the horizon simply returns — queued work may
-        be waiting on a migration another device will feed it."""
-        return self._drive(until=until, max_wall=max_wall)
-
-    def _drive(self, until: Optional[float], max_wall: Optional[float]) -> int:
+    def _drive(self, max_wall: Optional[float]) -> None:
         if self._wall_base is None:
             self._wall_base = self.now()
         blocked = lambda: frozenset(self.registry.paged)
-        progress = 0
-        while until is None or self._clock() <= until:
+        while True:
             # max_wall is measured from run() entry: session creation (jit
             # compiles after the first submit) must not consume the budget
             if max_wall is not None and self.now() - self._wall_base > max_wall:
@@ -443,7 +358,6 @@ class SalusExecutor:
                         self.stats[prev].preemptions += 1
                     self._run_one(self.registry.assignment[job.job_id], job)
                     progressed = True
-                    progress += 1
             else:
                 # round-robin across lanes: one iteration per lane per sweep
                 for lane in list(self.registry.lanes.values()):
@@ -455,7 +369,6 @@ class SalusExecutor:
                     if job is not None:
                         self._run_one(lane, job)
                         progressed = True
-                        progress += 1
             if not progressed:
                 # device going idle: whatever runs after the gap displaces
                 # no one (mirrors the simulator's exclusive schedule())
@@ -469,21 +382,14 @@ class SalusExecutor:
                     continue
                 # open-loop gap: nothing runnable until the next request
                 # arrives — jump the virtual clock (nominal) or really wait
-                # for it (wall), then rescan. With an epoch horizon, only
-                # jump to requests inside it (the simulator likewise leaves
-                # post-horizon events for the next advance)
+                # for it (wall), then rescan
                 nxt = self._next_request_time()
-                if nxt is not None and (until is None or nxt <= until):
+                if nxt is not None:
                     if self.accounting == "nominal":
                         self._vnow = nxt
                     else:
                         time.sleep(max(0.0, nxt - self._clock()))
                     continue
-                if until is not None:
-                    # epoch horizon: nothing runnable before it — hand back
-                    # to the fleet driver (queued work may be waiting on a
-                    # migration from another device, not deadlocked)
-                    break
                 if self.registry.queue or self.registry.paged:
                     # pending jobs that can never fit => deadlock guard
                     raise RuntimeError(
@@ -491,10 +397,6 @@ class SalusExecutor:
                         f"{len(self.registry.paged)} paged out, none runnable"
                     )
                 break
-        if until is not None and self.accounting == "nominal":
-            # mirror the simulator clamping its clock to the epoch horizon
-            self._vnow = max(self._vnow, until)
-        return progress
 
     def report(self) -> ExecutorReport:
         """Snapshot the run into an :class:`ExecutorReport` (idempotent)."""

@@ -163,25 +163,6 @@ class LaneRegistry:
         self.process_requests()
         return freed
 
-    def clone(self) -> "LaneRegistry":
-        """Detached snapshot for what-if admission reasoning (the Rebalancer
-        packs tentative migrations against clones, never the live registry).
-        Shares the JobSpec objects but copies all layout state; callbacks are
-        not carried over, so mutating the clone fires nothing."""
-        c = LaneRegistry(self.capacity)
-        for lid, lane in self.lanes.items():
-            c.lanes[lid] = Lane(lane.lane_id, lane.size, lane.base, list(lane.jobs))
-        c._lane_total = self._lane_total
-        c.persistent_used = self.persistent_used
-        c.queue = list(self.queue)
-        c.assignment = {
-            jid: c.lanes[lane.lane_id] for jid, lane in self.assignment.items()
-        }
-        c.paged = set(self.paged)
-        c.moves = self.moves
-        c._ids = itertools.count(max(self.lanes, default=-1) + 1)
-        return c
-
     def process_requests(self) -> None:
         """PROCESSREQUESTS: admit queued jobs in FIFO order where possible."""
         if not self.queue:

@@ -144,63 +144,6 @@ class MemoryManager:
         self.registry.job_finish(job)  # frees lane bytes; retries the queue
         self._forget(job.job_id)
 
-    def migrate_out(self, job: JobSpec, now: float = 0.0) -> float:
-        """Source half of a migration: release the job's device resources
-        (lane, persistent bytes or queue slot) exactly like a finish, but log
-        MIGRATE_OUT with the host-link transfer cost of its resident P bytes
-        (0 for paged-out or still-queued jobs — their P already lives on
-        host). Returns that cost. The engine owns the rest of the move: it
-        must never migrate a RUNNING job (iteration-boundary invariant)."""
-        self._now = now
-        resident = (
-            job.job_id in self.registry.assignment
-            and job.job_id not in self.registry.paged
-        )
-        cost = self._transfer("out", job) if resident else 0.0
-        self._log(
-            MemoryEventKind.MIGRATE_OUT,
-            job,
-            nbytes=job.profile.persistent if resident else 0,
-            cost=cost,
-        )
-        # departure frees bytes: the retry it triggers honors deficit order,
-        # same as job_finish
-        self.registry.queue.sort(key=lambda j: -self.deficit.get(j.job_id, 0))
-        self.registry.job_depart(job)
-        self._forget(job.job_id)
-        return cost
-
-    def migrate_in(
-        self,
-        job: JobSpec,
-        now: float = 0.0,
-        busy: FrozenSet[int] = EMPTY,
-        cost: Optional[float] = None,
-    ) -> Optional[Lane]:
-        """Destination half of a migration: log MIGRATE_IN (with the
-        host-link cost of bringing the job's P on-device — modeled via the
-        bandwidth config unless the engine measured a real transfer and
-        passes ``cost``), then run the ordinary admission path. The job may
-        be admitted immediately, queue for a second chance, or — if this
-        device is too small — be rejected, exactly like a fresh arrival."""
-        self._now = now
-        # register bookkeeping first so the MIGRATE_IN entry carries this
-        # device's arrival ordinal for the job
-        self.specs[job.job_id] = job
-        self.deficit.setdefault(job.job_id, 0)
-        if job.job_id not in self._order:
-            self._order[job.job_id] = self._next_ordinal
-            self._next_ordinal += 1
-        if cost is None:
-            cost = job.profile.persistent / self.config.page_bandwidth
-        self._log(
-            MemoryEventKind.MIGRATE_IN,
-            job,
-            nbytes=job.profile.persistent,
-            cost=cost,
-        )
-        return self.job_arrive(job, now, busy)
-
     def _forget(self, job_id: int) -> None:
         """Drop a terminal (finished/failed/rejected) job's bookkeeping so a
         long-lived fleet churning short jobs stays bounded. Already-logged

@@ -106,10 +106,6 @@ class JobSpec:
             return self.priority
         return 1 if self.kind == "inference" else 0
 
-    @property
-    def open_loop(self) -> bool:
-        return self.request_times is not None
-
     def next_request_time(self, done: int) -> Optional[float]:
         """Arrival time of request ``done`` (the next one to serve), or None
         for closed-loop jobs / exhausted request streams."""
@@ -125,10 +121,6 @@ class JobSpec:
         if self.request_times is None:
             return True
         return done < len(self.request_times) and self.request_times[done] <= now
-
-    @property
-    def total_work(self) -> float:
-        return self.n_iters * self.iter_time
 
     def __hash__(self) -> int:
         # the id itself, not builtin hash(): anything feeding ordering or

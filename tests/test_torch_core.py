@@ -11,6 +11,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_cores import share_cores  # noqa: E402
+
+share_cores()
+
 from repro.core import MemoryConfig as JaxMemoryConfig  # noqa: E402
 from repro.core import Simulator  # noqa: E402
 from repro.core import get_policy as jax_get_policy  # noqa: E402

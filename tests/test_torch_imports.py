@@ -57,6 +57,9 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.train.optimizer",
         "repro_torch.train.train_step",
         "repro_torch.train.runtime",
+        "repro_torch.core.events",
+        "repro_torch.core.simulator",
+        "repro_torch.dist.fault",
     } <= set(mods)
     code = (
         "import importlib, sys\n"

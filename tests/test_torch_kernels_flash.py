@@ -7,6 +7,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_cores import share_cores  # noqa: E402
+
+share_cores()
+
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash  # noqa: E402

@@ -6,6 +6,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_cores import share_cores  # noqa: E402
+
+share_cores()
+
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.fused_rmsnorm.ops import rmsnorm as jax_rmsnorm  # noqa: E402

@@ -13,6 +13,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_cores import share_cores  # noqa: E402
+
+share_cores()
+
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.rwkv_scan.ops import wkv6 as jax_wkv6  # noqa: E402

@@ -18,6 +18,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_cores import share_cores  # noqa: E402
+
+share_cores()
+
 import jax  # noqa: E402
 
 from repro.configs import get_config as jax_get_config  # noqa: E402

@@ -12,6 +12,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_cores import share_cores  # noqa: E402
+
+share_cores()
+
 import jax  # noqa: E402
 
 from repro.launch import serve as jax_serve  # noqa: E402
