@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, at
-first use), then runs twelve phases, each printing JSON lines:
+first use), then runs thirteen phases, each printing JSON lines:
 
 1. env      — the card's name and power limit (nvidia-smi), torch/CUDA
               versions, the kernels' build time, and ptxas's registers and
@@ -123,6 +123,23 @@ first use), then runs twelve phases, each printing JSON lines:
               Page moves in seconds and GB/s beside the paging phase's,
               the device's busy share of each run, the card and its
               power limit.
+13. fleet   — Salus's live fleet, ``ClusterExecutor``, against the port's
+              own ``Cluster`` on the same JobSpecs, nominal accounting:
+              three executors all on the one card (``device="cuda"``
+              binds executor i to ``cuda:{i % cards}``), SRTF,
+              least-loaded placement, a consolidating ``Rebalancer`` at
+              epoch boundaries; four fp32 gemma-2b sessions at full width
+              and depth of the serve driver's (4, 16) prefill through K1
+              and K3, in ``tests/test_migration.py``'s shape (two of 40
+              requests, two of 6). F1, paging off (profiled) and on; F2,
+              the first migration failing (``FailureInjector``) and
+              rolled back; F3, F1's threaded run against the sequential
+              driver. Migration, placement and every device's decision
+              log equal the Cluster's, something migrates, every session
+              completes with its tokens bit for bit, threads and
+              sequential identical in their nominal data, exact launch
+              counts; each migration's page-out and page-in seconds and
+              GB beside the paging and differential phases' moves.
 Then the ``{"kernels": [...]}`` summary line.
 
 Any failed check raises and the script exits non-zero. The last line is
@@ -320,11 +337,16 @@ def bound(nbytes: float, ops: float, flops_per_s: float):
 # ---------------------------------------------------------------------------
 
 
-def phase_env() -> dict:
-    smi = subprocess.run(
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
+
+
+def phase_env() -> dict:
+    smi = nvidia_smi()
     print(smi, flush=True)
     from repro_torch.kernels import _build
 
@@ -1229,7 +1251,7 @@ def phase_serve(archs=SERVE_ARCHS, configs=None, kinds=KERNEL_KINDS) -> dict:
 
 
 def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
-                 moe_res: dict, families_res: dict) -> None:
+                 moe_res: dict, families_res: dict, fleet_res: dict) -> None:
     """The summary line: each kernel the serve and train paths launch. The
     forward kernels at their largest serve-path shape (bf16 for the norm
     and attention, whose largest is qwen3-8b's; fp32 for WKV6, rwkv6-7b's
@@ -1249,7 +1271,8 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
     8192 (qwen2-vl), K3 at hymba's 25/5 heads of 64 under its window (its
     serve prompt, (1, 2560), and one query against its ring at batch
     128), musicgen's 24/24 and qwen2-vl's 64/8 heads, with the families
-    serve run's launches and a hymba request's."""
+    serve run's launches and a hymba request's. The fleet phase's launches
+    of K1 and K3, a run each (``launches_fleet``)."""
     rms = k[("rmsnorm", 64, 4096, "bfloat16")]
     rms_res = k[("rmsnorm_residual", 64, 4096, "bfloat16")]
     fa = k[("flash_attention", 4, 16, 32, 128, None, 0, "bfloat16")]
@@ -1293,7 +1316,8 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
                          **at(k[("rmsnorm_residual", 8192, 4096, "bfloat16")])}],
          "at_families": {"shapes": fam_norms,
                          "launches_families_serve": fam_serve["launches"]["rmsnorm"],
-                         "launches_a_hymba_request": hymba_per["rmsnorm"]}},
+                         "launches_a_hymba_request": hymba_per["rmsnorm"]},
+         "launches_fleet": {run: n["rmsnorm"] for run, n in fleet_res["launches"].items()}},
         {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
          "replaces": FLASH_TPU,
          "launches": serve_res["launches"]["flash_attention"], "shape": fa["shape"],
@@ -1310,7 +1334,9 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
                         moe_serve["services"][MOE_ARCH]["launches_per_request"]["flash_attention"]},
          "at_families": {"shapes": fam_flash,
                          "launches_families_serve": fam_serve["launches"]["flash_attention"],
-                         "launches_a_hymba_request": hymba_per["flash_attention"]}},
+                         "launches_a_hymba_request": hymba_per["flash_attention"]},
+         "launches_fleet": {run: n["flash_attention"]
+                            for run, n in fleet_res["launches"].items()}},
         {"name": "wkv6", "route": "cuda", "source": WKV_SRC, "replaces": WKV_TPU,
          "launches": serve_res["launches"]["wkv6"], "shape": wkv["shape"],
          "dtype": "float32", **{x: wkv[x] for x in keys},
@@ -2782,10 +2808,7 @@ def phase_differential(paging_res: dict) -> dict:
         raise RuntimeError("the differential phase runs on the card")
     gc.collect()
     torch.cuda.empty_cache()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
+    smi = nvidia_smi()
     cfg = get_config(DIFF_ARCH)
     dev = torch.device("cuda")
     counters = kernel_counters()
@@ -2821,6 +2844,268 @@ def phase_differential(paging_res: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: fleet — three live executors on one card against the port's Cluster
+# ---------------------------------------------------------------------------
+
+FLEET_DEVICES = 3
+# tests/test_migration.py's SPECS: two long sessions and two of 6 iterations
+FLEET_SPECS = (("longA", 40), ("medB", 6), ("medC", 6), ("longD", 40))
+FLEET_ITER_TIME = 0.02  # declared seconds an iteration, about a (4, 16) request's
+FLEET_INTERVAL = 10 * FLEET_ITER_TIME  # ten iterations an epoch: the JAX test's 0.02 / 0.002
+# capacity over the persistent bytes of a session: the JAX test's 16 GB over 2.4 GB
+FLEET_CAPACITY = (20, 3)
+FLEET_FAIL_AT = 1  # F2: the first migration attempt fails
+# the live executor's stats that are wall measurements: the four wall
+# stamps, and the seconds a move spent on the host link
+FLEET_WALL_STATS = frozenset(
+    {"arrival_time", "admit_time", "first_run_time", "finish_time", "transfer_time"})
+
+
+def fleet_sessions(cfg, dev) -> list:
+    """The makings of the fleet's four sessions (``FLEET_SPECS``): the
+    serve driver's (4, 16) prefill handle of ``cfg`` on params from its own
+    seed (``make_service`` seeds by name), its measured ``profile_step``
+    profile, and the tokens each of its requests gives before the params
+    are handed over. Between runs a spec keeps the params under
+    ``"state"``; a run takes them and hands them back."""
+    from repro_torch.core.profiles import profile_step
+    from repro_torch.launch import serve
+
+    specs = []
+    for name, n in FLEET_SPECS:
+        full = f"{cfg.name}:{name}"
+        handle, params, data_fn = serve.make_service(full, smoke=False, device=dev, cfg=cfg)
+        with torch.no_grad():
+            before = [handle(params, data_fn(k))[1]["next_token"].cpu() for k in range(n)]
+        specs.append({"name": full, "handle": handle, "state": params, "data_fn": data_fn,
+                      "n": n, "before": before,
+                      "profile": profile_step(handle, params, data_fn(0), dev)})
+        del params
+    return specs
+
+
+def migration_moves(report) -> list:
+    """Each migration attempt of a fleet run, in the order the migration
+    log holds them: the session, its source and destination, and the
+    measured seconds and GB of its page-out (the source's MIGRATE_OUT)
+    and page-in (the destination's MIGRATE_IN)."""
+    from repro_torch.core import MemoryEventKind
+
+    events = {}
+    for d, rep in enumerate(report.device_reports):
+        for ev in rep.memory_events:
+            if ev.kind in (MemoryEventKind.MIGRATE_OUT, MemoryEventKind.MIGRATE_IN):
+                events.setdefault((ev.kind, ev.name, d), []).append(ev)
+    moves = []
+    for kind, _o, name, src, dst in report.migration_log():
+        out = events[(MemoryEventKind.MIGRATE_OUT, name, src)].pop(0)
+        inn = events[(MemoryEventKind.MIGRATE_IN, name, dst)].pop(0)
+        moves.append({"kind": kind, "session": name, "src": src, "dst": dst,
+                      "out_s": out.cost, "out_gb": out.nbytes / 1e9,
+                      "in_s": inn.cost, "in_gb": inn.nbytes / 1e9,
+                      "out_gb_per_s": out.nbytes / 1e9 / out.cost if out.cost else None,
+                      "in_gb_per_s": inn.nbytes / 1e9 / inn.cost if inn.cost else None})
+    return moves
+
+
+def fleet_run(specs, dev, paging: bool, counters: dict, concurrency: str = "threads",
+              fail_at=None, busy: bool = False) -> dict:
+    """One fleet run: a ``ClusterExecutor`` of ``FLEET_DEVICES`` executors
+    on ``dev`` (``"cuda"`` binds executor i to ``cuda:{i % cards}``, so
+    with one card all three share it and a migration is a real page-out
+    to pinned host memory and a page-in), SRTF, least-loaded placement, a
+    consolidating ``Rebalancer`` every ``FLEET_INTERVAL``, nominal
+    accounting, paging as given, and ``FailureInjector([fail_at])`` when
+    given. The capacity of an executor is ``FLEET_CAPACITY`` times the
+    sessions' measured persistent bytes (the JAX test's 16 GB over 2.4
+    GB; the measured ephemeral is smaller than the test's, so it does not
+    bind). Each session takes its spec's params, the only reference, and
+    hands them back after the run. The kernels' launch counts are zeroed
+    just before the run and read just after; with ``busy`` on the card the
+    run is profiled (the device's busy share of its wall time).
+    Checks (raising): the migration log is non-empty, and it, the
+    placement log and every device's decision log equal those of the
+    port's ``Cluster`` run on the sessions' own JobSpecs; every session
+    completes, with no failure; ``len(report.migrations)`` is the number
+    of "migrate" entries; every session's tokens, migrated or rolled back
+    or not, equal those its params gave before the hand-over, bit for
+    bit."""
+    from repro_torch.core import Cluster, ClusterExecutor, MemoryConfig, Rebalancer, Session
+    from repro_torch.dist.fault import FailureInjector
+    from torch.utils import _pytree as pytree
+
+    persistent = max(s["profile"].persistent for s in specs)
+    capacity = -(-persistent * FLEET_CAPACITY[0] // FLEET_CAPACITY[1])
+
+    def fleet(cls, **kw):
+        return cls(FLEET_DEVICES, capacity, "srtf", strategy="least_loaded",
+                   memory=MemoryConfig(paging=paging), rebalancer=Rebalancer(mode="consolidate"),
+                   rebalance_interval=FLEET_INTERVAL,
+                   fault_injector=FailureInjector([fail_at]) if fail_at else None, **kw)
+
+    tag = f"fleet {concurrency} paging={paging}" + (f" fail_at={fail_at}" if fail_at else "")
+    cex = fleet(ClusterExecutor, accounting="nominal", concurrency=concurrency, device=dev)
+    sessions = []
+    for spec in specs:
+        state = spec.pop("state")
+        sessions.append(Session(spec["name"], spec["handle"], state, spec["data_fn"], spec["n"],
+                                profile=spec["profile"], iter_time=FLEET_ITER_TIME,
+                                utilization=1.0, device=dev))
+        del state
+        cex.submit(sessions[-1])
+    out = {}
+
+    def go():
+        out["report"] = cex.run()
+
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    if busy and dev.type == "cuda":
+        prof = profiled(go)
+        busy_res = {k: prof[k] for k in ("wall_ms", "device_ms", "device_busy_share")}
+    else:
+        go()
+        busy_res = None
+    wall_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    report = out["report"]
+    for spec, sess in zip(specs, sessions):
+        # the params go back to the spec, on the card, for the next run
+        spec["state"] = pytree.tree_map(
+            lambda t: t.to(dev) if isinstance(t, torch.Tensor) else t, sess.state)
+        sess.state = None
+    sim = fleet(Cluster).run([s.job for s in sessions])
+    log = report.migration_log()
+    check(bool(log), f"{tag}: nothing migrated")
+    check(log == sim.migration_log(),
+          f"{tag}: migration log {log} != the Cluster's {sim.migration_log()}")
+    check(report.placement_log() == sim.placement_log(),
+          f"{tag}: placement log {report.placement_log()} != {sim.placement_log()}")
+    for d in range(FLEET_DEVICES):
+        got, want = report.device_reports[d].decision_log, sim.device_results[d].decision_log
+        check(list(got) == list(want), f"{tag}: device {d} decisions {list(got)} != {list(want)}")
+    check(not report.failures, f"{tag}: failures {report.failures}")
+    check(report.completed == sim.completed == len(sessions),
+          f"{tag}: {report.completed} and the Cluster's {sim.completed} completed "
+          f"of {len(sessions)}")
+    check(len(report.migrations) == sum(e[0] == "migrate" for e in log),
+          f"{tag}: {len(report.migrations)} migrations applied for the log {log}")
+    for spec, sess in zip(specs, sessions):
+        after = [m["next_token"].cpu() for m in sess.metrics_log]
+        check(len(after) == spec["n"] and all(torch.equal(a, b)
+                                              for a, b in zip(after, spec["before"])),
+              f"{tag}: {sess.name}'s tokens changed: {spec['before']} -> {after}")
+    names = {s.job.job_id: s.name for s in sessions}
+    return {"concurrency": concurrency, "paging": paging, "fail_at": fail_at,
+            "capacity_gb": capacity / 1e9, "persistent_gb": persistent / 1e9,
+            "ephemeral_gb": [s["profile"].ephemeral / 1e9 for s in specs],
+            "placement_log": report.placement_log(), "migration_log": log,
+            "decision_logs": [list(r.decision_log) for r in report.device_reports],
+            "records": [[(names[r.job_id], r.index, r.lane_id) for r in rep.records]
+                        for rep in report.device_reports],
+            "stats": {names[j]: {k: v for k, v in vars(st).items()
+                                 if k not in FLEET_WALL_STATS}
+                      for j, st in report.stats.items()},
+            "moves": migration_moves(report), "launches": launches, "busy": busy_res,
+            "wall_s": wall_s, "iterations": sum(s["n"] for s in specs)}
+
+
+def fleet_nominal_equal(a: dict, b: dict) -> None:
+    """F3: two fleet runs (threads, sequential) leave the same nominal
+    data: placement log, every device's decision log and iteration records
+    (session, index, lane), and every per-job stat that is no wall
+    measurement (``FLEET_WALL_STATS``). Raises on a difference."""
+    for key in ("placement_log", "migration_log", "decision_logs", "records", "stats"):
+        check(a[key] == b[key], f"fleet {a['concurrency']} and {b['concurrency']} differ in "
+                                f"{key}: {a[key]} != {b[key]}")
+
+
+def phase_fleet(paging_res: dict, diff_res: dict) -> dict:
+    """Salus's live fleet on the card: ``ClusterExecutor`` against the
+    port's own ``Cluster``, gemma-2b at full width and depth in fp32, four
+    sessions (``FLEET_SPECS``, the shape of
+    ``tests/test_migration.py``'s differential) of the serve driver's (4,
+    16) prefill through K1 and K3, each on params from its own seed, with
+    measured profiles and a declared ``FLEET_ITER_TIME`` a request.
+
+    Capacity and epoch: an executor holds ``FLEET_CAPACITY`` (20 / 3) times
+    a session's measured persistent bytes (10.02 GB: 66.8 GB), the JAX
+    test's 16 GB over its 2.4 GB; the measured ephemeral (1.06 GB) is well
+    under the test's 4 GB, so bytes never bind and placement and the
+    consolidate pass go by load alone, as in the test. tau =
+    ``FLEET_INTERVAL`` = ten declared iterations, the test's 0.02 s over
+    its 0.002 s. With those, least-loaded placement puts longA, medB and
+    medC on one executor each and longD beside medB, and the first
+    consolidate pass moves longA beside them; the phase holds whatever
+    the ``Cluster`` decides, and fails if nothing migrates.
+
+    F1: the fleet with paging off (profiled: the device's busy share) and
+    on; F2: paging off with ``FailureInjector([FLEET_FAIL_AT])``, a logged
+    ``migrate_failed`` whose session rolls back to its source; F3: F1's
+    paging-on run (threads, the default) against the same fleet under
+    ``concurrency="sequential"``, identical in their nominal data
+    (``fleet_nominal_equal``). ``fleet_run``'s checks in every run, and
+    exact K1/K3 launch counts (zeroed just before each run). Each
+    migration's page-out and page-in seconds and GB are printed beside the
+    paging phase's round trip (``paging_res``) and the differential
+    phase's page moves (``diff_res``), with the card and its power limit."""
+    from repro_torch.configs import get_config
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the fleet phase runs on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = nvidia_smi()
+    cfg = get_config(DIFF_ARCH)
+    dev = torch.device("cuda")
+    counters = kernel_counters()
+    per_req = launches_per_request(cfg)
+    t0 = time.perf_counter()
+    specs = fleet_sessions(cfg, dev)
+    sessions_s = time.perf_counter() - t0
+    runs = {}
+
+    def record(key: str, r: dict) -> None:
+        emit({"phase": "fleet", "run": key, "nvidia_smi": smi,
+              **{k: v for k, v in r.items() if k not in ("records", "stats", "decision_logs")}})
+        want = {**dict.fromkeys(counters, 0),
+                **{n: per * r["iterations"] for n, per in per_req.items()}}
+        check(r["launches"] == want, f"fleet {key}: launches {r['launches']} != {want}")
+        check(r["launches"]["rmsnorm"] > 0 and r["launches"]["flash_attention"] > 0,
+              f"fleet {key}: K1 or K3 never launched")
+        runs[key] = r
+
+    record("F1 paging off", fleet_run(specs, dev, False, counters, busy=True))
+    record("F1 paging on", fleet_run(specs, dev, True, counters))
+    f2 = fleet_run(specs, dev, False, counters, fail_at=FLEET_FAIL_AT)
+    check(any(e[0] == "migrate_failed" for e in f2["migration_log"]),
+          f"fleet F2: no migrate_failed in {f2['migration_log']}")
+    record("F2 failure", f2)
+    record("F3 sequential", fleet_run(specs, dev, True, counters, concurrency="sequential"))
+    fleet_nominal_equal(runs["F1 paging on"], runs["F3 sequential"])
+    del specs
+    gc.collect()
+    torch.cuda.empty_cache()
+    moves = [{"run": key, **m} for key, r in runs.items() for m in r["moves"]]
+    res = {"phase": "fleet", "part": "end", "nvidia_smi": smi,
+           "wall_s": time.perf_counter() - t0, "sessions_s": sessions_s,
+           "run_wall_s": {k: r["wall_s"] for k, r in runs.items()},
+           "busy_f1": runs["F1 paging off"]["busy"],
+           # the profiler slows the run it traces: the same device time over
+           # the wall time of F1's unprofiled run (paging on, the same work)
+           "busy_f1_over_unprofiled_wall": runs["F1 paging off"]["busy"]["device_ms"]
+           / (1e3 * runs["F1 paging on"]["wall_s"]),
+           "first_out_s": moves[0]["out_s"], "later_out_s": [m["out_s"] for m in moves[1:]],
+           "in_s": [m["in_s"] for m in moves], "moves": moves,
+           "launches": {k: r["launches"] for k, r in runs.items()},
+           "paging_phase": {k: paging_res[k] for k in ("persistent_gb", "transfer_latencies_s",
+                                                       "transfer_gb_per_s")},
+           "differential_page_moves": diff_res["page_moves"]}
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2847,8 +3132,9 @@ def main() -> int:
     decode_res = phase_decode()
     moe_res = phase_moe()
     families_res = phase_families()
-    phase_differential(paging_res)
-    kernels_line(k, serve_res, train_res, decode_res, moe_res, families_res)
+    diff_res = phase_differential(paging_res)
+    fleet_res = phase_fleet(paging_res, diff_res)
+    kernels_line(k, serve_res, train_res, decode_res, moe_res, families_res, fleet_res)
     emit({"phase": "done", "wall_s": time.perf_counter() - t0})
     emit({"ok": True, "device": {
         "platform": "gpu",

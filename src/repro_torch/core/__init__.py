@@ -10,6 +10,10 @@ Public surface:
   * :class:`Simulator` — discrete-event trace evaluation, on the same
     decision modules as the executor; :class:`EventQueue` /
     :class:`EpochSchedule` — the event core it runs on
+  * :class:`Cluster` / :class:`ClusterExecutor` — multi-GPU fleet behind
+    placement strategies (``get_strategy``: least_loaded/best_fit/consolidate)
+    with optional :class:`Rebalancer` migration passes at epoch boundaries,
+    driven by :class:`FleetDriver`'s thread-per-device epochs
   * :class:`LaneRegistry` — GPU lanes, Algorithm 1, safety condition, defrag
   * :class:`MemoryManager` — admission, second chance, host paging
   * policies — FIFO / SRTF / PACK / FAIR / PRIORITY (``get_policy``)
@@ -17,6 +21,14 @@ Public surface:
     request-stream generation
 """
 from repro_torch.core.adaptor import VirtualDevice
+from repro_torch.core.cluster import (
+    Cluster,
+    ClusterExecutor,
+    ClusterReport,
+    ClusterResult,
+    EpochControl,
+    EpochSnapshot,
+)
 from repro_torch.core.engine import (
     DecisionLog,
     Engine,
@@ -29,6 +41,19 @@ from repro_torch.core.engine import (
 )
 from repro_torch.core.events import EpochSchedule, EventQueue
 from repro_torch.core.executor import ExecutorReport, SalusExecutor
+from repro_torch.core.fleet import FleetDriver
+from repro_torch.core.placement import (
+    DeviceView,
+    JobView,
+    Migration,
+    Placer,
+    PlacementEvent,
+    PlacementEventKind,
+    PlacementPlan,
+    PlacementStrategy,
+    Rebalancer,
+    get_strategy,
+)
 from repro_torch.core.lanes import Lane, LaneRegistry, SafetyViolation
 from repro_torch.core.memory import MemoryConfig, MemoryManager
 from repro_torch.core.profiles import profile_model, profile_step, tensor_bytes
@@ -58,11 +83,28 @@ __all__ = [
     "decode_decision_log",
     "EventQueue",
     "EpochSchedule",
+    "FleetDriver",
+    "EpochSnapshot",
+    "EpochControl",
     "Simulator",
     "SimResult",
     "SalusExecutor",
     "ExecutorReport",
     "VirtualDevice",
+    "Cluster",
+    "ClusterExecutor",
+    "ClusterReport",
+    "ClusterResult",
+    "Placer",
+    "PlacementEvent",
+    "PlacementEventKind",
+    "PlacementPlan",
+    "PlacementStrategy",
+    "get_strategy",
+    "Rebalancer",
+    "Migration",
+    "DeviceView",
+    "JobView",
     "Session",
     "profile_model",
     "profile_step",

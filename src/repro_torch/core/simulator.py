@@ -17,12 +17,16 @@ Faithful to the paper's mechanism:
     switching cost vs. checkpoint-based switching (Gandiva): used by the
     overhead/switching benchmarks.
 
-The simulator satisfies the :class:`~repro_torch.core.engine.Engine` protocol:
-``run()`` is ``start() + advance(until) + result()``. The JAX package's
-fleet surface on top of that (``drain_running``, ``migrate_out`` /
-``migrate_in``, ``remove_pending``, ``cancel`` and resuming a job at an
-iteration boundary) is not ported yet: it comes with the port's cluster
-driver, its only caller.
+The simulator satisfies the :class:`~repro_torch.core.engine.Engine` protocol
+and is *resumable*: ``run()`` is sugar for ``start() + advance() +
+result()``, and a fleet driver may instead interleave ``advance(T)`` /
+``drain_running()`` epochs with cross-device migrations
+(``migrate_out`` / ``migrate_in``) applied at the quiescent boundary —
+see :mod:`repro_torch.core.cluster`. ``advance`` processes events up to the
+horizon; ``drain_running`` lets in-flight iterations finish (running
+their normal boundary ticks) without starting new ones, which is exactly
+the executor's behavior when its loop condition trips mid-sweep, so the
+two engines reach epoch boundaries in the same quiescent state.
 """
 from __future__ import annotations
 
@@ -115,6 +119,7 @@ class Simulator:
         # event pushes/pops and clock movement go through this one kernel
         # (shared with every other engine — see events.py)
         self._q = EventQueue()
+        self._arrived: set = set()  # job_ids whose arrival event was processed
         self._horizon: Optional[float] = None  # current advance() bound
 
     # ------------------------------------------------------------------
@@ -144,33 +149,55 @@ class Simulator:
         return self.memory.decision_log()
 
     # ------------------------------------------------------------------
-    # Driving surface: run() = start() + advance() + result()
+    # Resumable driving surface (used by the cluster's rebalance epochs)
     # ------------------------------------------------------------------
 
-    def start(self, jobs: List[JobSpec]) -> None:
+    def start(
+        self, jobs: List[JobSpec], done: Optional[Dict[int, int]] = None
+    ) -> None:
         """Install the trace: per-job bookkeeping + arrival/request events.
-        Call once; drive with ``advance`` afterwards."""
+        Call once; drive with ``advance``/``drain_running`` afterwards.
+        ``done`` maps job_id -> iterations already completed in an earlier
+        life of the job (crash recovery / a control-plane requeue): the job
+        resumes from that boundary instead of iteration 0."""
         if self._started:
             raise RuntimeError("Simulator.start() called twice; use a fresh instance")
         self._started = True
         self.memory.on_admit = self._on_admit
         self.memory.on_event = self._on_mem_event
+        done = done or {}
         # bulk load: arrival/request pushes append raw, one O(n) heapify at
         # the first pop — the difference between seeding a million-job trace
         # in tenths of a second vs. several
         self._q.defer()
         for job in jobs:
-            self.add_pending(job)
+            self.add_pending(job, done=done.get(job.job_id, 0))
+
+    @property
+    def pending_events(self) -> bool:
+        return bool(self._q)
+
+    def has_arrived(self, job_id: int) -> bool:
+        """Has this job's arrival event been processed (i.e. has it reached
+        this device's admission control)? Pre-arrival jobs may still be
+        re-placed onto another device without a migration."""
+        return job_id in self._arrived
 
     def advance(self, until: Optional[float] = None) -> None:
         """Process events up to ``until`` (inclusive; None = exhaustion).
         Iterations may *start* at any time <= until; ones still in flight at
-        the horizon stay in flight. The clock is
+        the horizon stay in flight (see ``drain_running``). The clock is
         clamped to the horizon so makespan bookkeeping never reflects a
         timestamp past it."""
         if not self._started:
             raise RuntimeError("advance() before start()")
         self._horizon = until  # bounds the solo fast-forward (see _start_iteration)
+        # kick-schedule: a no-op on a fresh start (no lanes yet), but after a
+        # migration boundary the migrated-in jobs hold lanes with no event to
+        # wake the scheduler — mirror the executor, whose epoch loop rescans
+        # candidates unconditionally
+        self._schedule()
+        self._idle_ticks(True)
         q = self._q
         while q:
             # drain the whole head bucket before scheduling: a batch of
@@ -189,6 +216,19 @@ class Simulator:
             self._schedule()
             self._idle_ticks(live)
         q.clamp(until)
+
+    def drain_running(self) -> None:
+        """Let in-flight iterations finish — processing their boundary ticks
+        and any simultaneous arrivals — WITHOUT starting new ones. After
+        this the device is quiescent (no ephemeral memory in use), the safe
+        point for cross-device migration. Mirrors the executor finishing
+        its current sweep after the epoch-loop condition trips."""
+        while self._running_iter and self._q:
+            # single-event pops, NOT pop_batch: draining stops the instant
+            # the last in-flight iteration completes, leaving any events tied
+            # at that timestamp (by ordinal order) queued for the next epoch
+            # — the executor's sweep exits at exactly the same point
+            self._handle(self._q.pop())
 
     def result(self) -> SimResult:
         """Snapshot the run into a :class:`SimResult` (idempotent)."""
@@ -215,26 +255,143 @@ class Simulator:
             decision_log=DecisionLog(mm.decision_log()),
         )
 
-    def add_pending(self, job: JobSpec) -> None:
+    # ------------------------------------------------------------------
+    # Migration / re-placement surface (driven by the Cluster at quiescent
+    # epoch boundaries; see cluster.py)
+    # ------------------------------------------------------------------
+
+    def migrate_out(self, job: JobSpec) -> Tuple[JobStats, float]:
+        """Remove ``job`` from this device for migration. Returns its stats
+        (carried to the destination: JCT spans devices) and the pending
+        delay the destination must charge before its next iteration — the
+        MIGRATE_OUT transfer plus any paging delay already owed here."""
+        jid = job.job_id
+        st_state = self._state.get(jid)
+        if st_state is None:
+            raise RuntimeError(f"migrate_out of unknown job {job.name}")
+        if st_state is JobState.RUNNING:
+            raise RuntimeError(
+                f"migrate_out of RUNNING job {job.name}: migrations happen at "
+                "iteration boundaries only (drain first)"
+            )
+        cost = self.memory.migrate_out(job, self._q.now)  # logs; charges stats
+        st = self._stats.pop(jid)
+        self._state.pop(jid)
+        self._jobs.pop(jid, None)
+        carry = self._transfer_delay.pop(jid, 0.0)
+        self._q.invalidate(jid)  # stale its queued events
+        self._arrived.discard(jid)
+        if self._last_ran == jid:
+            self._last_ran = None
+        return st, cost + carry
+
+    def migrate_in(
+        self,
+        job: JobSpec,
+        st: JobStats,
+        now: Optional[float] = None,
+        extra_delay: float = 0.0,
+    ) -> Optional[Lane]:
+        """Land a migrated job here, carrying its stats object so the job
+        appears in exactly one device's final accounting. ``extra_delay`` is
+        the source-side cost from ``migrate_out``; together with the
+        MIGRATE_IN transfer it delays the job's first iteration here."""
+        jid = job.job_id
+        self._q.clamp(now)
+        self._jobs[jid] = job
+        self._stats[jid] = st
+        self._state[jid] = JobState.QUEUED
+        self._arrived.add(jid)
+        if extra_delay:
+            self._transfer_delay[jid] = (
+                self._transfer_delay.get(jid, 0.0) + extra_delay
+            )
+        if job.request_times:
+            # future requests need wake events here; the already-arrived
+            # backlog is visible to candidate scans without one (neither
+            # engine revisits past request instants after a migration)
+            for k in range(st.iterations_done, len(job.request_times)):
+                rt = job.request_times[k]
+                if rt > self._q.now:
+                    self._q.push(rt, "request", job)
+        # logs MIGRATE_IN (the on-event hook charges its transfer delay),
+        # then the ordinary admission path: admit / queue / reject
+        return self.memory.migrate_in(job, self._q.now, self._busy())
+
+    def add_pending(self, job: JobSpec, done: int = 0) -> None:
         """Bind a not-yet-arrived job to this device: bookkeeping + arrival
-        (and request) events."""
+        (and request) events. Used at start() and by placement amendments.
+        ``done`` resumes the job at that iteration boundary (its first
+        ``done`` iterations ran in an earlier life — crash recovery)."""
         if job.job_id in self._jobs:
             raise ValueError(
                 f"duplicate job_id {job.job_id} ({job.name!r}): already bound here"
             )
+        if not (0 <= done < job.n_iters):
+            # a job with all its iterations committed is finished, not
+            # resumable — the control plane must not requeue it
+            raise ValueError(
+                f"resume point {done} outside [0, {job.n_iters}) for {job.name!r}"
+            )
         self._jobs[job.job_id] = job
-        self._stats[job.job_id] = JobStats(arrival_time=job.arrival_time)
+        self._stats[job.job_id] = JobStats(
+            arrival_time=job.arrival_time, iterations_done=done
+        )
         self._state[job.job_id] = JobState.QUEUED
         self._q.push(job.arrival_time, "arrival", job)
         if job.request_times:
             # open-loop services: each request arrival is an event that
             # wakes the scheduler (requests queue; they are not
-            # always-ready iterations)
-            for rt in job.request_times:
+            # always-ready iterations). Resumed jobs only need wake-ups
+            # for the requests they have not served yet.
+            for rt in job.request_times[done:]:
                 self._q.push(max(rt, job.arrival_time), "request", job)
 
+    def remove_pending(self, job: JobSpec) -> None:
+        """Un-bind a job whose arrival has NOT been processed yet (placement
+        amendment at a rebalance boundary). Its queued events go stale via
+        the generation stamp."""
+        jid = job.job_id
+        if jid in self._arrived:
+            raise RuntimeError(
+                f"remove_pending of already-arrived job {job.name}; migrate instead"
+            )
+        self._jobs.pop(jid, None)
+        self._stats.pop(jid, None)
+        self._state.pop(jid, None)
+        self._q.invalidate(jid)
+
+    def cancel(self, job: JobSpec) -> JobStats:
+        """Terminally cancel a job at a quiescent boundary: free its device
+        resources (lane / queue slot — the deficit-ordered retry fires like
+        a finish) and mark it :attr:`JobState.CANCELLED`. Its stats stay in
+        this device's accounting with ``finish_time`` None, so cancelled
+        jobs never count as completed. RUNNING jobs cannot be cancelled —
+        iteration granularity holds for the control plane too (drain
+        first)."""
+        jid = job.job_id
+        state = self._state.get(jid)
+        if state is None:
+            raise RuntimeError(f"cancel of unknown job {job.name}")
+        if state in (JobState.FINISHED, JobState.FAILED, JobState.CANCELLED):
+            raise RuntimeError(f"cancel of terminal job {job.name} ({state.value})")
+        if state is JobState.RUNNING:
+            raise RuntimeError(
+                f"cancel of RUNNING job {job.name}: cancellation happens at "
+                "iteration boundaries only (drain first)"
+            )
+        if self.has_arrived(jid):
+            # frees the lane (or queue slot / paged set); queued jobs get
+            # their deficit-ordered admission retry, exactly like a finish
+            self.memory.job_finish(job, self._q.now, self._busy())
+        self._state[jid] = JobState.CANCELLED
+        self._q.invalidate(jid)  # stale its queued events
+        if self._last_ran == jid:
+            self._last_ran = None
+        return self._stats[jid]
+
     # ------------------------------------------------------------------
-    # Internals (the run() loop, as instance state)
+    # Internals (the PR-4 run() loop, as instance state)
     # ------------------------------------------------------------------
 
     def _active_utilization(self) -> float:
@@ -268,7 +425,7 @@ class Simulator:
         self._last_on_device[switch_key] = job.job_id
         # contention freeze at start (see module docstring)
         contention = max(1.0, self._active_utilization() + job.utilization)
-        # paging transfers delay the affected job's next iteration
+        # paging/migration transfers delay the affected job's next iteration
         dur = (
             job.iter_time * contention
             + overhead
@@ -427,11 +584,19 @@ class Simulator:
             self._stats[ev.job_id].second_chances = self.memory.chances.get(
                 ev.job_id, 0
             )
+        elif ev.kind is MemoryEventKind.MIGRATE_OUT:
+            # stats still present (popped after the mm call); the cost is
+            # charged as a delay on the destination via migrate_out's return
+            self._stats[ev.job_id].transfer_time += ev.cost
+        elif ev.kind is MemoryEventKind.MIGRATE_IN:
+            self._stats[ev.job_id].transfer_time += ev.cost
+            self._transfer_delay[ev.job_id] = (
+                self._transfer_delay.get(ev.job_id, 0.0) + ev.cost
+            )
         else:
             # explicit default (RPL010): ADMIT / QUEUE / LANE_MOVED carry no
             # stats or state change here — admission state is applied by the
-            # on_admit callback, queueing leaves the job QUEUED as-is; no
-            # MIGRATE_* event arises without the migration surface
+            # on_admit callback, queueing leaves the job QUEUED as-is
             assert ev.kind in (
                 MemoryEventKind.ADMIT,
                 MemoryEventKind.QUEUE,
@@ -440,15 +605,20 @@ class Simulator:
 
     def _handle(self, ev: Event) -> bool:
         """Process one event. Returns False for *stale* events — wake-ups
-        that cannot change runnability (a request whose service is finished
-        or backlogged so its head request already arrived). Stale events must not trigger idle
+        that cannot change runnability (a migrated-away job's leftovers, or
+        a request whose service is finished or backlogged so its head
+        request already arrived). Stale events must not trigger idle
         boundary ticks: the executor only visits head-of-queue request
         instants (``_next_request_time``), and tick counts feed
         deficit/chances accounting, so an extra tick here would fork the
         two engines' decision sequences."""
         t, _seq, kind, job, _gen = ev
-        now = self._q.now
+        q = self._q
+        if q.is_stale(ev):
+            return False  # job migrated / re-placed away since this was queued
+        now = q.now
         if kind == "arrival":
+            self._arrived.add(job.job_id)
             # may admit (on_admit fires)
             self.memory.job_arrive(job, now, self._busy())
         elif kind == "request":

@@ -122,6 +122,10 @@ class JobSpec:
             return True
         return done < len(self.request_times) and self.request_times[done] <= now
 
+    @property
+    def total_work(self) -> float:
+        return self.n_iters * self.iter_time
+
     def __hash__(self) -> int:
         # the id itself, not builtin hash(): anything feeding ordering or
         # seeding must be stable across processes (PYTHONHASHSEED) — RPL003

@@ -34,6 +34,18 @@ LOG_NAME = "nvcc.log"
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_count_lock = threading.Lock()
+
+
+def count_launch(fn) -> None:
+    """Add one to ``fn.launches``, a wrapper's count of its kernel's
+    launches. Several threads launch at once (a fleet's workers, one a
+    device), and a bare ``fn.launches += 1`` is a read and a write that a
+    thread switch between them can lose an increment across; the lock
+    makes the count exact. Callers read the count and set it to 0 as a
+    plain attribute."""
+    with _count_lock:
+        fn.launches += 1
 
 
 def nvcc_path() -> str:

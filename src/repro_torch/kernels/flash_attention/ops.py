@@ -288,7 +288,7 @@ def _forward(q, k, v, causal, window, q_offset, want_lse):
         _build.current_stream(device.index),
     )
     _build.check(err, "flash_attention_fwd")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return out, lse
 
 
@@ -380,7 +380,7 @@ def flash_attention_bwd(
         _build.current_stream(device.index),
     )
     _build.check(err, "flash_attention_bwd")
-    flash_attention_bwd.launches += 1
+    _build.count_launch(flash_attention_bwd)
     return dq, dk, dv
 
 

@@ -223,7 +223,7 @@ def _forward(x, scale, residual, eps):
         _build.current_stream(device.index),
     )
     _build.check(err, "rmsnorm_fwd")
-    rmsnorm.launches += 1
+    _build.count_launch(rmsnorm)
     return out
 
 
@@ -290,7 +290,7 @@ def rmsnorm_bwd(
         device.index, stream,
     )
     _build.check(err, "rmsnorm_bwd")
-    rmsnorm_bwd.launches += 1
+    _build.count_launch(rmsnorm_bwd)
     return dx, dscale
 
 

@@ -115,7 +115,7 @@ def _wkv6(r, k, v, w, u, chunk, s0, ragged, column_tile):
         column_tile, dev, _build.current_stream(dev),
     )
     _build.check(err, "wkv6_fwd")
-    wkv6.launches += 1
+    _build.count_launch(wkv6)
     return o, state
 
 

@@ -1124,3 +1124,21 @@ def test_qwen2_vl_smoke_prefill_with_spliced_patches_kernel_matches_plain(cuda):
     linear = torch.arange(s, device=cuda).expand(b, 3, s).int()
     assert (models["kernel"].prefill(params, {**batch, "positions": linear})[0]
             - logits).abs().max() > 1e-3
+
+
+@pytest.mark.parametrize("concurrency", ["threads", "sequential"])
+def test_fleet_of_three_executors_migrates_on_one_card(cuda, concurrency):
+    """A three-executor ``ClusterExecutor`` on ``cuda:0`` with gemma-2b
+    smoke sessions (``chip_smoke.fleet_run``, paging on): it migrates, its
+    logs equal the port's ``Cluster``'s and every session's tokens repeat
+    bit for bit (the helper's checks), and K1 and K3 are launched exactly
+    a request's count a request."""
+    from chip_smoke import fleet_run, fleet_sessions, kernel_counters, launches_per_request
+
+    cfg = get_config("gemma-2b").smoke()
+    specs = fleet_sessions(cfg, cuda)
+    r = fleet_run(specs, cuda, True, kernel_counters(), concurrency=concurrency)
+    per = launches_per_request(cfg)
+    assert r["launches"]["rmsnorm"] == per["rmsnorm"] * r["iterations"] > 0
+    assert r["launches"]["flash_attention"] == per["flash_attention"] * r["iterations"] > 0
+    assert r["moves"] and all(m["out_gb"] > 0 and m["in_s"] > 0 for m in r["moves"])

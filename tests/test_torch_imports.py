@@ -59,6 +59,9 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.train.runtime",
         "repro_torch.core.events",
         "repro_torch.core.simulator",
+        "repro_torch.core.placement",
+        "repro_torch.core.fleet",
+        "repro_torch.core.cluster",
         "repro_torch.dist.fault",
     } <= set(mods)
     code = (
