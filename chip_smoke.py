@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, at
-first use), then runs thirteen phases, each printing JSON lines:
+first use), then runs fourteen phases, each printing JSON lines:
 
 1. env      — the card's name and power limit (nvidia-smi), torch/CUDA
               versions, the kernels' build time, and ptxas's registers and
@@ -140,6 +140,16 @@ first use), then runs thirteen phases, each printing JSON lines:
               sequential identical in their nominal data, exact launch
               counts; each migration's page-out and page-in seconds and
               GB beside the paging and differential phases' moves.
+14. ckpt    — checkpoints, the dist layer and gradient compression
+              (``phase_ckpt``): gemma-2b at full width and 2 layers on a
+              one-rank (1, 1) mesh; A, 4 steps from a seed; B, the same
+              saved after every step, killed at step 2 and restored onto
+              the mesh (``restore_on_mesh``), bit for bit A's; C, a
+              trainer session migrated between two executors through a
+              checkpoint (``migrate_in``'s ``put_fn``), bit for bit an
+              unmigrated one; D, int8 error-feedback compression of one
+              gradient tree, its payload equal to the CPU's; save, write
+              and restore seconds and GB/s, exact launch counts.
 Then the ``{"kernels": [...]}`` summary line.
 
 Any failed check raises and the script exits non-zero. The last line is
@@ -1251,7 +1261,7 @@ def phase_serve(archs=SERVE_ARCHS, configs=None, kinds=KERNEL_KINDS) -> dict:
 
 
 def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
-                 moe_res: dict, families_res: dict, fleet_res: dict) -> None:
+                 moe_res: dict, families_res: dict, fleet_res: dict, ckpt_res: dict) -> None:
     """The summary line: each kernel the serve and train paths launch. The
     forward kernels at their largest serve-path shape (bf16 for the norm
     and attention, whose largest is qwen3-8b's; fp32 for WKV6, rwkv6-7b's
@@ -1272,7 +1282,8 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
     serve prompt, (1, 2560), and one query against its ring at batch
     128), musicgen's 24/24 and qwen2-vl's 64/8 heads, with the families
     serve run's launches and a hymba request's. The fleet phase's launches
-    of K1 and K3, a run each (``launches_fleet``)."""
+    of K1 and K3, a run each (``launches_fleet``), and the ckpt phase's of
+    every kernel, a run each (``launches_ckpt``)."""
     rms = k[("rmsnorm", 64, 4096, "bfloat16")]
     rms_res = k[("rmsnorm_residual", 64, 4096, "bfloat16")]
     fa = k[("flash_attention", 4, 16, 32, 128, None, 0, "bfloat16")]
@@ -1299,6 +1310,7 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
     fam_flash.append({**at(hymba_decode), **{x: hymba_decode[x] for x in (
         "ms_by_form", "rel_fro_by_form", "control_rel_fro")}})
     decode = decode_res["launches"]
+    ckpt = lambda name: {run: n[name] for run, n in ckpt_res["launches"].items()}
     fa_decode = [{**at(k[("flash_decode", b, sk, hq, d)]),
                   **{x: k[("flash_decode", b, sk, hq, d)][x]
                      for x in ("ms_by_form", "rel_fro_by_form", "control_rel_fro")}}
@@ -1317,7 +1329,8 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
          "at_families": {"shapes": fam_norms,
                          "launches_families_serve": fam_serve["launches"]["rmsnorm"],
                          "launches_a_hymba_request": hymba_per["rmsnorm"]},
-         "launches_fleet": {run: n["rmsnorm"] for run, n in fleet_res["launches"].items()}},
+         "launches_fleet": {run: n["rmsnorm"] for run, n in fleet_res["launches"].items()},
+         "launches_ckpt": ckpt("rmsnorm")},
         {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
          "replaces": FLASH_TPU,
          "launches": serve_res["launches"]["flash_attention"], "shape": fa["shape"],
@@ -1336,17 +1349,20 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
                          "launches_families_serve": fam_serve["launches"]["flash_attention"],
                          "launches_a_hymba_request": hymba_per["flash_attention"]},
          "launches_fleet": {run: n["flash_attention"]
-                            for run, n in fleet_res["launches"].items()}},
+                            for run, n in fleet_res["launches"].items()},
+         "launches_ckpt": ckpt("flash_attention")},
         {"name": "wkv6", "route": "cuda", "source": WKV_SRC, "replaces": WKV_TPU,
          "launches": serve_res["launches"]["wkv6"], "shape": wkv["shape"],
          "dtype": "float32", **{x: wkv[x] for x in keys},
          "plain_chunked_ms": wkv["plain_chunked_ms"],
-         "launches_decode": decode["wkv6"], "at_decode": at(k[("wkv6", 128, 1, 1, "slow")])},
+         "launches_decode": decode["wkv6"], "at_decode": at(k[("wkv6", 128, 1, 1, "slow")]),
+         "launches_ckpt": ckpt("wkv6")},
         {"name": "rmsnorm_bwd", "route": "cuda", "source": RMS_SRC, "replaces": RMS_TPU,
          "backward_of": "rmsnorm (K1); no TPU counterpart",
          "launches": train["rmsnorm_bwd"], "launches_a_train_step": per_step["rmsnorm_bwd"],
          "shape": rms_bwd["shape"], "dtype": "bfloat16", **{x: rms_bwd[x] for x in keys},
-         "at_qk_norm": at(k[("rmsnorm_bwd", 131072, 128, "bfloat16")])},
+         "at_qk_norm": at(k[("rmsnorm_bwd", 131072, 128, "bfloat16")]),
+         "launches_ckpt": ckpt("rmsnorm_bwd")},
         {"name": "flash_attention_bwd", "route": "cuda", "source": FLASH_BWD_SRC,
          "replaces": FLASH_TPU, "backward_of": "flash_attention (K3); no TPU counterpart",
          "launches": train["flash_attention_bwd"],
@@ -1357,7 +1373,8 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
          "fp32_route": {
              "kernel_route": k[("flash_attention_bwd", 1, 4096, 8, 256, None, 0, "float32")]["route"],
              "at": [at(k[("flash_attention_bwd", 1, s, hq, d, None, 0, "float32")])
-                    for s, hq, d in ((4096, 8, 256), (4096, 32, 128), (512, 32, 128))]}},
+                    for s, hq, d in ((4096, 8, 256), (4096, 32, 128), (512, 32, 128))]},
+         "launches_ckpt": ckpt("flash_attention_bwd")},
     ]})
 
 
@@ -1746,10 +1763,10 @@ def launches_per_microbatch(cfg) -> dict:
             "flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers, "wkv6": 0}
 
 
-def train_model(kernel_mode: str = "kernel", compute_dtype: str = "bfloat16"):
-    """gemma-2b at full width and depth with the runtime tables' options
-    for TRAIN_4K, its run config at a global batch of TRAIN_BATCH, and its
-    AdamW config."""
+def train_model(kernel_mode: str = "kernel", compute_dtype: str = "bfloat16", n_layers=None):
+    """gemma-2b at full width and depth (or ``n_layers`` deep) with the
+    runtime tables' options for TRAIN_4K, its run config at a global batch
+    of TRAIN_BATCH, and its AdamW config."""
     from repro_torch.configs import TRAIN_4K, get_config
     from repro_torch.models import build_model
     from repro_torch.train.runtime import (
@@ -1758,7 +1775,7 @@ def train_model(kernel_mode: str = "kernel", compute_dtype: str = "bfloat16"):
         train_run_config_for,
     )
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(TRAIN_ARCH) if n_layers is None else depth_cut(TRAIN_ARCH, n_layers)
     shape = replace(TRAIN_4K, global_batch=TRAIN_BATCH)
     opts = replace(model_options_for(cfg, shape), kernel_mode=kernel_mode,
                    compute_dtype=compute_dtype)
@@ -3106,6 +3123,342 @@ def phase_fleet(paging_res: dict, diff_res: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: checkpoints, elastic restore, migration through a checkpoint,
+# gradient compression
+# ---------------------------------------------------------------------------
+
+CKPT_DEPTH = 2  # gemma-2b at full width, 2 of 18 layers (phase_ckpt)
+CKPT_STEPS = 4
+CKPT_FAIL_AT = 2  # run B is killed as it reaches this step
+CKPT_KEEP = 2
+CKPT_MIN_FREE_GB = 30
+CKPT_SEED = 25
+CKPT_ITER_TIME = 0.02  # declared seconds an iteration (nominal accounting)
+CKPT_BLOCK = 256  # the compressor's block
+
+
+def meta_template(tree):
+    """Shapes and dtypes of ``tree`` on the meta device (a restore's
+    template: no bytes)."""
+    from torch.utils import _pytree as pytree
+
+    return pytree.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), tree)
+
+
+def trees_equal(a, b) -> bool:
+    """Leaf for leaf, bit for bit (``DTensor`` leaves by their local
+    piece)."""
+    from torch.utils import _pytree as pytree
+
+    local = lambda t: t.to_local() if hasattr(t, "to_local") else t
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(local(x), local(y)) for x, y in zip(la, lb))
+
+
+def overlapped(spans, writes) -> bool:
+    """Whether any step span overlapped a checkpoint write in flight."""
+    return any(s0 < w["end"] and w["start"] < s1 for s0, s1 in spans for w in writes)
+
+
+def ckpt_runs(cfg, shape, model, run, ocfg, dev, mesh, workdir: str) -> dict:
+    """The ``ckpt`` phase's runs on ``dev`` and the one-device ``mesh``
+    (``phase_ckpt`` says what each holds), with their checks; also runs
+    on the CPU at a smoke config beside a gloo group of one rank."""
+    from pathlib import Path
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.core import GB, SalusExecutor, Session, get_policy, profile_model
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist.api import place
+    from repro_torch.dist.elastic import restore_on_mesh
+    from repro_torch.dist.fault import FailureInjector, RestartSupervisor
+    from repro_torch.dist.sharding import batch_shardings, param_shardings
+    from repro_torch.train.grad_compress import ErrorFeedbackCompressor, compress, wire_bytes
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import (
+        is_sharded,
+        make_train_step,
+        stack_grads,
+        value_and_grad,
+    )
+
+    opt = AdamW(ocfg)
+    step = make_train_step(model, opt, run)
+    pipe = SyntheticLM(cfg.vocab_size, shape.seq_len, shape.global_batch, seed=0)
+    data_fn = lambda i: {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch(i).items()}
+    b_sh = batch_shardings(cfg, shape, mesh)
+    counters = kernel_counters()
+    per_mb = launches_per_microbatch(cfg)
+    per_step = {k: run.num_microbatches * v for k, v in per_mb.items()}
+    launches = {}
+
+    def fresh():
+        params = model.init(torch.Generator(device=dev).manual_seed(CKPT_SEED))
+        return params, opt.init(params)
+
+    def on_mesh(tree):
+        return place(tree, param_shardings(tree, cfg, mesh))
+
+    def train(state, batch):  # plain tensors, or DTensors on the mesh
+        if is_sharded(state[0]):
+            batch = place(batch, b_sh)
+        params, opt_state, metrics = step(state[0], state[1], batch)
+        return (params, opt_state), metrics
+
+    def counted(key: str, n_steps: int, fn, per=per_step):
+        zero_counts(counters)
+        out = fn()
+        sync()
+        launches[key] = got = {name: c.launches for name, c in counters.items()}
+        want = {k: n_steps * v for k, v in per.items()}
+        check(got == want, f"ckpt {key}: launches {got} != {want}")
+        return out
+
+    # A: uninterrupted, on the mesh
+    def run_a():
+        state, losses = on_mesh(fresh()), []
+        for i in range(CKPT_STEPS):
+            state, m = train(state, data_fn(i))
+            losses.append(float(m["loss"]))
+        return state, losses
+
+    state_a, losses_a = counted("A", CKPT_STEPS, run_a)
+    check(all(math.isfinite(x) for x in losses_a), f"ckpt A: losses {losses_a}")
+
+    # B: saved after every step, killed at CKPT_FAIL_AT, restored onto the mesh
+    mgr = CheckpointManager(str(Path(workdir) / "B"), keep=CKPT_KEEP)
+    injector, sup = FailureInjector([CKPT_FAIL_AT]), RestartSupervisor(max_restarts=1)
+    b = {"losses": {}, "spans": [], "save_s": [], "restore": None}
+
+    def resume() -> int:
+        mgr.wait()  # drain the writes in flight before picking the latest
+        latest = mgr.latest_step()
+        if latest is None:
+            b["state"] = on_mesh(fresh())
+            return 0
+        template = meta_template(b["state"])  # the lost state's shapes only
+        b["state"] = None
+        gc.collect()
+        t0 = time.perf_counter()
+        got, b["state"], _ = restore_on_mesh(mgr, template, cfg, mesh)
+        sync()
+        nbytes = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(b["state"]))
+        b["restore"] = {"step": got, "s": time.perf_counter() - t0, "gb": nbytes / 1e9}
+        return got
+
+    def body(start: int) -> int:
+        for i in range(start, CKPT_STEPS):
+            injector.maybe_fail(i)
+            t0 = time.perf_counter()
+            b["state"], m = train(b["state"], data_fn(i))
+            b["losses"][i] = float(m["loss"])  # waits for the step
+            b["spans"].append((t0, time.perf_counter()))
+            t0 = time.perf_counter()
+            mgr.save(i + 1, b["state"])
+            b["save_s"].append(time.perf_counter() - t0)
+        mgr.wait()
+        return CKPT_STEPS
+
+    counted("B", CKPT_STEPS, lambda: sup.run(body, resume))
+    losses_b = [b["losses"][i] for i in range(CKPT_STEPS)]
+    check(sup.restarts == 1 and b["restore"]["step"] == CKPT_FAIL_AT,
+          f"ckpt B: {sup.restarts} restarts, restored {b['restore']}")
+    check(losses_b == losses_a, f"ckpt B: losses {losses_b} != A's {losses_a}")
+    check(trees_equal(b["state"], state_a), "ckpt B: params or state differ from A's")
+    left = sorted(p.name for p in mgr.dir.iterdir())
+    check(left == [f"step_{s:08d}" for s in range(CKPT_STEPS - CKPT_KEEP + 1, CKPT_STEPS + 1)],
+          f"ckpt B: {left} left in the checkpoint directory")
+    writes = [{"step": w["step"], "s": w["end"] - w["start"], "gb": w["bytes"] / 1e9,
+               "gb_per_s": w["bytes"] / 1e9 / (w["end"] - w["start"])} for w in mgr.writes]
+    overlap = overlapped(b["spans"], mgr.writes)
+    del state_a, b["state"]
+    gc.collect()
+
+    # C: a trainer session migrated between two executors through a checkpoint
+    params, opt_state = fresh()
+    prof = profile_model(model, params, data_fn(0), opt, run)
+    del params, opt_state
+    mgr_c = CheckpointManager(str(Path(workdir) / "C"), keep=CKPT_KEEP)
+
+    def executor():
+        return SalusExecutor(int(76 * GB), get_policy("fifo"), accounting="nominal", device=dev)
+
+    def session(name):
+        return Session(name, train, fresh(), data_fn, CKPT_STEPS, profile=prof,
+                       iter_time=CKPT_ITER_TIME, device=dev)
+
+    c = {}
+
+    def run_c():
+        ex0, ex1, ex2 = executor(), executor(), executor()
+        still = session(f"{cfg.name}:stays")
+        ex0.submit(still)
+        check(not ex0.run().failures, "ckpt C: the unmigrated session failed")
+        moved = session(f"{cfg.name}:moves")
+        ex1.submit(moved)
+        ex1.run_epoch(until=1.5 * CKPT_ITER_TIME)  # two iterations, then the boundary
+        check(moved.iterations_run == CKPT_FAIL_AT, f"ckpt C: {moved.iterations_run} iterations "
+                                                    f"before the migration")
+        sess, stats, delay = ex1.migrate_out(moved.job.job_id)
+        t0 = time.perf_counter()
+        mgr_c.save(CKPT_FAIL_AT, sess.state)
+        mgr_c.wait()
+        c["save_and_write_s"] = time.perf_counter() - t0
+        put = lambda tree: restore_on_mesh(mgr_c, meta_template(tree), cfg, mesh,
+                                           step=CKPT_FAIL_AT)[1]
+        ex2.migrate_in(sess, stats, delay, put_fn=put)
+        c["in_s"] = ex2.transfer_latencies[-1]
+        check(not ex2.run().failures, "ckpt C: the migrated session failed")
+        return still, moved
+
+    still, moved = counted("C", 2 * CKPT_STEPS, run_c)
+    losses_c = [[float(m["loss"]) for m in s.metrics_log] for s in (still, moved)]
+    check(is_sharded(moved.state[0]), "ckpt C: the migrated session's state is not on the mesh")
+    check(losses_c[0] == losses_c[1] == losses_a,
+          f"ckpt C: losses {losses_c} (stays, moves) != A's {losses_a}")
+    check(trees_equal(moved.state, still.state), "ckpt C: the migrated session's state differs")
+    del still, moved
+    gc.collect()
+
+    # D: int8 error-feedback compression of one gradient tree
+    params, opt_state = fresh()
+    one = SyntheticLM(cfg.vocab_size, shape.seq_len, 1, seed=1).batch(0)
+    one = {k: torch.from_numpy(v).to(dev) for k, v in one.items()}
+
+    def grad_pass():
+        loss, g = value_and_grad(model, params, one)
+        return loss, stack_grads(g)
+
+    loss_d, grads = counted("D", 1, grad_pass, per=per_mb)
+    comp = ErrorFeedbackCompressor(CKPT_BLOCK)
+    resid = comp.init(grads)
+    sync()
+    t0 = time.perf_counter()
+    deq, new_r = comp.apply(grads, resid)
+    sync()
+    apply_ms = 1e3 * (time.perf_counter() - t0)
+    worst, floored, residual_exact = 0.0, 0, True
+    for g, d, r in zip(*(pytree.tree_leaves(t) for t in (grads, deq, new_r))):
+        pad = (-g.numel()) % CKPT_BLOCK
+        blocks = torch.nn.functional.pad(g.reshape(-1), (0, pad)).reshape(-1, CKPT_BLOCK)
+        err = torch.nn.functional.pad((d - g).abs().reshape(-1), (0, pad)).reshape(-1, CKPT_BLOCK)
+        # half the block's scale, max|x| / 254, or half the scale's floor
+        # 1e-12 where max|x| is under 1.27e-10
+        scale = blocks.abs().amax(dim=1) / 127
+        floored += int((scale < 1e-12).sum())
+        worst = max(worst, float((err.amax(dim=1) / (torch.clamp(scale, min=1e-12) / 2)).max()))
+        residual_exact &= torch.equal(r, g.float() - d)
+    embed = grads["embed"]["table"]
+    t0 = time.perf_counter()
+    on_card = compress(embed, CKPT_BLOCK)
+    sync()
+    compress_ms = 1e3 * (time.perf_counter() - t0)
+    on_cpu = compress(embed.cpu(), CKPT_BLOCK)
+    payload_equal = torch.equal(on_card["q"].cpu(), on_cpu["q"]) and torch.equal(
+        on_card["scale"].cpu().view(torch.int32), on_cpu["scale"].view(torch.int32))
+    full, wire = wire_bytes(grads, False, CKPT_BLOCK), wire_bytes(grads, True, CKPT_BLOCK)
+    del on_card, on_cpu, resid, new_r, grads
+    _, _, metrics_d = opt.update(deq, opt_state, params)
+    del deq
+    params_finite = all(bool(torch.isfinite(t).all()) for t in pytree.tree_leaves(params))
+    loss_after = counted("D_step", 1, lambda: grad_pass()[0], per=per_mb)  # after the step
+    check(worst <= 1 + 1e-4, f"ckpt D: an element {worst} x its block's max|x|/254 off "
+                             f"({floored} blocks at the scale floor)")
+    check(residual_exact, "ckpt D: the residual is not corrected - deq")
+    check(payload_equal, "ckpt D: the embedding gradient's payload differs from the CPU's")
+    check(4 * CKPT_BLOCK * wire == (CKPT_BLOCK + 4) * full,  # 1/4 + 1/block
+          f"ckpt D: wire bytes {wire} over {full} != 0.25 + 1/{CKPT_BLOCK}")
+    check(math.isfinite(float(loss_after)) and params_finite and int(metrics_d["step"]) == 1,
+          f"ckpt D: loss after the step {float(loss_after)}, params finite {params_finite}")
+    del params, opt_state
+    gc.collect()
+    return {
+        "losses": losses_a, "launches": launches, "launches_per_step": per_step,
+        "restarts": sup.restarts, "left": left,
+        "save_return_s": b["save_s"], "writes": writes, "step_overlapped_write": overlap,
+        "step_s": [s1 - s0 for s0, s1 in b["spans"]], "restore": b["restore"],
+        "migration": {**c, "checkpoint_gb": mgr_c.writes[-1]["bytes"] / 1e9,
+                      "write_s": mgr_c.writes[-1]["end"] - mgr_c.writes[-1]["start"]},
+        "compression": {"apply_ms": apply_ms, "embed_compress_ms": compress_ms,
+                        "embed_elements": embed.numel(), "worst_err_over_bound": worst,
+                        "blocks_at_scale_floor": floored,
+                        "residual_exact": residual_exact, "payload_equals_cpu": payload_equal,
+                        "wire_ratio": wire / full, "loss": float(loss_d),
+                        "loss_after_step": float(loss_after)},
+    }
+
+
+def phase_ckpt() -> dict:
+    """Checkpoints, the dist layer and gradient compression on the card:
+    gemma-2b at full width, depth cut from 18 to ``CKPT_DEPTH`` layers
+    (0.744e9 params: params and fp32 AdamW m and v are 8.93 GB a
+    checkpoint, where full depth would write 30 GB to a disk of unknown
+    size), fp32 params, the train phase's runtime-table options (4
+    microbatches of one 4096-token sequence, remat, bf16 compute) through
+    K1, K3, B1 and B2, on a one-rank NCCL group (a ``HashStore``: no
+    network) and its (1, 1) ``data, model`` mesh; ``CheckpointManager``
+    keeping ``CKPT_KEEP`` in a temporary directory with at least
+    ``CKPT_MIN_FREE_GB`` free, removed at the end.
+
+    A: ``CKPT_STEPS`` steps on the mesh from ``CKPT_SEED``. B: the same,
+    saved asynchronously after every step, killed at ``CKPT_FAIL_AT`` by
+    ``FailureInjector`` under ``RestartSupervisor``; the resume waits for
+    the writer, then ``restore_on_mesh`` from a meta-device template, and
+    runs the rest: losses, params and AdamW state equal A's bit for bit,
+    ``CKPT_KEEP`` step directories and no ``.tmp`` left. C: a trainer
+    session on one ``SalusExecutor`` migrated out after ``CKPT_FAIL_AT``
+    iterations, saved, and migrated in on a second executor through a
+    ``put_fn`` that is ``restore_on_mesh`` of that checkpoint: its losses
+    and final state equal an unmigrated session's (plain tensors, not on
+    the mesh) bit for bit. D: ``ErrorFeedbackCompressor`` on one
+    gradient tree of a (1, 4096) batch: each element within its block's
+    max|x|/254 (half its scale; a block under the scale floor 1e-12 within
+    half the floor), the residual exactly corrected - deq, the embedding
+    gradient's payload equal to the CPU's, wire bytes 0.25 + 1/256 of
+    fp32's, and an AdamW step on the compressed gradients after which the
+    loss (one more gradient pass, ``D_step``) is finite. The kernels'
+    launches are counted a run: the train phase's per-step counts at this
+    depth times its steps. Printed with the card and its power limit:
+    ``save()``'s return time (the host snapshot), the writer's seconds and
+    GB/s and whether a step overlapped a write in flight, the restore's
+    seconds and GB/s, the compressor's ms, and the phase's wall time."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the ckpt phase runs on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    cfg, shape, model, run, ocfg = train_model(n_layers=CKPT_DEPTH)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        free_gb = shutil.disk_usage(workdir).free / 1e9
+        check(free_gb >= CKPT_MIN_FREE_GB,
+              f"{workdir}: {free_gb:.1f} GB free; the ckpt phase needs {CKPT_MIN_FREE_GB}")
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        res = ckpt_runs(cfg, shape, model, run, ocfg, torch.device("cuda"), mesh, workdir)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    res = {"phase": "ckpt", "nvidia_smi": smi, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "params": cfg.param_count(), "free_gb": free_gb,
+           "microbatches": run.num_microbatches, **res, "wall_s": time.perf_counter() - t0}
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3134,7 +3487,8 @@ def main() -> int:
     families_res = phase_families()
     diff_res = phase_differential(paging_res)
     fleet_res = phase_fleet(paging_res, diff_res)
-    kernels_line(k, serve_res, train_res, decode_res, moe_res, families_res, fleet_res)
+    ckpt_res = phase_ckpt()
+    kernels_line(k, serve_res, train_res, decode_res, moe_res, families_res, fleet_res, ckpt_res)
     emit({"phase": "done", "wall_s": time.perf_counter() - t0})
     emit({"ok": True, "device": {
         "platform": "gpu",

@@ -10,7 +10,7 @@ global batch.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Dict
+from typing import Any, Dict
 
 
 @dataclass(frozen=True)
@@ -173,3 +173,43 @@ class ArchConfig:
             n_frontend_tokens=4 if self.n_frontend_tokens else 0,
             rope_theta=10_000.0,
         )
+
+
+def batch_spec(arch: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """Describe the *host-level* input batch for one step as
+    {name: (shape_tuple, dtype_str)} (the JAX package's ``batch_spec``).
+    ``dist.sharding.batch_shardings`` lays these out on a mesh; the data
+    pipeline materializes real arrays of the same spec."""
+    b, s = shape.global_batch, shape.seq_len
+    specs: Dict[str, Any] = {}
+    if shape.kind == "train":
+        if arch.frontend == "audio_frames":
+            # EnCodec frame embeddings are precomputed by the (stub) frontend.
+            specs["frame_embeds"] = ((b, s, arch.d_model), "bfloat16")
+            specs["labels"] = ((b, s), "int32")
+        else:
+            specs["tokens"] = ((b, s), "int32")
+            specs["labels"] = ((b, s), "int32")
+        if arch.frontend == "vision_patches":
+            specs["patch_embeds"] = ((b, arch.n_frontend_tokens, arch.d_model), "bfloat16")
+        if arch.rope_variant == "mrope":
+            specs["positions"] = ((b, 3, s), "int32")
+    elif shape.kind == "prefill":
+        if arch.frontend == "audio_frames":
+            specs["frame_embeds"] = ((b, s, arch.d_model), "bfloat16")
+        else:
+            specs["tokens"] = ((b, s), "int32")
+        if arch.frontend == "vision_patches":
+            specs["patch_embeds"] = ((b, arch.n_frontend_tokens, arch.d_model), "bfloat16")
+        if arch.rope_variant == "mrope":
+            specs["positions"] = ((b, 3, s), "int32")
+    elif shape.kind == "decode":
+        if arch.frontend == "audio_frames":
+            specs["frame_embeds"] = ((b, 1, arch.d_model), "bfloat16")
+        else:
+            specs["tokens"] = ((b, 1), "int32")
+        if arch.rope_variant == "mrope":
+            specs["positions"] = ((b, 3, 1), "int32")
+    else:
+        raise ValueError(f"unknown shape kind {shape.kind}")
+    return specs

@@ -1,4 +1,24 @@
-"""Distributed-execution support for the port. So far only
-:mod:`repro_torch.dist.fault`: straggler monitoring, failure injection and
-restart supervision (a copy of the JAX package's ``dist/fault.py``, which
-touches no device state)."""
+"""Distributed-execution primitives for the port: logical-axis sharding,
+fault tolerance, and elastic mesh reconfiguration (the JAX package's
+``dist``).
+
+Layers:
+  * :mod:`repro_torch.dist.api` — ``constrain`` / ``constrain_weight`` /
+    ``use_sharding``, specs as DTensor placements, and ``place``. Every
+    constraint is a no-op when no sharding context is active, so
+    single-device paths run unchanged.
+  * :mod:`repro_torch.dist.sharding` — the ``_PARAM_RULES`` path-pattern
+    table plus param/batch/cache layout builders.
+  * :mod:`repro_torch.dist.fault` — straggler monitoring, failure
+    injection, restart supervision (host-side; a copy of the JAX
+    package's).
+  * :mod:`repro_torch.dist.elastic` — checkpoint restore onto a different
+    (shrunk/grown) mesh.
+"""
+from repro_torch.dist.api import (  # noqa: F401
+    ShardingContext,
+    constrain,
+    constrain_weight,
+    current,
+    use_sharding,
+)

@@ -53,18 +53,27 @@ def cosine_lr(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tree: Pytree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's fp32 sum of squares (a 0-d fp32
-    tensor on the leaves' device). Each sum of squares is one fp32 dot
-    product of the flattened leaf with itself: no leaf-sized temporary."""
+def sum_of_squares(t: torch.Tensor) -> torch.Tensor:
+    """A leaf's fp32 sum of squares: one fp32 dot product of the flattened
+    leaf with itself, no leaf-sized temporary."""
+    x = t.float().reshape(-1)
+    return torch.dot(x, x)
+
+
+def norm_of_squares(squares) -> torch.Tensor:
+    """sqrt of the sum of per-leaf sums of squares, added in leaf order."""
     total = None
-    for t in pytree.tree_leaves(tree):
-        x = t.float().reshape(-1)
-        sq = torch.dot(x, x)
+    for sq in squares:
         total = sq if total is None else total + sq
     if total is None:
         return torch.zeros((), dtype=torch.float32)
     return torch.sqrt(total)
+
+
+def global_norm(tree: Pytree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's fp32 sum of squares (a 0-d fp32
+    tensor on the leaves' device)."""
+    return norm_of_squares(sum_of_squares(t) for t in pytree.tree_leaves(tree))
 
 
 def clip_by_global_norm(tree: Pytree, max_norm: float) -> Tuple[Pytree, torch.Tensor]:
@@ -115,10 +124,13 @@ class AdamW:
         }
 
     @torch.no_grad()
-    def update(self, grads: Pytree, state: Dict, params: Pytree) -> Tuple[Pytree, Dict, Dict]:
+    def update(self, grads: Pytree, state: Dict, params: Pytree,
+               grad_norm: Optional[torch.Tensor] = None) -> Tuple[Pytree, Dict, Dict]:
         """One step: returns ``(params, state, metrics)``, params and
         ``state``'s m, v and step updated in place. ``grads`` may be
-        overwritten (clipped in place)."""
+        overwritten (clipped in place). ``grad_norm``: the global norm
+        when the trees are this rank's shards of larger ones (the step on
+        a mesh); otherwise the norm of ``grads``."""
         cfg = self.cfg
         state["step"] += 1
         step = state["step"]
@@ -129,7 +141,7 @@ class AdamW:
         ):
             raise ValueError("params, grads and the moments must be trees of one structure")
         flat_p, flat_g, flat_m, flat_v = leaves
-        gnorm = global_norm(flat_g)
+        gnorm = global_norm(flat_g) if grad_norm is None else grad_norm
         if cfg.grad_clip > 0:  # clip_by_global_norm, in place where the dtype allows
             scale = _clip_scale(gnorm, cfg.grad_clip)
             flat_g = [_scaled(g, scale) for g in flat_g]

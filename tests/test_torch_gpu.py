@@ -1142,3 +1142,74 @@ def test_fleet_of_three_executors_migrates_on_one_card(cuda, concurrency):
     assert r["launches"]["rmsnorm"] == per["rmsnorm"] * r["iterations"] > 0
     assert r["launches"]["flash_attention"] == per["flash_attention"] * r["iterations"] > 0
     assert r["moves"] and all(m["out_gb"] > 0 and m["in_s"] > 0 for m in r["moves"])
+
+
+@pytest.mark.parametrize("shape,block", [((4099, 1000), 256), ((37,), 16), ((3, 5, 7), 64)])
+def test_compress_payload_on_cuda_equals_cpu(cuda, shape, block):
+    """The int8 payload and fp32 scales of a CUDA tensor equal those of
+    the same values on the CPU, bit for bit."""
+    from repro_torch.train.grad_compress import compress, decompress
+
+    gen = torch.Generator(device=cuda).manual_seed(block)
+    x = torch.randn(shape, generator=gen, device=cuda) * 10.0 ** torch.randint(
+        -3, 4, shape, generator=gen, device=cuda)
+    ours, cpu = compress(x, block), compress(x.cpu(), block)
+    assert torch.equal(ours["q"].cpu(), cpu["q"])
+    assert torch.equal(ours["scale"].cpu().view(torch.int32), cpu["scale"].view(torch.int32))
+    y = decompress(ours, x.shape, block)
+    assert y.is_cuda and torch.equal(y.cpu(), decompress(cpu, x.shape, block))
+
+
+def test_checkpoint_round_trip_of_cuda_leaves(cuda, tmp_path):
+    """CUDA leaves (fp32, bf16, int64) saved asynchronously and updated in
+    place before the writer runs: the checkpoint holds the values at the
+    save, bit for bit, and restores into a CUDA template's dtypes."""
+    import threading
+
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"w": torch.randn(300, 70, generator=gen, device=cuda),
+            "h": torch.randn(64, generator=gen, device=cuda).to(torch.bfloat16),
+            "step": torch.tensor(3, dtype=torch.int64, device=cuda)}
+    before = {k: v.cpu() for k, v in tree.items()}
+    mgr = CheckpointManager(tmp_path)
+    gate = threading.Event()
+    write = mgr._write
+    mgr._write = lambda *a: (gate.wait(10), write(*a))
+    mgr.save(1, tree)
+    for t in tree.values():
+        t.add_(1)
+    gate.set()
+    mgr.wait()
+    _, restored, _ = mgr.restore_tree(tree)
+    for k, v in restored.items():
+        assert v.dtype == before[k].dtype and torch.equal(v, before[k]), k
+
+
+def test_ckpt_phase_runs_at_smoke_size(cuda, tmp_path, monkeypatch):
+    """``chip_smoke.ckpt_runs`` on gemma-2b smoke: the killed-and-restored
+    run and the checkpoint-migrated session equal the uninterrupted ones
+    bit for bit, the compression checks hold, and the kernels launch
+    exactly a step's count a step (its checks), on a one-rank NCCL group."""
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.runtime import adamw_config_for
+    from repro_torch.train.train_step import TrainRunConfig
+
+    monkeypatch.setattr(cs, "CKPT_BLOCK", 16)  # the smoke leaves are multiples of 16
+    cfg = get_config("gemma-2b").smoke()
+    model = build_model(cfg, ModelOptions(loss_chunk=8))
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        res = cs.ckpt_runs(cfg, ShapeConfig("t", "train", 64, 4), model,
+                           TrainRunConfig(num_microbatches=2), adamw_config_for(cfg),
+                           cuda, mesh, str(tmp_path))
+    finally:
+        dist.destroy_process_group()
+    assert res["restarts"] == 1 and res["left"] == ["step_00000003", "step_00000004"]
+    assert res["launches"]["A"]["rmsnorm"] > 0 and res["launches"]["A"]["flash_attention_bwd"] > 0

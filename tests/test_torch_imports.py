@@ -63,6 +63,12 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.core.fleet",
         "repro_torch.core.cluster",
         "repro_torch.dist.fault",
+        "repro_torch.ckpt.checkpoint",
+        "repro_torch.train.grad_compress",
+        "repro_torch.launch.mesh",
+        "repro_torch.dist.api",
+        "repro_torch.dist.sharding",
+        "repro_torch.dist.elastic",
     } <= set(mods)
     code = (
         "import importlib, sys\n"
