@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, at
-first use), then runs fourteen phases, each printing JSON lines:
+first use), then runs fifteen phases, each printing JSON lines:
 
 1. env      — the card's name and power limit (nvidia-smi), torch/CUDA
               versions, the kernels' build time, and ptxas's registers and
@@ -150,6 +150,18 @@ first use), then runs fourteen phases, each printing JSON lines:
               unmigrated one; D, int8 error-feedback compression of one
               gradient tree, its payload equal to the CPU's; save, write
               and restore seconds and GB/s, exact launch counts.
+15. cli     — the training CLI (``repro_torch.launch.train``, the loop its
+              ``main`` runs) and the example twins (``phase_cli``):
+              gemma-2b at full width and depth, 3 steps of the train
+              phase's shape on a one-rank (1, 1) mesh, then with
+              ``--compress-grads``, each step's seconds and the peak
+              memory; at the ckpt phase's depth, a run saved every 2 steps,
+              the same killed at step 3 and resumed, its final checkpoint
+              bit for bit the first's, and a second call resuming from a
+              meta template; ``examples/torch``'s train_lm (300 steps,
+              ``loss < 4.0``), hyperparam_tuning (PACK and FIFO),
+              inference_packing (12 services) and quickstart; exact launch
+              counts.
 Then the ``{"kernels": [...]}`` summary line.
 
 Any failed check raises and the script exits non-zero. The last line is
@@ -1261,7 +1273,8 @@ def phase_serve(archs=SERVE_ARCHS, configs=None, kinds=KERNEL_KINDS) -> dict:
 
 
 def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
-                 moe_res: dict, families_res: dict, fleet_res: dict, ckpt_res: dict) -> None:
+                 moe_res: dict, families_res: dict, fleet_res: dict, ckpt_res: dict,
+                 cli_res: dict) -> None:
     """The summary line: each kernel the serve and train paths launch. The
     forward kernels at their largest serve-path shape (bf16 for the norm
     and attention, whose largest is qwen3-8b's; fp32 for WKV6, rwkv6-7b's
@@ -1282,8 +1295,10 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
     serve prompt, (1, 2560), and one query against its ring at batch
     128), musicgen's 24/24 and qwen2-vl's 64/8 heads, with the families
     serve run's launches and a hymba request's. The fleet phase's launches
-    of K1 and K3, a run each (``launches_fleet``), and the ckpt phase's of
-    every kernel, a run each (``launches_ckpt``)."""
+    of K1 and K3, a run each (``launches_fleet``), the ckpt phase's of
+    every kernel, a run each (``launches_ckpt``), and the cli phase's, a
+    run each (``launches_cli``: the full-depth CLI runs, the resume's A,
+    B and C, each example)."""
     rms = k[("rmsnorm", 64, 4096, "bfloat16")]
     rms_res = k[("rmsnorm_residual", 64, 4096, "bfloat16")]
     fa = k[("flash_attention", 4, 16, 32, 128, None, 0, "bfloat16")]
@@ -1311,6 +1326,10 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
         "ms_by_form", "rel_fro_by_form", "control_rel_fro")}})
     decode = decode_res["launches"]
     ckpt = lambda name: {run: n[name] for run, n in ckpt_res["launches"].items()}
+    cli_runs = {**{f"full_depth_{r}": v for r, v in cli_res["full_depth"].items()},
+                **{f"resume_{r}": cli_res["resume"][r] for r in "ABC"},
+                **{f"example_{r}": v for r, v in cli_res["examples"].items()}}
+    cli = lambda name: {run: v["launches"][name] for run, v in cli_runs.items()}
     fa_decode = [{**at(k[("flash_decode", b, sk, hq, d)]),
                   **{x: k[("flash_decode", b, sk, hq, d)][x]
                      for x in ("ms_by_form", "rel_fro_by_form", "control_rel_fro")}}
@@ -1330,7 +1349,8 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
                          "launches_families_serve": fam_serve["launches"]["rmsnorm"],
                          "launches_a_hymba_request": hymba_per["rmsnorm"]},
          "launches_fleet": {run: n["rmsnorm"] for run, n in fleet_res["launches"].items()},
-         "launches_ckpt": ckpt("rmsnorm")},
+         "launches_ckpt": ckpt("rmsnorm"),
+         "launches_cli": cli("rmsnorm")},
         {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
          "replaces": FLASH_TPU,
          "launches": serve_res["launches"]["flash_attention"], "shape": fa["shape"],
@@ -1350,19 +1370,22 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
                          "launches_a_hymba_request": hymba_per["flash_attention"]},
          "launches_fleet": {run: n["flash_attention"]
                             for run, n in fleet_res["launches"].items()},
-         "launches_ckpt": ckpt("flash_attention")},
+         "launches_ckpt": ckpt("flash_attention"),
+         "launches_cli": cli("flash_attention")},
         {"name": "wkv6", "route": "cuda", "source": WKV_SRC, "replaces": WKV_TPU,
          "launches": serve_res["launches"]["wkv6"], "shape": wkv["shape"],
          "dtype": "float32", **{x: wkv[x] for x in keys},
          "plain_chunked_ms": wkv["plain_chunked_ms"],
          "launches_decode": decode["wkv6"], "at_decode": at(k[("wkv6", 128, 1, 1, "slow")]),
-         "launches_ckpt": ckpt("wkv6")},
+         "launches_ckpt": ckpt("wkv6"),
+         "launches_cli": cli("wkv6")},
         {"name": "rmsnorm_bwd", "route": "cuda", "source": RMS_SRC, "replaces": RMS_TPU,
          "backward_of": "rmsnorm (K1); no TPU counterpart",
          "launches": train["rmsnorm_bwd"], "launches_a_train_step": per_step["rmsnorm_bwd"],
          "shape": rms_bwd["shape"], "dtype": "bfloat16", **{x: rms_bwd[x] for x in keys},
          "at_qk_norm": at(k[("rmsnorm_bwd", 131072, 128, "bfloat16")]),
-         "launches_ckpt": ckpt("rmsnorm_bwd")},
+         "launches_ckpt": ckpt("rmsnorm_bwd"),
+         "launches_cli": cli("rmsnorm_bwd")},
         {"name": "flash_attention_bwd", "route": "cuda", "source": FLASH_BWD_SRC,
          "replaces": FLASH_TPU, "backward_of": "flash_attention (K3); no TPU counterpart",
          "launches": train["flash_attention_bwd"],
@@ -1374,7 +1397,8 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
              "kernel_route": k[("flash_attention_bwd", 1, 4096, 8, 256, None, 0, "float32")]["route"],
              "at": [at(k[("flash_attention_bwd", 1, s, hq, d, None, 0, "float32")])
                     for s, hq, d in ((4096, 8, 256), (4096, 32, 128), (512, 32, 128))]},
-         "launches_ckpt": ckpt("flash_attention_bwd")},
+         "launches_ckpt": ckpt("flash_attention_bwd"),
+         "launches_cli": cli("flash_attention_bwd")},
     ]})
 
 
@@ -1400,7 +1424,7 @@ def moe_trace(replay=None):
     order in place of the top-k, the gates renormalised from the block's
     own probabilities: two numerics can then be held against each other on
     one routing. It wraps ``moe.route`` and ``moe._dispatch_indices``,
-    which ``moe._moe_groups`` calls through the module; a replayed block
+    which ``moe_apply`` calls through the module; a replayed block
     that does not fit raises."""
     from repro_torch.models import moe
 
@@ -1419,11 +1443,11 @@ def moe_trace(replay=None):
             gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
         return gate_vals, expert_idx, probs
 
-    def traced_dispatch(expert_idx, n_experts, capacity):
+    def traced_dispatch(expert_idx, n_experts, capacity, base=None):
         if current and current.pop().capacity != capacity:
             raise RuntimeError("moe_trace: the replayed routing's capacity differs")
         log.append(Routing(expert_idx, n_experts, capacity))
-        return dispatch(expert_idx, n_experts, capacity)
+        return dispatch(expert_idx, n_experts, capacity, base)
 
     moe.route, moe._dispatch_indices = traced_route, traced_dispatch
     try:
@@ -3458,6 +3482,237 @@ def phase_ckpt() -> dict:
     return res
 
 
+CLI_STEPS = 3  # the full-depth runs' steps
+# the CLI's flags at the train phase's shape: TRAIN_4K, batch 4, 4 microbatches
+CLI_SHAPE = ("--seq-len", "4096", "--batch", "4", "--microbatches", "4", "--log-every", "1")
+CLI_RESUME_STEPS, CLI_CKPT_EVERY, CLI_FAIL_AT, CLI_MORE_STEPS = 4, 2, 3, 6
+EXAMPLES = ("train_lm", "hyperparam_tuning", "inference_packing", "quickstart")
+
+
+def cli_run(cfg, argv, counters: dict, want: dict) -> dict:
+    """One call of the training CLI's loop (``repro_torch.launch.train.run``,
+    what its ``main`` hands the parsed flags to) on ``cfg`` with the flags
+    ``argv``: its record (each step's loss and seconds, the steps resumed
+    from, restarts), its printed lines, its wall seconds, each
+    ``restore_on_mesh``'s seconds, and the kernels' launches, which must
+    equal ``want``."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as cli
+
+    args = cli.build_parser().parse_args(["--arch", cfg.name, *argv])
+    restore, restores = cli.restore_on_mesh, []
+
+    def timed_restore(*a, **k):
+        t0 = time.perf_counter()
+        out = restore(*a, **k)
+        sync()
+        restores.append(time.perf_counter() - t0)
+        return out
+
+    zero_counts(counters)
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    cli.restore_on_mesh = timed_restore
+    try:
+        with contextlib.redirect_stdout(printed):
+            rec = cli.run(cfg, args)
+        sync()
+    finally:
+        cli.restore_on_mesh = restore
+    rec.update(wall_s=time.perf_counter() - t0, restore_s=restores,
+               printed=printed.getvalue().splitlines(),
+               launches={name: c.launches for name, c in counters.items()})
+    check(rec["launches"] == want, f"cli {argv}: launches {rec['launches']} != {want}")
+    losses = [rec["losses"][i] for i in sorted(rec["losses"])]
+    check(all(math.isfinite(x) for x in losses), f"cli {argv}: losses {losses}")
+    return rec
+
+
+def read_checkpoint(directory: str) -> tuple:
+    """The latest step of a checkpoint directory and its leaves as bytes."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+
+    step, leaves, _ = CheckpointManager(directory, async_save=False).restore()
+    return step, {k: (str(a.dtype), a.shape, a.tobytes()) for k, a in leaves.items()}
+
+
+def cli_resume(cfg, shape_argv, workdir: str, counters: dict, per_step: dict) -> dict:
+    """The CLI's checkpointed runs on ``cfg``: A, ``CLI_RESUME_STEPS`` steps
+    saved every ``CLI_CKPT_EVERY``; B, the same killed at ``CLI_FAIL_AT``
+    by ``--inject-failure``, resumed from the step before it with the live
+    state as the template, its final checkpoint equal to A's bit for bit
+    (A's read back and its directory removed before B runs); C, a second
+    call on B's directory to ``CLI_MORE_STEPS`` steps, resumed through a
+    meta-device template. ``per_step``: a step's launches."""
+    import shutil
+    from pathlib import Path
+
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+
+    def argv(steps, d, *extra):
+        return [*shape_argv, "--steps", str(steps), "--ckpt-every", str(CLI_CKPT_EVERY),
+                "--ckpt-dir", str(Path(workdir) / d), *extra]
+
+    steps = lambda n: {k: n * v for k, v in per_step.items()}
+    a = cli_run(cfg, argv(CLI_RESUME_STEPS, "A"), counters, steps(CLI_RESUME_STEPS))
+    step_a, leaves_a = read_checkpoint(str(Path(workdir) / "A"))
+    shutil.rmtree(Path(workdir) / "A")
+    resumed_at = CLI_FAIL_AT - CLI_FAIL_AT % CLI_CKPT_EVERY
+    b = cli_run(cfg, argv(CLI_RESUME_STEPS, "B", "--inject-failure", str(CLI_FAIL_AT)), counters,
+                steps(CLI_FAIL_AT + CLI_RESUME_STEPS - resumed_at))
+    check(b["restarts"] == 1 and b["resumed"] == [resumed_at],
+          f"cli B: {b['restarts']} restarts, resumed from {b['resumed']}")
+    check(f"[train] resumed from checkpoint step {resumed_at}" in b["printed"]
+          and "[train] completed after 1 restart(s)" in b["printed"], f"cli B printed {b['printed']}")
+    check(b["losses"] == a["losses"], f"cli B: losses {b['losses']} != A's {a['losses']}")
+    step_b, leaves_b = read_checkpoint(str(Path(workdir) / "B"))
+    check(step_a == step_b == CLI_RESUME_STEPS and leaves_b == leaves_a,
+          f"cli B: its step-{step_b} checkpoint is not A's step-{step_a} bit for bit")
+    gb = sum(len(v[2]) for v in leaves_a.values()) / 1e9
+    del leaves_a, leaves_b
+    c = cli_run(cfg, argv(CLI_MORE_STEPS, "B"), counters, steps(CLI_MORE_STEPS - CLI_RESUME_STEPS))
+    latest = CheckpointManager(str(Path(workdir) / "B"), async_save=False).latest_step()
+    check(c["resumed"] == [CLI_RESUME_STEPS] and latest == CLI_MORE_STEPS
+          and sorted(c["losses"]) == list(range(CLI_RESUME_STEPS, CLI_MORE_STEPS)),
+          f"cli C: resumed from {c['resumed']}, latest step {latest}")
+    shutil.rmtree(Path(workdir) / "B")
+    return {"checkpoint_gb": gb, "A": a, "B": b, "C": c}
+
+
+def load_example(name: str):
+    """``examples/torch/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                  ROOT / "examples" / "torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def cli_examples(workdir: str, counters: dict) -> dict:
+    """The four example twins on the card at their JAX sizes: train_lm's
+    300 steps (its ``loss < 4.0`` assert), hyperparam_tuning's PACK and
+    FIFO makespans, inference_packing's 12 services (rwkv's K4 under
+    ``no_grad``), quickstart; each one's launches, which must cover the
+    kernels its path runs (train_lm's exactly a step's count a step)."""
+    import contextlib
+    import io
+    from pathlib import Path
+
+    from repro_torch.configs import get_config
+
+    out = {}
+    for name in EXAMPLES:
+        mod = load_example(name)
+        argv = ["--device", "cuda"]
+        if name == "train_lm":
+            argv += ["--ckpt-dir", str(Path(workdir) / name)]
+        zero_counts(counters)
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            res = mod.main(argv)
+        sync()
+        rec = {"wall_s": time.perf_counter() - t0, "printed": printed.getvalue().splitlines(),
+               "launches": {k: c.launches for k, c in counters.items()}}
+        got = rec["launches"]
+        if name == "train_lm":
+            cfg = mod.hundred_m_config()
+            per = launches_per_microbatch(cfg)
+            want = {k: 300 * 2 * v for k, v in per.items()}
+            check(got == want, f"train_lm launches {got} != {want}")
+            rec.update(final_loss=res, params=cfg.param_count())
+        elif name == "hyperparam_tuning":
+            per = launches_per_microbatch(get_config("gemma-2b").smoke())
+            want = {k: 2 * len(mod.LRS) * mod.N_ITERS * v for k, v in per.items()}
+            check(got == want, f"hyperparam_tuning launches {got} != {want}")
+            rec.update(pack_s=res["pack_s"], fifo_s=res["fifo_s"],
+                       fifo_over_pack=res["fifo_s"] / res["pack_s"],
+                       final_losses={s.name: float(s.metrics_log[-1]["loss"])
+                                     for s in res["sessions"]})
+        elif name == "inference_packing":
+            check(got["rmsnorm"] > 0 and got["flash_attention"] > 0 and got["wkv6"] > 0
+                  and got["rmsnorm_bwd"] == got["flash_attention_bwd"] == 0,
+                  f"inference_packing launches {got}")
+            check(res["packed"] == res["services"] == 12 and not res["report"].failures
+                  and res["requests"] == 12 * mod.REQUESTS,
+                  f"inference_packing packed {res['packed']}, served {res['requests']}")
+            rec.update(packed=res["packed"], requests=res["requests"],
+                       ms_a_request={s.name: 1e3 * res["report"].stats[s.job.job_id].service_time
+                                     / res["report"].stats[s.job.job_id].iterations_done
+                                     for s in res["sessions"]})
+        else:
+            check(not res.failures and sorted(s.iterations_done for s in res.stats.values())
+                  == [5, 20, 20], "quickstart: a job failed or did not finish")
+        out[name] = rec
+        del res, mod
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_cli(train_res=None) -> dict:
+    """The training CLI (``repro_torch.launch.train``) and the four example
+    twins on the card. (a) The CLI's loop on gemma-2b at full width and
+    depth (fp32 params, AdamW, the train phase's shape through the CLI's
+    flags: ``--seq-len 4096 --batch 4 --microbatches 4``), ``CLI_STEPS``
+    steps on a one-rank (1, 1) mesh, no checkpoints; then the same with
+    ``--compress-grads`` (one gradient of the whole batch, the int8
+    compressor, AdamW): exact K1/K3/B1/B2 launches a step, finite losses
+    falling from step 0, each step's seconds, the peak memory. (b) The
+    resume (``cli_resume``) at the ckpt phase's depth (``CKPT_DEPTH``
+    layers, 8.93 GB a checkpoint) in a temporary directory with at least
+    ``CKPT_MIN_FREE_GB`` free, at most 27 GB written at once. (c) The
+    example twins (``cli_examples``). Printed with the card and its power
+    limit, and beside the train phase's step seconds of the same call
+    (``train_res``, when given)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    counters = kernel_counters()
+    cfg = get_config(TRAIN_ARCH)
+    per_mb = launches_per_microbatch(cfg)
+    full = {}
+    for name, extra, passes in (("plain", (), 4), ("compressed", ("--compress-grads",), 1)):
+        torch.cuda.reset_peak_memory_stats()
+        rec = cli_run(cfg, [*CLI_SHAPE, "--steps", str(CLI_STEPS), *extra], counters,
+                      {k: CLI_STEPS * passes * v for k, v in per_mb.items()})
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        losses = [rec["losses"][i] for i in range(CLI_STEPS)]
+        check(all(x < losses[0] for x in losses[1:]), f"cli {name}: losses {losses} do not fall")
+        rec["launches_per_step"] = {k: passes * v for k, v in per_mb.items()}
+        full[name] = rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        free_gb = shutil.disk_usage(workdir).free / 1e9
+        check(free_gb >= CKPT_MIN_FREE_GB,
+              f"{workdir}: {free_gb:.1f} GB free; the cli phase needs {CKPT_MIN_FREE_GB}")
+        cut = depth_cut(TRAIN_ARCH, CKPT_DEPTH)
+        resume = cli_resume(cut, CLI_SHAPE, workdir, counters,
+                            {k: 4 * v for k, v in launches_per_microbatch(cut).items()})
+        examples = cli_examples(workdir, counters)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    res = {"phase": "cli", "nvidia_smi": smi, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "params": cfg.param_count(),
+           "full_depth": full, "train_phase_step_s": train_res and train_res["step_s"],
+           "resume": {"n_layers": CKPT_DEPTH, "free_gb": free_gb, **resume},
+           "examples": examples, "wall_s": time.perf_counter() - t0}
+    emit(res)
+    return res
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -3488,7 +3743,9 @@ def main() -> int:
     diff_res = phase_differential(paging_res)
     fleet_res = phase_fleet(paging_res, diff_res)
     ckpt_res = phase_ckpt()
-    kernels_line(k, serve_res, train_res, decode_res, moe_res, families_res, fleet_res, ckpt_res)
+    cli_res = phase_cli(train_res)
+    kernels_line(k, serve_res, train_res, decode_res, moe_res, families_res, fleet_res, ckpt_res,
+                 cli_res)
     emit({"phase": "done", "wall_s": time.perf_counter() - t0})
     emit({"ok": True, "device": {
         "platform": "gpu",

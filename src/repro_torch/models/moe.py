@@ -9,17 +9,32 @@ weighted by its gate. An assignment past its expert's capacity is
 dropped: it contributes nothing. The JAX package's sharding constraints
 (``constrain``) are left out: they do nothing on one device.
 
+On a data mesh (a sharding context whose mesh splits rows over several
+data ranks, ``dist.api.current()``), each rank holds its rows of the call
+and ``moe_apply`` takes the reference's global semantics, those of JAX's
+GSPMD step over the global microbatch: the group size and capacity come
+from the global token count, laid out in rank order; a group that spans
+ranks gives each rank's assignments their queue position after the
+per-expert counts of the earlier ranks in the group (an exclusive prefix
+over the ranks' ``(groups, E)`` counts, one all-reduce), so capacity
+drops fall in global token order; and the aux loss takes ``f`` and ``p``
+summed over the data ranks. Only ``(groups, E)`` counts cross ranks.
+
 ``moe_reference`` is the dense oracle (every expert computed, gated sum)
 that the tests hold the dispatch against.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.api import current, data_axes
 from repro_torch.models.layers import Params, dense_init
 
 
@@ -88,7 +103,9 @@ def load_balance_loss(probs: torch.Tensor, expert_idx: torch.Tensor, n_experts: 
 # ---------------------------------------------------------------------------
 
 
-def _dispatch_indices(expert_idx: torch.Tensor, n_experts: int, capacity: int):
+def _dispatch_indices(
+    expert_idx: torch.Tensor, n_experts: int, capacity: int, base: Optional[torch.Tensor] = None
+):
     """Routing tables of each group.
 
     expert_idx: (..., S, k) integer, leading dims one group each. Returns
@@ -98,7 +115,10 @@ def _dispatch_indices(expert_idx: torch.Tensor, n_experts: int, capacity: int):
       slot_of_flat: (..., S*k) — flat slot id (e*C + c) of each assignment,
                   sentinel E*C when dropped (capacity overflow).
     Within an expert, slots go to assignments in flat order (a stable
-    sort), and those past ``capacity`` are dropped.
+    sort), and those past ``capacity`` are dropped. ``base`` (G, E): the
+    assignments each group's expert already holds ahead of these (a group
+    spanning data ranks: the earlier ranks'); an assignment is then kept
+    while ``base`` plus its position is under ``capacity``.
     """
     *lead, s, k = expert_idx.shape
     n_flat, n_slots = s * k, n_experts * capacity
@@ -112,7 +132,8 @@ def _dispatch_indices(expert_idx: torch.Tensor, n_experts: int, capacity: int):
     counts = counts.view(n_groups, n_experts)
     offsets = torch.cumsum(counts, dim=-1) - counts
     pos_in_expert = torch.arange(n_flat, device=dev) - torch.gather(offsets, 1, sorted_expert)
-    keep = pos_in_expert < capacity
+    room = capacity if base is None else capacity - torch.gather(base.long(), 1, sorted_expert)
+    keep = pos_in_expert < room
     # dropped assignments go to slot n_slots, a spare column cut off after
     flat_slot = torch.where(keep, sorted_expert * capacity + pos_in_expert, n_slots)
     table = torch.full((n_groups, n_slots + 1), n_flat, dtype=torch.long, device=dev)
@@ -145,11 +166,20 @@ def _moe_groups(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dispatch + expert FFN + combine for a block of groups.
     xg: (g, g_size, d) -> (output (g, g_size, d), aux)."""
+    gate_vals, expert_idx, probs = route(p["router"], xg, cfg.top_k)
+    aux = load_balance_loss(probs, expert_idx, cfg.n_experts)
+    return _dispatch_combine(p, cfg, xg, gate_vals, expert_idx, cap), aux
+
+
+def _dispatch_combine(
+    p: Params, cfg: ArchConfig, xg: torch.Tensor, gate_vals: torch.Tensor,
+    expert_idx: torch.Tensor, cap: int, base: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The routed groups' output: xg (g, g_size, d) -> (g, g_size, d);
+    ``base`` as in ``_dispatch_indices``."""
     n_groups, g_size, d = xg.shape
     e, k = cfg.n_experts, cfg.top_k
-    gate_vals, expert_idx, probs = route(p["router"], xg, k)
-    aux = load_balance_loss(probs, expert_idx, e)
-    slot_table, slot_of_flat = _dispatch_indices(expert_idx, e, cap)
+    slot_table, slot_of_flat = _dispatch_indices(expert_idx, e, cap, base)
     rows = torch.arange(n_groups, device=xg.device)
 
     # gather expert inputs: the sentinel row is zeros
@@ -164,8 +194,15 @@ def _moe_groups(
     out_pad = torch.cat([out_flat, out_flat.new_zeros(n_groups, 1, d)], dim=1)
     contrib = out_pad[rows[:, None], slot_of_flat.long()]
     contrib = contrib.reshape(n_groups, g_size, k, d)
-    y = torch.sum(contrib * gate_vals[..., None].to(contrib.dtype), dim=2)
-    return y, aux
+    return torch.sum(contrib * gate_vals[..., None].to(contrib.dtype), dim=2)
+
+
+def _group_size(tokens: int, group_size: int) -> int:
+    """The largest divisor of the token count that is at most ``group_size``."""
+    g_size = min(group_size, tokens)
+    while tokens % g_size:
+        g_size -= 1
+    return g_size
 
 
 def moe_apply(
@@ -183,13 +220,16 @@ def moe_apply(
     most ``group_size``. More than ``max_groups_per_block`` groups, when
     that many divide them, run a block at a time (the JAX package's
     ``lax.scan`` over blocks, bounding the live dispatch tensors); the aux
-    loss is then the mean of the blocks' aux losses.
+    loss is then the mean of the blocks' aux losses. On a data mesh the
+    token count is the global one (module docstring).
     """
+    split = _data_split()
+    if split is not None:
+        return _moe_apply_global(p, cfg, x, split, group_size, capacity_factor,
+                                 max_groups_per_block)
     b, s, d = x.shape
     tokens = b * s
-    g_size = min(group_size, tokens)
-    while tokens % g_size:  # largest divisor of the token count <= group_size
-        g_size -= 1
+    g_size = _group_size(tokens, group_size)
     n_groups = tokens // g_size
     xg = x.reshape(n_groups, g_size, d)
     cap = default_capacity(g_size, cfg.top_k, cfg.n_experts, capacity_factor)
@@ -204,6 +244,106 @@ def moe_apply(
         ys.append(y)
         auxs.append(aux)
     return torch.cat(ys).reshape(b, s, d), torch.stack(auxs).mean()
+
+
+# ---------------------------------------------------------------------------
+# On a data mesh: the global microbatch's groups and aux loss
+# ---------------------------------------------------------------------------
+
+
+class _DataSplit:
+    """The data ranks a call's rows are split over: their process groups
+    (one a data axis of more than one rank), this rank's index over them
+    (row-major in the mesh's axis order, as the batch is laid out), and
+    their number."""
+
+    def __init__(self, groups: List, index: int, ranks: int):
+        self.groups, self.index, self.ranks = groups, index, ranks
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the data ranks, in place."""
+        for g in self.groups:
+            dist.all_reduce(t, group=g)
+        return t
+
+
+def _data_split() -> Optional[_DataSplit]:
+    """The active context's data ranks, or None: no context, a mesh that
+    is not a ``DeviceMesh``, or one data rank."""
+    ctx = current()
+    mesh = getattr(ctx, "mesh", None)
+    if not isinstance(mesh, DeviceMesh):
+        return None
+    axes = [i for i in data_axes(mesh) if mesh.size(i) > 1]
+    if not axes:
+        return None
+    coord = mesh.get_coordinate()
+    index = 0
+    for i in axes:
+        index = index * mesh.size(i) + coord[i]
+    return _DataSplit([mesh.get_group(i) for i in axes], index,
+                      math.prod(mesh.size(i) for i in axes))
+
+
+def _moe_apply_global(
+    p: Params, cfg: ArchConfig, x: torch.Tensor, split: _DataSplit, group_size: int,
+    capacity_factor: float, max_groups_per_block: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_apply`` on this rank's rows ``x`` of a call whose tokens are
+    split over ``split``'s ranks in rank order. The rank's tokens are cut
+    into pieces, each within one global group (a whole group, or the
+    rank's share of one that spans ranks); a rank boundary inside a group
+    that is not a whole number of ranks' tokens is refused."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    local = b * s
+    tokens = split.ranks * local
+    g_size = _group_size(tokens, group_size)
+    n_groups = tokens // g_size
+    cap = default_capacity(g_size, k, e, capacity_factor)
+    piece = min(g_size, local)
+    if g_size % piece or local % piece:
+        raise ValueError(f"MoE groups of {g_size} tokens cut a data rank's {local} tokens "
+                         f"off a group boundary")
+    n_pieces = local // piece
+    dev = x.device
+    gid = (split.index * local + piece * torch.arange(n_pieces, device=dev)) // g_size
+    xg = x.reshape(n_pieces, piece, d)
+    gate_vals, expert_idx, probs = route(p["router"], xg, k)
+
+    # one all-reduce: each rank's (group, expert) counts in its own row,
+    # and the router probabilities summed over each group's tokens
+    rows = torch.arange(n_pieces, device=dev)[:, None] * e
+    counts = torch.bincount((expert_idx.reshape(n_pieces, -1).long() + rows).reshape(-1),
+                            minlength=n_pieces * e).view(n_pieces, e)
+    p_sum = probs.sum(dim=1)  # (pieces, E)
+    buf = torch.zeros(split.ranks + 1, n_groups, e, dtype=torch.float64, device=dev)
+    buf[split.index, gid] = counts.double()
+    buf[split.ranks, gid] = p_sum.detach().double()
+    split.all_reduce(buf)
+    by_rank, p_all = buf[: split.ranks], buf[split.ranks].float()
+    base = by_rank[: split.index, gid].sum(dim=0)  # the earlier ranks' counts
+
+    ys = [_dispatch_combine(p, cfg, xg[i : i + max_groups_per_block],
+                            gate_vals[i : i + max_groups_per_block],
+                            expert_idx[i : i + max_groups_per_block], cap,
+                            base[i : i + max_groups_per_block])
+          for i in range(0, n_pieces, max_groups_per_block)]
+
+    # aux: E * sum_e f_e p_e over each block's global tokens. p_all's value
+    # with this rank's share differentiable and scaled by the rank count:
+    # the step averages gradients over the data ranks, so the mean of the
+    # ranks' shares is the gradient of the global sum
+    mine = torch.zeros(n_groups, e, dtype=torch.float32, device=dev).index_add(0, gid, p_sum)
+    p_all = p_all + split.ranks * (mine - mine.detach())
+    f_all = by_rank.sum(dim=0).float()
+    block = max_groups_per_block
+    if n_groups <= block or n_groups % block:
+        block = n_groups
+    f_b = f_all.view(-1, block, e).sum(dim=1) / (block * g_size)
+    p_b = p_all.view(-1, block, e).sum(dim=1) / (block * g_size)
+    aux = (e * torch.sum(f_b * p_b, dim=-1)).mean()
+    return torch.cat(ys).reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,7 @@ from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.api import current, use_sharding
 from repro_torch.models import attention, moe, rwkv, ssm
 from repro_torch.models.layers import Params, mlp_apply, mlp_init, rmsnorm, rmsnorm_init
 
@@ -143,11 +144,15 @@ def stack_apply(
               moe_group=moe_group, ssm_chunk=ssm_chunk)
     total: Aux = 0.0
     if remat and on_cache is None and _needs_grad(layers, x):
+        # the recompute may run on autograd's device thread: it runs under
+        # the sharding context the forward ran under (models/moe.py reads it)
+        ctx = current()
         for i in range(cfg.n_layers):
 
             def layer(h, i=i):
-                return block_apply(layer_slice(layers, i, compute_dtype), cfg, h, positions,
-                                   **kw)[:2]
+                with use_sharding(ctx):
+                    return block_apply(layer_slice(layers, i, compute_dtype), cfg, h, positions,
+                                       **kw)[:2]
 
             # the blocks draw no random numbers: no RNG state to keep
             x, aux = checkpoint(layer, x, use_reentrant=False, preserve_rng_state=False)

@@ -24,10 +24,12 @@ its placements hold, and AdamW updates
 the local shards, clipping by the global fp32 norm (a sharded leaf's
 squares summed over the axes it is sharded on, a replicated leaf counted
 once). On a one-device mesh this is the single-device step, bit for bit.
-A loss term over a call's rows, such as the MoE aux loss, is taken over
-each rank's microbatch, as a data-parallel step takes it (JAX's GSPMD step
-takes it over the global microbatch). The model axis holds shards but does
-no split work yet (tensor-parallel compute is not ported).
+The MoE layer takes JAX's global semantics over the ranks' rows (its
+groups, capacity drops and aux loss are the global microbatch's,
+``models/moe.py``), reading the data ranks from the sharding context the
+step runs under, so the data mean of the ranks' losses and gradients is
+the GSPMD step's. The model axis holds shards but does no split work yet
+(tensor-parallel compute is not ported).
 """
 from __future__ import annotations
 
@@ -143,6 +145,11 @@ def is_sharded(params) -> bool:
     return any(isinstance(t, DTensor) for t in pytree.tree_leaves(params))
 
 
+def local_pieces(tree):
+    """Each ``DTensor`` leaf as this rank's piece; other leaves as they are."""
+    return pytree.tree_map(lambda t: t.to_local() if isinstance(t, DTensor) else t, tree)
+
+
 def _check_accum_layouts(tree) -> None:
     if tree is None:
         return
@@ -246,9 +253,7 @@ def make_train_step(model: Model, opt: AdamW, run: Optional[TrainRunConfig] = No
         if run.grad_transform is not None:
             grads = run.grad_transform(grads)
         if is_sharded(params):  # AdamW on the local shards, in place
-            local = lambda tree: pytree.tree_map(
-                lambda t: t.to_local() if isinstance(t, DTensor) else t, tree)
-            _, _, metrics = opt.update(grads, local(opt_state), local(params),
+            _, _, metrics = opt.update(grads, local_pieces(opt_state), local_pieces(params),
                                        grad_norm=sharded_global_norm(grads, params))
         else:
             params, opt_state, metrics = opt.update(grads, opt_state, params)

@@ -303,10 +303,10 @@ def test_sharded_train_step_on_a_2x2_mesh_matches_one_process(step_launch, name)
     """(a) tests/test_sharding.py's sharded step on the port: loss, grad
     norm and the updated params and state equal the single-process step's
     within tests/test_torch_train.py's tolerance; the single-process loss
-    equals JAX's. Each rank takes its 2 rows as 2 microbatches, so the
-    single-process step takes the same 4 microbatches of one row: the MoE
-    aux loss depends on the rows a call sees (a data-parallel step takes
-    it over each rank's microbatch)."""
+    equals JAX's. The single-process step takes the same global
+    microbatches (rows j, n + j, ...; each rank holds its share of each):
+    on a data mesh the MoE layer's groups and aux loss are the global
+    microbatch's, as in JAX's GSPMD step (``models/moe.py``)."""
     _, runs, out = step_launch
     run, res = runs[name], out[name]
     cfg = get_config(run["arch"]).smoke()
@@ -314,13 +314,14 @@ def test_sharded_train_step_on_a_2x2_mesh_matches_one_process(step_launch, name)
     opt = AdamW(AdamWConfig(**torch_ranks.WARMUP))
     params = pytree.tree_map(torch.clone, run["params"])
     state = opt.init(params)
-    step = make_train_step(model, opt, TrainRunConfig(num_microbatches=BATCH))
+    n = torch_ranks.MICROBATCHES
+    step = make_train_step(model, opt, TrainRunConfig(num_microbatches=n))
     params, state, metrics = step(params, state, run["batch"])
     jm, jp = _jax_params(run["arch"])
     jloss = jax.jit(jm.loss)
-    rows = [float(jloss(jp, {k: jnp.asarray(v[i:i + 1].numpy()) for k, v in run["batch"].items()}))
-            for i in range(BATCH)]
-    assert float(metrics["loss"]) == pytest.approx(sum(rows) / BATCH, rel=1e-5)
+    mbs = [float(jloss(jp, {k: jnp.asarray(v[j::n].numpy()) for k, v in run["batch"].items()}))
+           for j in range(n)]
+    assert float(metrics["loss"]) == pytest.approx(sum(mbs) / n, rel=1e-5)
     assert res["loss"] == pytest.approx(float(metrics["loss"]), rel=1e-5)
     assert res["grad_norm"] == pytest.approx(float(metrics["grad_norm"]), rel=1e-5)
     _close(res["tree"]["params"], params, 1e-4, 1e-5, "params")

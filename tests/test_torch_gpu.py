@@ -1213,3 +1213,58 @@ def test_ckpt_phase_runs_at_smoke_size(cuda, tmp_path, monkeypatch):
         dist.destroy_process_group()
     assert res["restarts"] == 1 and res["left"] == ["step_00000003", "step_00000004"]
     assert res["launches"]["A"]["rmsnorm"] > 0 and res["launches"]["A"]["flash_attention_bwd"] > 0
+
+
+CLI_SMOKE = ("--seq-len", "64", "--batch", "4", "--microbatches", "4", "--log-every", "1")
+
+
+def test_cli_resumes_bit_for_bit_at_smoke_size(cuda, tmp_path):
+    """``chip_smoke.cli_resume`` on gemma-2b smoke through the training
+    CLI's loop on a one-rank NCCL group: a run saved every 2 steps, the
+    same killed at step 3 and resumed from step 2, its final checkpoint
+    bit for bit the first's, and a second call resuming from a meta
+    template (the helper's checks); the kernels launch exactly a step's
+    count a step."""
+    import chip_smoke as cs
+
+    cfg = get_config("gemma-2b").smoke()
+    per_step = {k: 4 * v for k, v in cs.launches_per_microbatch(cfg).items()}
+    res = cs.cli_resume(cfg, CLI_SMOKE, str(tmp_path), cs.kernel_counters(), per_step)
+    assert res["B"]["resumed"] == [2] and res["C"]["resumed"] == [4]
+    assert res["A"]["launches"]["flash_attention_bwd"] > 0
+
+
+@pytest.mark.parametrize("extra,passes", [((), 4), (("--compress-grads",), 1)])
+def test_cli_steps_at_smoke_size(cuda, extra, passes):
+    """The CLI's loop on the card, with and without ``--compress-grads``:
+    finite losses and exactly a pass's launches a microbatch (the
+    compressed path takes one pass of the whole batch)."""
+    import chip_smoke as cs
+
+    cfg = get_config("gemma-2b").smoke()
+    per = cs.launches_per_microbatch(cfg)
+    rec = cs.cli_run(cfg, [*CLI_SMOKE, "--steps", "3", *extra], cs.kernel_counters(),
+                     {k: 3 * passes * v for k, v in per.items()})
+    assert sorted(rec["losses"]) == [0, 1, 2] and rec["restarts"] == 0
+
+
+def test_cli_refuses_rwkv_on_the_card(cuda):
+    from repro_torch.launch.train import main
+
+    with pytest.raises(NotImplementedError, match="WKV6"):
+        main(["--arch", "rwkv6-7b", "--smoke"])
+
+
+def test_quickstart_and_inference_packing_examples_on_the_card(cuda, capsys):
+    """The example twins on ``cuda``: quickstart admits two jobs and
+    queues the third; inference_packing packs all 12 services and serves
+    every request, its rwkv services through K4 under ``no_grad``."""
+    import chip_smoke as cs
+
+    report = cs.load_example("quickstart").main(["--device", "cuda"])
+    assert "lanes: 2, queued: 1" in capsys.readouterr().out
+    assert not report.failures
+    before = wkv_ops.wkv6.launches
+    res = cs.load_example("inference_packing").main(["--device", "cuda"])
+    assert res["packed"] == res["services"] == 12 and res["requests"] == 144
+    assert wkv_ops.wkv6.launches > before

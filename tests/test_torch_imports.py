@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or anything of the JAX package ``repro``,
-and importing every port module leaves both out of ``sys.modules``."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and no example twin in ``examples/torch`` imports ``jax``
+or anything of the JAX package ``repro``, and importing every port module
+and example twin leaves both out of ``sys.modules``."""
 import ast
 import subprocess
 import sys
@@ -15,8 +16,11 @@ PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
+EXAMPLES = ROOT / "examples" / "torch"
+
+
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(EXAMPLES.glob("*.py"))
 
 
 def _module_names():
@@ -69,10 +73,17 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.dist.api",
         "repro_torch.dist.sharding",
         "repro_torch.dist.elastic",
+        "repro_torch.launch.train",
     } <= set(mods)
+    examples = [str(p) for p in sorted(EXAMPLES.glob("*.py"))]
+    assert {Path(p).stem for p in examples} == {
+        "train_lm", "quickstart", "hyperparam_tuning", "inference_packing"}
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"for p in {examples!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('example', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

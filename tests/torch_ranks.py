@@ -26,6 +26,14 @@ Cases (inputs from ``<workdir>/inputs.pt``, rank 0's result to
     launch; the result holds both runs' losses and trees, the step each
     rank restored, and whether each rank's ``wait`` raised rank 0's
     writer error.
+  * ``train`` (``tests/test_torch_launch_train.py``): on the (2, 2) mesh,
+    each run of ``inputs["steps"]`` takes one step as ``step`` does, at its
+    own model options, with the MoE aux loss of each microbatch before the
+    step as every rank computes it; then the group is destroyed and each
+    run of ``inputs["cli"]`` calls ``repro_torch.launch.train.main`` with
+    its ``argv``, which joins a group from torchrun's variables
+    (``MASTER_PORT`` the run's ``port``); ``fp32`` runs it with fp32
+    compute. The result holds the steps and rank 0's printed lines a run.
 
 Imports only torch and the port."""
 import os
@@ -90,18 +98,63 @@ def _drop_data(layouts):
     return pytree.tree_map(drop, layouts, is_leaf=is_layout)
 
 
+def _mesh_step(mesh, run: dict, model_opts: dict, aux: bool = False) -> dict:
+    """One train step of ``run`` (its arch, params, batch, ``zero3`` and
+    ``local_accum``) on ``mesh`` with ``MICROBATCHES`` microbatches: its
+    loss, grad norm, and params and state gathered whole (the tree itself
+    under ``"live"``). With ``aux``, also the MoE aux loss of each
+    microbatch before the step, as each rank computes it on its rows under
+    the sharding context (a list a rank)."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist.api import place, use_sharding
+    from repro_torch.dist.sharding import batch_shardings, make_context, param_shardings
+    from repro_torch.models import ModelOptions, build_model
+    from repro_torch.train.optimizer import AdamW, AdamWConfig
+    from repro_torch.train.train_step import TrainRunConfig, make_train_step
+    import torch
+    import torch.distributed as dist
+
+    cfg = get_config(run["arch"]).smoke()
+    model = build_model(cfg, ModelOptions(**model_opts))
+    opt = AdamW(AdamWConfig(**WARMUP))
+    b, s = run["batch"]["labels"].shape
+    out = {}
+    with use_sharding(make_context(mesh, cfg, zero3=run.get("zero3", False))):
+        p_sh = param_shardings(run["params"], cfg, mesh)
+        params = place(run["params"], p_sh)
+        state = opt.init(run["params"])
+        state = place(state, param_shardings(state, cfg, mesh))
+        batch = place(run["batch"], batch_shardings(cfg, ShapeConfig("t", "train", s, b), mesh))
+        if aux:
+            full = pytree.tree_map(lambda t: t.full_tensor(), params)
+            rows = {k: v.to_local() for k, v in batch.items()}
+            with torch.no_grad():
+                mine = [float(model.apply(full, {k: v[j::MICROBATCHES] for k, v in rows.items()})[1])
+                        for j in range(MICROBATCHES)]
+            del full
+            out["aux"] = [None] * dist.get_world_size()
+            dist.all_gather_object(out["aux"], mine)
+        accum = _drop_data(p_sh) if run.get("local_accum") else None
+        step = make_train_step(model, opt, TrainRunConfig(num_microbatches=MICROBATCHES,
+                                                          grad_accum_shardings=accum))
+        params, state, metrics = step(params, state, batch)
+    tree = {"params": params, "opt": state}
+    out.update({"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                "tree": _gather(tree), "live": tree})
+    return out
+
+
 def case_step(workdir: Path) -> dict:
     from torch.distributed.tensor import Replicate
 
     from repro_torch.ckpt.checkpoint import CheckpointManager
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import ShapeConfig
     from repro_torch.dist.api import constrain, place, use_sharding
-    from repro_torch.dist.sharding import batch_shardings, make_context, param_shardings
+    from repro_torch.dist.sharding import make_context
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import ModelOptions, build_model
-    from repro_torch.train.optimizer import AdamW, AdamWConfig
-    from repro_torch.train.train_step import TrainRunConfig, make_train_step
     import torch
 
     inputs = torch.load(workdir / "inputs.pt", weights_only=False)
@@ -111,25 +164,11 @@ def case_step(workdir: Path) -> dict:
         x = place(torch.zeros(4, 8, 16), (mesh, [Replicate(), Replicate()]))
         out = {"constrained": list(constrain(x, ("data", None, "model")).placements)}
     for name, run in inputs["runs"].items():
-        cfg = get_config(run["arch"]).smoke()
-        model = build_model(cfg, ModelOptions(**MODEL_OPTS))
-        opt = AdamW(AdamWConfig(**WARMUP))
-        b, s = run["batch"]["labels"].shape
-        with use_sharding(make_context(mesh, cfg, zero3=run["zero3"])):
-            p_sh = param_shardings(run["params"], cfg, mesh)
-            params = place(run["params"], p_sh)
-            state = opt.init(run["params"])
-            state = place(state, param_shardings(state, cfg, mesh))
-            batch = place(run["batch"], batch_shardings(cfg, ShapeConfig("t", "train", s, b), mesh))
-            accum = _drop_data(p_sh) if run["local_accum"] else None
-            step = make_train_step(model, opt, TrainRunConfig(num_microbatches=MICROBATCHES,
-                                                              grad_accum_shardings=accum))
-            params, state, metrics = step(params, state, batch)
-        tree = {"params": params, "opt": state}
+        res = _mesh_step(mesh, run, MODEL_OPTS)
         if name == inputs["save"]:
-            CheckpointManager(str(workdir / "ckpt"), async_save=False).save(1, tree)
-        out[name] = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
-                     "tree": _gather(tree)}
+            CheckpointManager(str(workdir / "ckpt"), async_save=False).save(1, res["live"])
+        del res["live"]
+        out[name] = res
     return out
 
 
@@ -253,6 +292,49 @@ def _resume(workdir: Path, run: dict, mesh) -> dict:
             "left": sorted(p.name for p in mgr.dir.iterdir()), "per_rank": per_rank}
 
 
+def _cli(run: dict, rank: int, world: int) -> str:
+    """``repro_torch.launch.train.main(run["argv"])``, which joins a group
+    from torchrun's variables; its printed lines."""
+    import contextlib
+    import functools
+    import io
+
+    import repro_torch.launch.train as cli
+
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(run["port"]), "WORLD_SIZE": str(world),
+           "RANK": str(rank), "LOCAL_RANK": str(rank)}
+    os.environ.update(env)
+    opts, out = cli.ModelOptions, io.StringIO()
+    if run.get("fp32"):
+        cli.ModelOptions = functools.partial(opts, compute_dtype="float32")
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(run["argv"])
+    finally:
+        cli.ModelOptions = opts
+        for k in env:
+            del os.environ[k]
+    return out.getvalue()
+
+
+def case_train(workdir: Path) -> dict:
+    from repro_torch.launch.mesh import make_mesh
+    import torch
+    import torch.distributed as dist
+
+    inputs = torch.load(workdir / "inputs.pt", weights_only=False)
+    mesh = make_mesh(MESH, AXES, "cpu")
+    out = {"steps": {}}
+    for name, run in inputs.get("steps", {}).items():
+        res = _mesh_step(mesh, run, run["opts"], aux=True)
+        del res["live"]
+        out["steps"][name] = res
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dist.destroy_process_group()  # each CLI run joins a group of its own
+    out["cli"] = {name: _cli(run, rank, world) for name, run in inputs.get("cli", {}).items()}
+    return out
+
+
 def main() -> None:
     import torch
     import torch.distributed as dist
@@ -265,12 +347,14 @@ def main() -> None:
     store = dist.FileStore(str(workdir / f"{case}.store"), world)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
     try:
-        out = {"step": case_step, "restore": case_restore}[case](workdir)
+        out = {"step": case_step, "restore": case_restore, "train": case_train}[case](workdir)
         if rank == 0:
             torch.save(out, workdir / f"{case}.pt")
-        dist.barrier()
+        if dist.is_initialized():
+            dist.barrier()
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":
