@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, at
-first use), then runs fifteen phases, each printing JSON lines:
+first use), then runs sixteen phases, each printing JSON lines (phase 16
+runs after phase 4):
 
 1. env      — the card's name and power limit (nvidia-smi), torch/CUDA
               versions, the kernels' build time, and ptxas's registers and
@@ -59,7 +60,8 @@ first use), then runs fifteen phases, each printing JSON lines:
 8. serve_train — ``repro_torch.launch.serve`` with a gemma-2b service and a
               gemma-2b background trainer under PRIORITY: every request
               served, trainer iterations and preemptions, no failure.
-9. decode   — gemma-2b, qwen3-8b and rwkv6-7b at full width and depth:
+9. decode   — gemma-2b, qwen3-8b and rwkv6-7b at full width, the checks
+              8 layers deep (DECODE_CHECK_DEPTH), the timing at full depth:
               the decode step of token 511 after a 511-token prefill
               against the full forward (fp32, through the kernels); 16
               greedy tokens through ``serve_step`` (``make_prefill_step``,
@@ -93,8 +95,9 @@ first use), then runs fifteen phases, each printing JSON lines:
               cell's traffic, SSM chunks of 8), prefill parity at
               (1, 2560) (its 1024 window binds, the ring is rolled, 20
               SSM chunks), a profiled prefill with the SSM scan's share
-              of device time, the decode checks of the decode phase (16
-              greedy tokens from 2560 across the ring's wrap) and a timed
+              of device time, the decode checks of the decode phase, 8
+              layers deep (16 greedy tokens from 2560 across the ring's
+              wrap) and a timed
               step at DECODE_32K's positions, batch 128, bf16 ring, with
               its bytes bound (params, ring, the SSM state read and
               written); musicgen-medium (audio: frame embeddings, full
@@ -162,7 +165,19 @@ first use), then runs fifteen phases, each printing JSON lines:
               ``loss < 4.0``), hyperparam_tuning (PACK and FIFO),
               inference_packing (12 services) and quickstart; exact launch
               counts.
-Then the ``{"kernels": [...]}`` summary line.
+16. tp      — tensor parallelism on the model axis (``phase_tp``, run
+              after parity, before the phases that page through the
+              host's memory, which the ranks share): two
+              rank processes of a gloo group on the one card, a (1, 2)
+              ``data, model`` mesh, params drawn a layer at a time and
+              placed as drawn; qwen3-8b at full depth served (16 greedy
+              bf16 tokens of a (4, 16) prompt, a (1, 512) fp32 prefill),
+              rwkv6-7b, hymba-1.5b and mixtral-8x22b (4 layers) fp32
+              prefills, and a 4-layer qwen3-8b fp32 AdamW step at (1,
+              4096), each held against the one-process port on the same
+              params; K1/K3/K4/B1/B2 launched on each rank's local heads;
+              params resident and the step's peak a rank.
+Then each phase's seconds and the ``{"kernels": [...]}`` summary line.
 
 Any failed check raises and the script exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or run outside the
@@ -231,6 +246,10 @@ DECODE_PROMPT = 511  # tokens prefilled before the decode checks
 DECODE_NEW = 16  # greedy tokens
 DECODE_CACHE_GB = 40  # the decode shape's batch is halved until its state fits
 DECODE_STEPS = 8  # timed steps at the decode shape
+# the decode checks (decode_correctness) of the full-depth archs run at
+# full width, 8 layers deep, to keep the whole run well inside its limit;
+# the timed steps stay at full depth
+DECODE_CHECK_DEPTH = 8
 MOE_ARCH = "mixtral-8x22b"
 QWEN3_MOE_ARCH = "qwen3-moe-235b-a22b"
 # full width, depth cut from 56 (mixtral) and 94 (qwen3-moe) layers: 4
@@ -942,6 +961,9 @@ def phase_kernels() -> dict:
                         (QWEN2_VL_PROMPT, 8192)):
             res = rmsnorm_case(rows, d, dtype, residual=False, iters=50)
             results[("rmsnorm", rows, d, res["dtype"])] = res
+        # the tp phase's qk-norm rows: qwen3-8b's local 16 heads at (1, 4096)
+        res = rmsnorm_case(TP_TRAIN_SEQ * 16, 128, dtype, residual=False, iters=50)
+        results[("rmsnorm", TP_TRAIN_SEQ * 16, 128, res["dtype"])] = res
         for rows, d in ((64, 4096), (8192, 4096)):
             res = rmsnorm_case(rows, d, dtype, residual=True, iters=50)
             results[("rmsnorm_residual", rows, d, res["dtype"])] = res
@@ -971,6 +993,10 @@ def phase_kernels() -> dict:
              iters=10),
         dict(b=1, sq=QWEN2_VL_PROMPT, sk=QWEN2_VL_PROMPT, hq=64, hkv=8, d=128, dtype=bf16,
              iters=10),
+        # the tp phase's heads on a model axis of 2: qwen3-8b's local 16/4
+        # (its serve prompt and its fp32 prefill), mixtral-8x22b's local
+        # 24/4 under its window, hymba's 25/5, which stay whole
+        *TP_FLASH_CASES,
     ]
     for c in cases:
         res = flash_case(**c)
@@ -987,6 +1013,8 @@ def phase_kernels() -> dict:
     # rows a kv head
     res = flash_decode_case(HYMBA_DECODE_BATCH, 1024, 25, 5, 64, iters=10)
     results[("flash_decode", HYMBA_DECODE_BATCH, 1024, 25, 64)] = res
+    # a decode step of qwen3-8b's local 16/4 heads (the tp phase's split)
+    results[("flash_decode", 8, 4096, 16, 128)] = flash_decode_case(8, 4096, 16, 4, 128, iters=10)
     wkv_cases = [
         # rwkv6-7b's serve prompt (4, 16), 64 heads of 64: the serve chunk
         # of 8 and a chunk of 16
@@ -1002,15 +1030,20 @@ def phase_kernels() -> dict:
         # heads at the decode batch of 128
         dict(b=128, s=1, h=64, d=64, chunk=1, regime="slow", iters=50, plain_iters=10,
              carried=True),
+        # the tp phase's prefill: rwkv6-7b's local 32 of 64 heads
+        dict(b=1, s=TP_PREFILL, h=32, d=64, chunk=64, regime="slow"),
     ]
     for c in wkv_cases:
         res = wkv6_case(**c)
         s = res["shape"]
-        results[("wkv6", s["b"], s["s"], s["chunk"], s["decay"])] = res
+        results[("wkv6", s["b"], s["s"], s["h"], s["chunk"], s["decay"])] = res
     # backward kernels at the training shapes: gemma-2b's norm rows (one
     # 4096-token microbatch), qwen3-8b's q-norm rows at (1, 4096), and a
     # large fp32 case
-    for rows, d, dtype in ((4096, 2048, bf16), (131072, 128, bf16), (8192, 4096, f32)):
+    # and the tp phase's: qwen3-8b's q-norm rows of its local 16 heads at
+    # (1, 4096), fp32
+    for rows, d, dtype in ((4096, 2048, bf16), (131072, 128, bf16), (8192, 4096, f32),
+                           (TP_TRAIN_SEQ * 16, 128, f32)):
         res = rmsnorm_bwd_case(rows, d, dtype, iters=20)
         results[("rmsnorm_bwd", rows, d, res["dtype"])] = res
     bwd_cases = [
@@ -1026,6 +1059,8 @@ def phase_kernels() -> dict:
         dict(b=1, sq=512, sk=1024, hq=8, hkv=2, d=128, dtype=bf16, q_offset=512),
         dict(b=2, sq=256, sk=256, hq=4, hkv=2, d=16, dtype=f32),
         dict(b=1, sq=256, sk=256, hq=4, hkv=1, d=32, dtype=bf16),
+        # the tp phase's step: qwen3-8b's local 16/4 heads at (1, 4096), fp32
+        dict(b=1, sq=TP_TRAIN_SEQ, sk=TP_TRAIN_SEQ, hq=16, hkv=4, d=128, dtype=f32, iters=3),
     ]
     for c in bwd_cases:
         res = flash_bwd_case(**c)
@@ -1274,7 +1309,7 @@ def phase_serve(archs=SERVE_ARCHS, configs=None, kinds=KERNEL_KINDS) -> dict:
 
 def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
                  moe_res: dict, families_res: dict, fleet_res: dict, ckpt_res: dict,
-                 cli_res: dict) -> None:
+                 cli_res: dict, tp_res: dict) -> None:
     """The summary line: each kernel the serve and train paths launch. The
     forward kernels at their largest serve-path shape (bf16 for the norm
     and attention, whose largest is qwen3-8b's; fp32 for WKV6, rwkv6-7b's
@@ -1298,11 +1333,12 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
     of K1 and K3, a run each (``launches_fleet``), the ckpt phase's of
     every kernel, a run each (``launches_ckpt``), and the cli phase's, a
     run each (``launches_cli``: the full-depth CLI runs, the resume's A,
-    B and C, each example)."""
+    B and C, each example). The tp phase's local-head shapes and each
+    rank's launches there (``at_tp``: its serve, prefill and train runs)."""
     rms = k[("rmsnorm", 64, 4096, "bfloat16")]
     rms_res = k[("rmsnorm_residual", 64, 4096, "bfloat16")]
     fa = k[("flash_attention", 4, 16, 32, 128, None, 0, "bfloat16")]
-    wkv = k[("wkv6", 4, 16, 8, "slow")]
+    wkv = k[("wkv6", 4, 16, 64, 8, "slow")]
     rms_bwd = k[("rmsnorm_bwd", 4096, 2048, "bfloat16")]
     fa_bwd = k[("flash_attention_bwd", 1, 4096, 8, 256, None, 0, "bfloat16")]
     fa_moe = k[("flash_attention", 1, MOE_PARITY_PROMPT, 48, 128, 4096, 0, "bfloat16")]
@@ -1334,6 +1370,17 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
                   **{x: k[("flash_decode", b, sk, hq, d)][x]
                      for x in ("ms_by_form", "rel_fro_by_form", "control_rel_fro")}}
                  for b, hq, d in ((8, 32, 128), (64, 8, 256)) for sk in (4096, 32768)]
+    def at_tp(name: str, shapes: list) -> dict:
+        runs = lambda r: {"serve": r["serve"]["launches"][name],  # noqa: E731
+                          **{f["arch"]: f["launches"][name] for f in r["families"]},
+                          "train": r["train"]["launches"][name]}
+        return {"shapes": [at(x) for x in shapes],
+                "launches_by_rank": [runs(r) for r in tp_res["ranks"]]}
+
+    tp_flash = [k[("flash_attention", c["b"], c["sq"], c["hq"], c["d"], c.get("window"), 0,
+                   str(c["dtype"]).removeprefix("torch."))] for c in TP_FLASH_CASES]
+    tp_flash.append(k[("flash_decode", 8, 4096, 16, 128)])
+    tp_rows = TP_TRAIN_SEQ * 16
     emit({"kernels": [
         {"name": "rmsnorm", "route": "cuda", "source": RMS_SRC,
          "replaces": RMS_TPU, "also_replaces": RMS_RES_TPU,
@@ -1350,7 +1397,8 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
                          "launches_a_hymba_request": hymba_per["rmsnorm"]},
          "launches_fleet": {run: n["rmsnorm"] for run, n in fleet_res["launches"].items()},
          "launches_ckpt": ckpt("rmsnorm"),
-         "launches_cli": cli("rmsnorm")},
+         "launches_cli": cli("rmsnorm"),
+         "at_tp": at_tp("rmsnorm", [k[("rmsnorm", tp_rows, 128, "float32")]])},
         {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
          "replaces": FLASH_TPU,
          "launches": serve_res["launches"]["flash_attention"], "shape": fa["shape"],
@@ -1371,21 +1419,24 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
          "launches_fleet": {run: n["flash_attention"]
                             for run, n in fleet_res["launches"].items()},
          "launches_ckpt": ckpt("flash_attention"),
-         "launches_cli": cli("flash_attention")},
+         "launches_cli": cli("flash_attention"),
+         "at_tp": at_tp("flash_attention", tp_flash)},
         {"name": "wkv6", "route": "cuda", "source": WKV_SRC, "replaces": WKV_TPU,
          "launches": serve_res["launches"]["wkv6"], "shape": wkv["shape"],
          "dtype": "float32", **{x: wkv[x] for x in keys},
          "plain_chunked_ms": wkv["plain_chunked_ms"],
-         "launches_decode": decode["wkv6"], "at_decode": at(k[("wkv6", 128, 1, 1, "slow")]),
+         "launches_decode": decode["wkv6"], "at_decode": at(k[("wkv6", 128, 1, 64, 1, "slow")]),
          "launches_ckpt": ckpt("wkv6"),
-         "launches_cli": cli("wkv6")},
+         "launches_cli": cli("wkv6"),
+         "at_tp": at_tp("wkv6", [k[("wkv6", 1, TP_PREFILL, 32, 64, "slow")]])},
         {"name": "rmsnorm_bwd", "route": "cuda", "source": RMS_SRC, "replaces": RMS_TPU,
          "backward_of": "rmsnorm (K1); no TPU counterpart",
          "launches": train["rmsnorm_bwd"], "launches_a_train_step": per_step["rmsnorm_bwd"],
          "shape": rms_bwd["shape"], "dtype": "bfloat16", **{x: rms_bwd[x] for x in keys},
          "at_qk_norm": at(k[("rmsnorm_bwd", 131072, 128, "bfloat16")]),
          "launches_ckpt": ckpt("rmsnorm_bwd"),
-         "launches_cli": cli("rmsnorm_bwd")},
+         "launches_cli": cli("rmsnorm_bwd"),
+         "at_tp": at_tp("rmsnorm_bwd", [k[("rmsnorm_bwd", tp_rows, 128, "float32")]])},
         {"name": "flash_attention_bwd", "route": "cuda", "source": FLASH_BWD_SRC,
          "replaces": FLASH_TPU, "backward_of": "flash_attention (K3); no TPU counterpart",
          "launches": train["flash_attention_bwd"],
@@ -1398,7 +1449,9 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
              "at": [at(k[("flash_attention_bwd", 1, s, hq, d, None, 0, "float32")])
                     for s, hq, d in ((4096, 8, 256), (4096, 32, 128), (512, 32, 128))]},
          "launches_ckpt": ckpt("flash_attention_bwd"),
-         "launches_cli": cli("flash_attention_bwd")},
+         "launches_cli": cli("flash_attention_bwd"),
+         "at_tp": at_tp("flash_attention_bwd", [k[("flash_attention_bwd", 1, TP_TRAIN_SEQ, 16, 128,
+                                                   None, 0, "float32")]])},
     ]})
 
 
@@ -2455,7 +2508,8 @@ def decode_timing(cfg, opts, params, batch=None, kinds=DECODE_KERNEL_KINDS) -> d
 def phase_decode() -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = {"correctness": {arch: decode_correctness(arch) for arch in SERVE_ARCHS}}
+    res = {"correctness": {arch: decode_correctness(arch, cfg=depth_cut(arch, DECODE_CHECK_DEPTH))
+                           for arch in SERVE_ARCHS}}
     res["timing"] = [r for arch in SERVE_ARCHS for r in decode_timings(arch)]
     res["wall_s"] = time.perf_counter() - t0
     launches = dict.fromkeys(kernel_counters(), 0)
@@ -2560,7 +2614,8 @@ def phase_families() -> dict:
     full depth, served beside gemma-2b through ``launch.serve`` (the serve
     cell's traffic, SSM chunks of 8), prefill parity at (1, 2560) in bf16
     and fp32, a profiled (1, 2560) prefill (the SSM scan's share), the
-    decode checks (token 511 against the full forward; 16 greedy tokens
+    decode checks, ``DECODE_CHECK_DEPTH`` layers deep (token 511 against
+    the full forward; 16 greedy tokens
     from 2560 across the ring's wrap; the int8 cache) and a timed decode
     step at DECODE_32K's positions, batch 128, bf16 params and ring;
     musicgen-medium (audio: frame embeddings, no embedding table) at full
@@ -2588,7 +2643,8 @@ def phase_families() -> dict:
     ]
     res["hymba_prefill_profile"] = hymba_prefill_profile()
     res["decode"] = [
-        decode_correctness(HYMBA_ARCH, greedy_prompt=HYMBA_PROMPT),
+        decode_correctness(HYMBA_ARCH, cfg=depth_cut(HYMBA_ARCH, DECODE_CHECK_DEPTH),
+                           greedy_prompt=HYMBA_PROMPT),
         decode_correctness(MUSICGEN_ARCH),
         decode_correctness(QWEN2_VL_ARCH, cfg=qwen2_vl),
     ]
@@ -3714,6 +3770,453 @@ def phase_cli(train_res=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: tensor parallelism, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+TP_MESH = (1, 2)  # (data, model): the model axis splits the work
+TP_SEED = 27
+TP_ARCH = "qwen3-8b"
+TP_SERVE_PROMPT = (4, 16)
+TP_NEW = 16  # greedy tokens
+TP_PREFILL = 512  # the fp32 prefill's prompt, as phase parity
+# fp32 prefill at full width: full depth, and mixtral at the moe phase's depth
+TP_FAMILIES = (("rwkv6-7b", None), (HYMBA_ARCH, None), (MOE_ARCH, MOE_DEPTH))
+TP_TRAIN_DEPTH = 4  # qwen3-8b's step: 4 of 36 layers, fp32, one (1, 4096) sequence
+TP_TRAIN_SEQ = 4096
+# relative Frobenius of the loss, the gradient tree and the updated params'
+# tree, as C2's step was held; and of each leaf, phase train_parity's fp32
+# bar: the flash backward's 3xTF32 error differs between the launch plans
+# of 16/4 and 32/8 heads, and a leaf such as a qk-norm scale, summed over
+# every row and head, lands ~1e-5 apart
+TP_TRAIN_TOL = 1e-5
+TP_TRAIN_LEAF_TOL = 1e-4
+TP_PREFILL_TOL = 1e-3  # phase parity's fp32 tolerance, (1 + |one process|)
+TP_TIMEOUT_S = 900
+TP_FLASH_CASES = (
+    dict(b=4, sq=16, sk=16, hq=16, hkv=4, d=128, dtype=torch.bfloat16, iters=50),
+    dict(b=1, sq=TP_PREFILL, sk=TP_PREFILL, hq=16, hkv=4, d=128, dtype=torch.float32, iters=5),
+    dict(b=1, sq=TP_PREFILL, sk=TP_PREFILL, hq=24, hkv=4, d=128, dtype=torch.float32,
+         window=4096, iters=5),
+    dict(b=1, sq=TP_PREFILL, sk=TP_PREFILL, hq=25, hkv=5, d=64, dtype=torch.float32,
+         window=1024, iters=5),
+)
+
+
+def tp_params(cfg, dtype: str, mesh=None, serve: bool = False):
+    """``cfg``'s params drawn a layer at a time: layer i's leaves are those
+    of a one-layer model drawn from seed ``TP_SEED * 1000 + i`` (layer 0's
+    with the embedding, final norm and head), rwkv's decays spread
+    (``spread_decay``). Without ``mesh``, whole and stacked (the one-process
+    run). On ``mesh``, each layer is placed as it is drawn (``place`` with
+    ``param_shardings``), so a rank holds its pieces and one layer whole at
+    a time, never the tree."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.dist.api import place
+    from repro_torch.dist.sharding import param_shardings
+    from repro_torch.models import ModelOptions, build_model, transformer
+
+    one = replace(cfg, n_layers=1)
+
+    def drawn(i: int):
+        gen = torch.Generator(device="cuda").manual_seed(TP_SEED * 1000 + i)
+        if i == 0:
+            tree = build_model(one, ModelOptions(param_dtype=dtype)).init(gen)
+        else:
+            tree = {"layers": transformer.layer_init(gen, one, getattr(torch, dtype))}
+        if cfg.family == "ssm":
+            spread_decay(tree, one)
+        return tree if mesh is None else place(tree, param_shardings(tree, one, mesh, serve=serve))
+
+    local = (lambda t: t) if mesh is None else (lambda t: t.to_local())
+    top = drawn(0)
+    first, spec = pytree.tree_flatten(top["layers"])
+    stacks = [torch.empty((cfg.n_layers, *local(t).shape[1:]), dtype=t.dtype, device="cuda")
+              for t in first]
+    for i in range(cfg.n_layers):
+        for stack, t in zip(stacks, first if i == 0 else pytree.tree_leaves(drawn(i))):
+            stack[i] = local(t)[0]
+    if mesh is not None:
+        stacks = [DTensor.from_local(x, mesh, t.placements, run_check=False)
+                  for x, t in zip(stacks, first)]
+    layers = pytree.tree_unflatten(stacks, spec)
+    return {name: layers if name == "layers" else leaf for name, leaf in top.items()}
+
+
+def resident_bytes(params) -> int:
+    """Bytes of the params this process holds (a ``DTensor``'s local piece)."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils import _pytree as pytree
+
+    return sum((t.to_local() if isinstance(t, DTensor) else t).nbytes
+               for t in pytree.tree_leaves(params))
+
+
+def gloo_probe() -> dict:
+    """Whether gloo runs each collective the port uses on CUDA tensors
+    here, fp32 and bf16, with the right sums: all_reduce, all_gather, and
+    broadcast besides."""
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.full((4,), float(rank + 1), dtype=dtype, device="cuda")
+        red = x.clone()
+        dist.all_reduce(red)
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x)
+        cast = x.clone()
+        dist.broadcast(cast, src=0)
+        name = str(dtype).removeprefix("torch.")
+        out[name] = {"all_reduce": red.float().tolist(), "all_gather": [p[0].item() for p in parts],
+                     "broadcast": cast[0].item(), "devices": sorted({str(t.device) for t in
+                                                                      (red, *parts, cast)})}
+        check(red.float().eq(world * (world + 1) / 2).all().item()
+              and [p[0].item() for p in parts] == [float(r + 1) for r in range(world)]
+              and cast[0].item() == 1.0, f"gloo on CUDA {name}: {out[name]}")
+    return out
+
+
+def tp_whole(piece: torch.Tensor, like, mesh) -> torch.Tensor:
+    """A leaf whole from the ranks' ``piece``s laid out as ``like`` (a
+    ``DTensor``), by ``all_gather`` over the model axis: every rank calls it."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    pl = like.placements[mesh.mesh_dim_names.index("model")]
+    if not isinstance(pl, Shard):
+        return piece
+    parts = [torch.empty_like(piece) for _ in range(mesh.size(mesh.mesh_dim_names.index("model")))]
+    dist.all_gather(parts, piece.contiguous(), group=mesh.get_group("model"))
+    return torch.cat(parts, pl.dim)
+
+
+def tp_serve(mesh, rank: int) -> dict:
+    """qwen3-8b at full width and depth, bf16 params placed for serving:
+    16 greedy tokens of a (4, 16) prompt through ``make_prefill_step`` /
+    ``make_decode_step`` (``generate``) and ``greedy_generate``, bf16
+    compute; a (1, 512) prefill in fp32 compute. Rank 0 then runs the same
+    on the whole params in one process and holds the two."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ModelOptions, build_model
+    from repro_torch.train.serve_step import greedy_generate, make_prefill_step
+
+    cfg = get_config(TP_ARCH)
+    counters = kernel_counters()
+    m16 = build_model(cfg, ModelOptions(param_dtype="bfloat16"))
+    m32 = build_model(cfg, ModelOptions(param_dtype="bfloat16", compute_dtype="float32"))
+    gen = torch.Generator(device="cuda").manual_seed(TP_SEED)
+    prompt = torch.randint(0, cfg.vocab_size, TP_SERVE_PROMPT, generator=gen, device="cuda")
+    long = torch.randint(0, cfg.vocab_size, (1, TP_PREFILL), generator=gen, device="cuda")
+    max_len = TP_SERVE_PROMPT[1] + TP_NEW
+
+    def runs(params) -> dict:
+        zero_counts(counters)
+        sync()
+        t0 = time.perf_counter()
+        tokens, logits = generate(m16, params, prompt, TP_NEW, max_len)
+        sync()
+        t1 = time.perf_counter()
+        greedy = greedy_generate(m16, params, {"tokens": prompt}, TP_NEW, max_len)
+        l32 = make_prefill_step(m32, TP_PREFILL)(params, {"tokens": long})[0].float()
+        sync()
+        return {"tokens": tokens, "logits": logits, "greedy": greedy, "logits32": l32,
+                "generate_s": t1 - t0, "prefill32_s": time.perf_counter() - t1,
+                "launches": {n: fn.launches for n, fn in counters.items()}}
+
+    params = tp_params(cfg, "bfloat16", mesh, serve=True)
+    out = {"param_bytes_rank": resident_bytes(params)}
+    tp = runs(params)  # the serve steps install the mesh's sharding context
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(launches=tp["launches"], generate_s=tp["generate_s"],
+               prefill32_s=tp["prefill32_s"],
+               greedy_equals_generate=bool(torch.equal(tp["greedy"].long(), tp["tokens"].long())))
+    dist.barrier()
+    if rank == 0:
+        whole = tp_params(cfg, "bfloat16")
+        out["param_bytes_one_process"] = resident_bytes(whole)
+        ref = runs(whole)
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        j = first_difference(tp["tokens"], ref["tokens"])
+        upto = TP_NEW if j is None else j + 1  # the same inputs up to there
+        out.update(tokens_tp=tp["tokens"].tolist(), tokens_one_process=ref["tokens"].tolist(),
+                   first_difference=j, one_process_generate_s=ref["generate_s"],
+                   logits_bf16_max_abs_diff=max_err(tp["logits"][:upto], ref["logits"][:upto]),
+                   logits32_max_abs_diff=max_err(tp["logits32"], ref["logits32"]),
+                   logits32_tol=f"{TP_PREFILL_TOL} (1 + |one process|)",
+                   logits32_within=within(tp["logits32"], ref["logits32"], TP_PREFILL_TOL),
+                   argmax32=[int(tp["logits32"].argmax()), int(ref["logits32"].argmax())])
+        if j is not None:  # a tie at the top of the one-process logits, within one bf16 ulp
+            rows = (tp["tokens"][:, j] != ref["tokens"][:, j]).nonzero()[:, 0].tolist()
+            lg = ref["logits"][j]
+            gaps = [float(lg[r].max() - lg[r, tp["tokens"][r, j]]) for r in rows]
+            ulps = [bf16_ulp(float(lg[r].max())) for r in rows]
+            out.update(rows_at_difference=rows, one_process_gap=gaps, bf16_ulp=ulps,
+                       tie=all(g <= u for g, u in zip(gaps, ulps)))
+    dist.barrier()
+    return out
+
+
+def tp_prefill(mesh, rank: int, arch: str, depth) -> dict:
+    """``arch`` at full width (``depth`` layers if given), bf16 params
+    placed for serving, a (1, 512) prefill in fp32 compute on the ranks;
+    rank 0 then runs it on the whole params in one process and holds the
+    logits. MoE: the tokens each route call sends to other experts than
+    the one-process run does, recorded (``moe_trace``)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ModelOptions, build_model
+    from repro_torch.train.serve_step import make_prefill_step
+
+    cfg = get_config(arch) if depth is None else depth_cut(arch, depth)
+    counters = kernel_counters()
+    model = build_model(cfg, ModelOptions(param_dtype="bfloat16", compute_dtype="float32"))
+    gen = torch.Generator(device="cuda").manual_seed(TP_SEED)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, TP_PREFILL), generator=gen,
+                                     device="cuda")}
+
+    def run(params):
+        zero_counts(counters)
+        sync()
+        t0 = time.perf_counter()
+        with moe_trace() as log:
+            logits = make_prefill_step(model, TP_PREFILL)(params, batch)[0].float()
+        sync()
+        return logits, log, time.perf_counter() - t0, {n: fn.launches for n, fn in counters.items()}
+
+    params = tp_params(cfg, "bfloat16", mesh, serve=True)
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "param_bytes_rank": resident_bytes(params)}
+    tp, tp_log, out["prefill_s"], out["launches"] = run(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        whole = tp_params(cfg, "bfloat16")
+        out["param_bytes_one_process"] = resident_bytes(whole)
+        ref, ref_log, out["one_process_prefill_s"], _ = run(whole)
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        out.update(logits_max_abs_diff=max_err(tp, ref), tol=f"{TP_PREFILL_TOL} (1 + |one process|)",
+                   within=within(tp, ref, TP_PREFILL_TOL), argmax=[int(tp.argmax()), int(ref.argmax())],
+                   finite=bool(torch.isfinite(tp).all().item()))
+        if cfg.is_moe:
+            out["flipped_tokens_a_route_call"] = flipped_tokens(tp_log, ref_log)
+            out["dropped"] = [dropped(tp_log), dropped(ref_log)]
+    dist.barrier()
+    return out
+
+
+def tp_train_step(mesh, cfg, params, batch):
+    """One AdamW step of ``cfg`` (fp32 compute, the default options) on
+    ``params``, on ``mesh`` when they are placed there: the loss, the
+    gradients as the step hands them to AdamW (copied before its clipping),
+    the step's seconds and its peak of allocated bytes."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.models import ModelOptions, build_model
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import TrainRunConfig, local_pieces, make_train_step
+
+    kept = []
+    model = build_model(cfg, ModelOptions(compute_dtype="float32"))
+    opt = AdamW()
+    state = opt.init(local_pieces(params))
+    if mesh is not None:  # m and v laid out as the params
+        for key in ("m", "v"):
+            state[key] = pytree.tree_map(
+                lambda z, p: DTensor.from_local(z, mesh, p.placements, run_check=False),
+                state[key], params)
+    run = TrainRunConfig(grad_transform=lambda g: kept.append(pytree.tree_map(torch.clone, g)) or g)
+    step = make_train_step(model, opt, run)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = step(params, state, batch)[2]  # on a mesh the step installs its context
+    sync()
+    return {"loss": float(metrics["loss"]), "grads": kept[0], "step_s": time.perf_counter() - t0,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def tp_train(mesh, rank: int) -> dict:
+    """qwen3-8b at full width, ``TP_TRAIN_DEPTH`` layers, fp32 params and
+    compute: one AdamW step of a (1, 4096) sequence on the ranks, B1 and B2
+    on local heads; rank 0 then takes it in one process and holds the loss,
+    the gradients and the updated params (each leaf gathered whole from the
+    ranks, one at a time): relative Frobenius of each tree and each leaf."""
+    import torch.distributed as dist
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist.api import place
+    from repro_torch.dist.sharding import batch_shardings
+
+    cfg = depth_cut(TP_ARCH, TP_TRAIN_DEPTH)
+    counters = kernel_counters()
+    gen = torch.Generator(device="cuda").manual_seed(TP_SEED + 1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (1, TP_TRAIN_SEQ), generator=gen, device="cuda")
+             for k in ("tokens", "labels")}
+    params = tp_params(cfg, "float32", mesh)
+    out = {"n_layers": cfg.n_layers, "seq": TP_TRAIN_SEQ, "param_bytes_rank": resident_bytes(params)}
+    zero_counts(counters)
+    placed = place(batch, batch_shardings(cfg, ShapeConfig("tp", "train", TP_TRAIN_SEQ, 1), mesh))
+    tp = tp_train_step(mesh, cfg, params, placed)
+    out.update(launches={n: fn.launches for n, fn in counters.items()}, loss=tp["loss"],
+               step_s=tp["step_s"], peak_bytes_rank=tp["peak_bytes"])
+    paths, like = zip(*pytree.tree_flatten_with_path(params)[0])
+    new = [t.to_local() for t in like]
+    grads = pytree.tree_leaves(tp.pop("grads"))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    ref = None
+    if rank == 0:
+        whole = tp_params(cfg, "float32")
+        one = tp_train_step(None, cfg, whole, batch)
+        out.update(one_process_loss=one["loss"], one_process_step_s=one["step_s"],
+                   one_process_peak_bytes=one["peak_bytes"],
+                   loss_rel=abs(tp["loss"] - one["loss"]) / abs(one["loss"]))
+        ref = {"grads": pytree.tree_leaves(one.pop("grads")), "params": pytree.tree_leaves(whole)}
+        del whole, one
+    # squared norms of the differences and of the one-process values, a leaf
+    sq = {"grads": [], "params": []}
+    for i, lk in enumerate(like):
+        for key, pieces in (("grads", grads), ("params", new)):
+            t = tp_whole(pieces[i], lk, mesh)
+            if ref is not None:
+                b = ref[key][i].float()
+                sq[key].append(((t.float() - b).square().sum().item(), b.square().sum().item()))
+            del t
+    if ref is not None:
+        for key, rows in sq.items():
+            leaf = {pytree.keystr(p): math.sqrt(d / max(n, 1e-60)) for p, (d, n) in zip(paths, rows)}
+            worst = max(leaf, key=leaf.get)
+            out[key] = {"rel_fro": math.sqrt(sum(d for d, _ in rows) / sum(n for _, n in rows)),
+                        "rel_fro_a_leaf": leaf, "worst_leaf": [worst, leaf[worst]]}
+    dist.barrier()
+    return out
+
+
+def tp_rank(rank: int, world: int, workdir: str) -> int:
+    """One rank of phase ``tp`` (``chip_smoke.py --tp-rank RANK WORLD DIR``):
+    a gloo group over a ``FileStore`` in ``DIR``, every rank on the one
+    card; the probe, serve, prefill and train runs; rank 0 writes every
+    rank's record to ``DIR/tp.json``."""
+    import resource
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    store = dist.FileStore(str(Path(workdir) / "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
+                            timeout=timedelta(seconds=TP_TIMEOUT_S))
+    try:
+        out = {"rank": rank, "gloo_cuda": gloo_probe()}
+        mesh = make_mesh(TP_MESH, ("data", "model"), "cuda")
+        out["serve"] = tp_serve(mesh, rank)
+        out["families"] = [tp_prefill(mesh, rank, arch, depth) for arch, depth in TP_FAMILIES]
+        out["train"] = tp_train(mesh, rank)
+        out["max_rss_gib"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+        ranks = [None] * world
+        dist.all_gather_object(ranks, out)
+        if rank == 0:
+            (Path(workdir) / "tp.json").write_text(json.dumps(ranks))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_tp() -> dict:
+    """Tensor parallelism on the model axis (``dist.api``): two rank
+    processes of a gloo group on the one card (NCCL refuses two ranks on
+    one device), a (1, 2) ``data, model`` mesh. The port's collectives
+    pass CUDA tensors to gloo, which stages them through the host, so the
+    seconds here are no speed figure. Rank 0 holds each run against the
+    one-process port on the same params (``tp_params``, drawn from one
+    seed): qwen3-8b's 16 greedy bf16 tokens of a (4, 16) prompt equal, or
+    apart only from a tie within one bf16 ulp at the top of the
+    one-process logits, and its fp32 (1, 512) prefill within phase
+    parity's tolerance; the same prefill of rwkv6-7b, hymba-1.5b (full
+    depth) and mixtral-8x22b (4 layers); a 4-layer qwen3-8b AdamW step at
+    (1, 4096), fp32, loss, gradients and updated params within 1e-5
+    relative Frobenius (each leaf within 1e-4, phase train_parity's fp32
+    bar). Per rank: the bytes of params resident
+    (prediction: within 1% of half the one-process bytes) and the step's
+    peak allocation; K1/K3/K4/B1/B2 launched on local heads; each
+    process's peak resident host memory."""
+    import resource
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    world = TP_MESH[0] * TP_MESH[1]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--tp-rank", str(r),
+                               str(world), workdir], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=TP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    if any(p.returncode for p in procs):
+        for r, (p, o) in enumerate(zip(procs, outs)):
+            print(f"tp rank {r} rc {p.returncode}:\n{o[-6000:]}", file=sys.stderr)
+        raise RuntimeError("chip_smoke check failed: a tp rank failed")
+    ranks = json.loads((Path(workdir) / "tp.json").read_text())
+    r0 = ranks[0]
+    res = {"phase": "tp", "nvidia_smi": smi, "mesh": list(TP_MESH), "ranks": ranks,
+           "launcher_max_rss_gib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+           "wall_s": time.perf_counter() - t0}
+    emit(res)
+    serve, train = r0["serve"], r0["train"]
+    for r in ranks:
+        for key, want in (("serve", ("rmsnorm", "flash_attention")),
+                          ("train", ("rmsnorm", "flash_attention", "rmsnorm_bwd",
+                                     "flash_attention_bwd"))):
+            check(all(r[key]["launches"][n] > 0 for n in want),
+                  f"tp rank {r['rank']} {key}: launches {r[key]['launches']}")
+        check(r["families"][0]["launches"]["wkv6"] > 0, f"tp rank {r['rank']}: no K4 launch")
+        check(abs(r["serve"]["param_bytes_rank"] / serve["param_bytes_one_process"] - 0.5) <= 0.005,
+              f"tp rank {r['rank']}: {r['serve']['param_bytes_rank']} param bytes of "
+              f"{serve['param_bytes_one_process']}")
+        check(r["serve"]["greedy_equals_generate"], "tp: greedy_generate != the step loop")
+    check(serve["first_difference"] is None or serve["tie"],
+          f"tp: qwen3-8b tokens differ beyond a tie: {serve}")
+    check(serve["logits32_within"] and serve["argmax32"][0] == serve["argmax32"][1],
+          f"tp: qwen3-8b fp32 prefill {serve['logits32_max_abs_diff']}")
+    for fam in r0["families"]:
+        check(fam["finite"] and fam["within"] and fam["argmax"][0] == fam["argmax"][1],
+              f"tp: {fam['arch']} fp32 prefill {fam}")
+    for key in ("grads", "params"):
+        check(train[key]["rel_fro"] <= TP_TRAIN_TOL
+              and train[key]["worst_leaf"][1] <= TP_TRAIN_LEAF_TOL, f"tp: train step {key} {train}")
+    check(train["loss_rel"] <= TP_TRAIN_TOL, f"tp: train step loss {train}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3727,25 +4230,39 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--tp-rank"]:  # one rank of phase tp
+        return tp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     t0 = time.perf_counter()
-    phase_env()
-    k = phase_kernels()
-    serve_res = phase_serve()
+    seconds = {}
+
+    def timed(name: str, fn, *args):
+        start = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - start
+        return out
+
+    timed("env", phase_env)
+    k = timed("kernels", phase_kernels)
+    serve_res = timed("serve", phase_serve)
     for arch in ("qwen3-8b", "rwkv6-7b"):
-        phase_parity(arch)
-    paging_res = phase_paging()
-    train_res = phase_train()
-    phase_train_parity()
-    phase_serve_train()
-    decode_res = phase_decode()
-    moe_res = phase_moe()
-    families_res = phase_families()
-    diff_res = phase_differential(paging_res)
-    fleet_res = phase_fleet(paging_res, diff_res)
-    ckpt_res = phase_ckpt()
-    cli_res = phase_cli(train_res)
+        timed(f"parity {arch}", phase_parity, arch)
+    # before the phases that page, migrate and checkpoint through host
+    # memory: the ranks and this process share the machine's 96 GiB
+    tp_res = timed("tp", phase_tp)
+    paging_res = timed("paging", phase_paging)
+    train_res = timed("train", phase_train)
+    timed("train_parity", phase_train_parity)
+    timed("serve_train", phase_serve_train)
+    decode_res = timed("decode", phase_decode)
+    moe_res = timed("moe", phase_moe)
+    families_res = timed("families", phase_families)
+    diff_res = timed("differential", phase_differential, paging_res)
+    fleet_res = timed("fleet", phase_fleet, paging_res, diff_res)
+    ckpt_res = timed("ckpt", phase_ckpt)
+    cli_res = timed("cli", phase_cli, train_res)
+    emit({"phase_seconds": seconds})
     kernels_line(k, serve_res, train_res, decode_res, moe_res, families_res, fleet_res, ckpt_res,
-                 cli_res)
+                 cli_res, tp_res)
     emit({"phase": "done", "wall_s": time.perf_counter() - t0})
     emit({"ok": True, "device": {
         "platform": "gpu",

@@ -16,15 +16,29 @@ replication for the offending dim):
 
 A mesh here is a ``DeviceMesh`` or anything with ``.axis_names`` and a
 ``.shape`` mapping names to sizes (JAX's tests pass such fakes).
+
+Tensor parallelism (JAX gets it from GSPMD at its ``constrain`` sites):
+under a context whose ``DeviceMesh`` has a ``model`` axis of more than one
+rank, the model code takes each param's local piece (``to_local()``) and
+asks :func:`split_at`, with a JAX site's logical axes and the value's
+whole shape, whether the guard splits it there. A split value is computed
+as its local piece, and the :class:`ModelAxis` collectives join the
+pieces where GSPMD would: ``copy`` where a value that every rank holds
+whole enters a split computation (identity forward, all-reduce backward),
+``reduce`` after a contraction over a split dim (all-reduce forward,
+identity backward), ``gather`` where a split value meets a whole one
+(all-gather forward, slice backward) and ``split`` for the converse
+(slice forward, all-gather backward).
 """
 from __future__ import annotations
 
 import contextlib
 import threading
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Placement, Replicate, Shard, distribute_tensor
 from torch.utils import _pytree as pytree
@@ -147,6 +161,89 @@ def use_sharding(ctx: Optional[ShardingContext]):
         yield ctx
     finally:
         _state.ctx = prev
+
+
+class ModelAxis(NamedTuple):
+    """The active mesh's ``model`` axis: its process group, this rank's
+    index on it and its size. The collectives are autograd functions
+    (module docstring) on dim ``dim`` of ``x``; a split takes this rank's
+    ``1 / size`` of the dim. ``WHOLE``, of size 1, stands for a value no
+    rank splits: its collectives return ``x`` itself."""
+
+    group: Any
+    rank: int
+    size: int
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        return self.run(x, "copy")
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return self.run(x, "reduce")
+
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        return self.run(x, "gather", dim)
+
+    def split(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        return self.run(x, "split", dim)
+
+    def run(self, x: torch.Tensor, kind: str, dim: int = -1) -> torch.Tensor:
+        return x if self.size == 1 else _Collective.apply(x, self, kind, dim)
+
+
+WHOLE = ModelAxis(None, 0, 1)
+# each collective's backward is its dual's forward
+_DUAL = {"copy": "reduce", "reduce": "copy", "gather": "split", "split": "gather"}
+
+
+def _collective(x: torch.Tensor, ax: ModelAxis, kind: str, dim: int) -> torch.Tensor:
+    if kind == "copy":
+        return x
+    if kind == "split":
+        n = x.shape[dim] // ax.size
+        return x.narrow(dim, ax.rank * n, n).contiguous()
+    x = x.contiguous()
+    if kind == "reduce":
+        x = x.clone()
+        dist.all_reduce(x, group=ax.group)
+        return x
+    parts = [torch.empty_like(x) for _ in range(ax.size)]
+    dist.all_gather(parts, x, group=ax.group)
+    return torch.cat(parts, dim)
+
+
+class _Collective(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, kind, dim):
+        ctx.dual = ax, _DUAL[kind], dim
+        out = _collective(x, ax, kind, dim)
+        return out.view_as(out) if out is x else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _collective(grad, *ctx.dual), None, None, None
+
+
+def model_axis() -> ModelAxis:
+    """The active context's model axis, or ``WHOLE``: no context, a mesh
+    that is not a ``DeviceMesh``, no ``model`` axis, or one of one rank."""
+    mesh = getattr(current(), "mesh", None)
+    names = getattr(mesh, "mesh_dim_names", None) or ()
+    if not isinstance(mesh, DeviceMesh) or "model" not in names:
+        return WHOLE
+    i = names.index("model")
+    return ModelAxis(mesh.get_group(i), mesh.get_local_rank(i), mesh.size(i))
+
+
+def split_at(axes: Sequence[Optional[str]], shape: Sequence[int]) -> ModelAxis:
+    """The model axis if the active context splits a value of whole
+    ``shape`` on it where ``axes`` name ``model`` (or ``expert``): the
+    guard of JAX's ``constrain`` at that site. ``WHOLE``: the value stays
+    whole on every rank."""
+    ax = model_axis()
+    if ax.size == 1:
+        return WHOLE
+    spec = current().spec_for(tuple(axes), tuple(shape))
+    return ax if spec is not None and "model" in spec else WHOLE
 
 
 def _constrain(x, axes):

@@ -18,7 +18,7 @@ left (the model's prefill serves any prompt length so). The CUDA kernel
 takes chunks of at most 64 steps, each computed as one of its length
 rounded up to 16: sub-chunks of 16 rows whose scores against earlier rows
 are one 3xTF32 tensor-core product through a reference point, the
-diagonal blocks pair by pair (``csrc/wkv6.cu``; ``ref.wkv6_subchunk_ref``
+diagonal blocks pair by pair (``csrc/wkv6.cu``; ``tests/wkv6_rehearsal.py``
 rehearses its arithmetic on the CPU).
 
 There is no WKV6 backward kernel yet: on CUDA tensors under autograd

@@ -9,7 +9,9 @@
 
 Features exercised here (and by examples/torch/train_lm.py + tests):
   * the sharded train step on a (data, model) mesh (``DTensor`` params and
-    AdamW state laid out by the sharding rules, ``train/train_step.py``),
+    AdamW state laid out by the sharding rules, ``train/train_step.py``):
+    the data axis splits the batch and the model axis the work (tensor
+    parallelism, ``dist/api.py``),
   * async checkpointing + resume (restart supervisor, ``restore_on_mesh``),
   * failure injection (--inject-failure N kills the step loop at N),
   * straggler monitor on per-step wall times,

@@ -20,14 +20,26 @@ Under ``"reference"`` decode follows the JAX code: masked attention over
 the whole cache, or the chunked scan at ``cap >= 8192``. Sliding-window
 chunking is not ported yet. Positions are (b, s) ids under RoPE and (b,
 3, s) (temporal, height, width) ids under M-RoPE.
+
+On a model axis (``dist.api``), JAX's sites split the q heads
+(``("data", None, "model", None)``) and the projections' columns
+(``wq``/``wk``/``wv`` column-parallel, ``wo`` row-parallel) where the guard
+lets them (``_heads``): a rank runs K3 on its local q heads, and reads
+its local kv heads where the guard splits them too, or else the whole
+``k``/``v`` (all-gathered from its column pieces, as JAX's whole ``k``/
+``v`` constraint does) cut to its q heads' groups. q heads the guard
+does not split (hymba's 25) are gathered whole, attention runs whole on
+every rank, and ``wo`` takes the rank's rows of it. The caches hold the
+layer's ``k``/``v`` as the rank computes them: its local kv heads, or all.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.api import ModelAxis, model_axis, split_at
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref
 from repro_torch.models.layers import (
@@ -92,22 +104,75 @@ def full_attention(
     )
 
 
-def _project_qkv(p: Params, cfg: ArchConfig, x: torch.Tensor, *, kernel_mode: str = "kernel"):
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    if cfg.qkv_bias:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+class _Heads(NamedTuple):
+    """One attention layer on the model axis ``ax`` (module docstring):
+    which params are the rank's column (``wo``: row) pieces, whether it
+    computes its local q heads and local kv heads, and the kv heads its q
+    heads read when ``k``/``v`` are whole; ``n_q`` and ``n_kv`` count the
+    heads it computes."""
+
+    ax: ModelAxis
+    q_cols: bool  # wq / bq columns, wo rows
+    kv_cols: bool  # wk / wv / bk / bv columns
+    q: bool
+    kv: bool
+    kv_groups: slice
+    n_q: int
+    n_kv: int
+
+
+def _heads(cfg: ArchConfig, x: torch.Tensor) -> _Heads:
+    ax = model_axis()
+    if ax.size == 1:
+        return _Heads(ax, False, False, False, False, slice(None), cfg.n_heads, cfg.n_kv_heads)
+    b, s, hd = x.shape[0], x.shape[1], cfg.head_dim
+    cols = lambda n: split_at((None, "model"), (cfg.d_model, n)).size > 1  # noqa: E731
+    heads = lambda n: split_at(("data", None, "model", None), (b, s, n, hd)).size > 1  # noqa: E731
+    n_rep, hq = cfg.n_heads // cfg.n_kv_heads, cfg.n_heads // ax.size
+    # GQA groups whole within a rank's q heads, or a rank's q heads within one group
+    q = heads(cfg.n_heads) and (hq % n_rep == 0 or n_rep % hq == 0)
+    kv, lo = q and heads(cfg.n_kv_heads), ax.rank * hq // n_rep
+    return _Heads(ax, cols(cfg.q_dim), cols(cfg.kv_dim), q, kv, slice(lo, lo + max(1, hq // n_rep)),
+                  hq if q else cfg.n_heads, cfg.n_kv_heads // ax.size if kv else cfg.n_kv_heads)
+
+
+def _project_qkv(p: Params, cfg: ArchConfig, x: torch.Tensor, lay: _Heads, kernel_mode: str):
     b, s = x.shape[0], x.shape[1]
-    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    if cfg.qk_norm:
-        q = rmsnorm_head(p["q_norm"], q, cfg.norm_eps, kernel_mode=kernel_mode)
-        k = rmsnorm_head(p["k_norm"], k, cfg.norm_eps, kernel_mode=kernel_mode)
+    xs = lay.ax.copy(x) if lay.q_cols or lay.kv_cols else x
+
+    def project(name: str, cols: bool, local_heads: bool, n: int) -> torch.Tensor:
+        t = (xs if cols else x) @ p["w" + name]
+        if cfg.qkv_bias:
+            t = t + p["b" + name]
+        if cols and not local_heads:  # the whole heads from the ranks' columns
+            t = lay.ax.gather(t)
+        return t.reshape(b, s, n, cfg.head_dim)
+
+    q = project("q", lay.q_cols, lay.q, lay.n_q)
+    k = project("k", lay.kv_cols, lay.kv, lay.n_kv)
+    v = project("v", lay.kv_cols, lay.kv, lay.n_kv)
+    if cfg.qk_norm:  # a scale shared by local heads: its gradient summed over the ranks
+        qs, ks = p["q_norm"], p["k_norm"]
+        q = rmsnorm_head(lay.ax.copy(qs) if lay.q else qs, q, cfg.norm_eps, kernel_mode=kernel_mode)
+        k = rmsnorm_head(lay.ax.copy(ks) if lay.kv else ks, k, cfg.norm_eps, kernel_mode=kernel_mode)
     return q, k, v
+
+
+def _group_kv(lay: _Heads, t: torch.Tensor) -> torch.Tensor:
+    """Whole ``k``/``v`` (or a cache's, or its scales), dim 2 the kv heads,
+    cut to the groups of the rank's local q heads."""
+    if lay.q and not lay.kv:
+        return lay.ax.copy(t)[:, :, lay.kv_groups]
+    return t
+
+
+def _out_proj(p: Params, lay: _Heads, out: torch.Tensor) -> torch.Tensor:
+    """``wo`` on the heads' output (b, s, heads · head_dim), row-parallel
+    where the rank holds its rows."""
+    if lay.q_cols and not lay.q:
+        out = lay.ax.split(out)
+    y = out @ p["wo"]
+    return lay.ax.reduce(y) if lay.q_cols else y
 
 
 def _apply_positions(cfg: ArchConfig, q, k, positions):
@@ -125,14 +190,15 @@ def attend(
     """Causal self-attention over the full sequence; returns the output
     projection and the layer's (rotated) keys and values, which prefill
     keeps as its KV cache."""
-    q, k, v = _project_qkv(p, cfg, x, kernel_mode=kernel_mode)
+    lay = _heads(cfg, x)
+    q, k, v = _project_qkv(p, cfg, x, lay, kernel_mode)
     q, k = _apply_positions(cfg, q, k, positions)
     out = full_attention(
-        q, k, v, causal=True, window=cfg.sliding_window or None, kernel_mode=kernel_mode,
-        q_chunk=q_chunk,
+        q, _group_kv(lay, k), _group_kv(lay, v), causal=True,
+        window=cfg.sliding_window or None, kernel_mode=kernel_mode, q_chunk=q_chunk,
     )
     b, s = x.shape[0], x.shape[1]
-    return out.reshape(b, s, cfg.q_dim) @ p["wo"], k, v
+    return _out_proj(p, lay, out.reshape(b, s, lay.n_q * cfg.head_dim)), k, v
 
 
 def attention_apply(
@@ -293,7 +359,8 @@ def attention_decode(
     """One decode step against a (ring or linear, int8 or not) KV cache.
     Writes the new token's K/V into ``layer_cache``'s tensors in place and
     returns ``(output projection, layer_cache)``."""
-    q, k_new, v_new = _project_qkv(p, cfg, x, kernel_mode=kernel_mode)
+    lay = _heads(cfg, x)
+    q, k_new, v_new = _project_qkv(p, cfg, x, lay, kernel_mode)
     q, k_new = _apply_positions(cfg, q, k_new, positions)
     quantized = "k_scale" in layer_cache
     cache_k, cache_v = layer_cache["k"], layer_cache["v"]
@@ -310,18 +377,20 @@ def attention_decode(
         cache_k[:, slot : slot + 1] = k_new
         cache_v[:, slot : slot + 1] = v_new
     b = x.shape[0]
+    keys, values = _group_kv(lay, cache_k), _group_kv(lay, cache_v)
     if kernel_mode == "kernel" and not quantized:
         # the valid keys are the prefix [0, n_valid) for every sequence
-        out = attend_prefix_folded(q, cache_k[:, :n_valid], cache_v[:, :n_valid])
+        out = attend_prefix_folded(q, keys[:, :n_valid], values[:, :n_valid])
     else:
         valid = torch.arange(cap, device=x.device) < n_valid
         kv_mask = valid[None, :].expand(b, cap)
         if cap >= 8192 or quantized:
-            scales = (layer_cache["k_scale"], layer_cache["v_scale"]) if quantized else None
+            scales = tuple(_group_kv(lay, layer_cache[n]) for n in ("k_scale", "v_scale")) \
+                if quantized else None
             out = decode_attention_chunked(
-                q, cache_k, cache_v, kv_mask, chunk=min(2048, cap), scales=scales,
+                q, keys, values, kv_mask, chunk=min(2048, cap), scales=scales,
                 out_dtype=x.dtype,
             )
         else:
-            out = masked_attention(q, cache_k, cache_v, kv_mask)
-    return out.reshape(b, 1, cfg.q_dim) @ p["wo"], layer_cache
+            out = masked_attention(q, keys, values, kv_mask)
+    return _out_proj(p, lay, out.reshape(b, 1, lay.n_q * cfg.head_dim)), layer_cache

@@ -17,6 +17,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.api import split_at
 from repro_torch.kernels.fused_rmsnorm import ops as rms_ops
 from repro_torch.kernels.fused_rmsnorm.ref import rmsnorm_ref
 
@@ -158,7 +159,12 @@ def mlp_init(
     }
 
 
-def mlp_apply(params: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def mlp_apply(params: Params, x: torch.Tensor, act: str, d_ff: int) -> torch.Tensor:
+    """The gated MLP of hidden width ``d_ff``. Where the model axis splits
+    ``d_ff``, the params are the rank's pieces: ``w_gate`` / ``w_up``
+    column-parallel, ``w_down`` row-parallel and its output all-reduced."""
+    ax = split_at((None, "model"), (x.shape[-1], d_ff))
+    x = ax.copy(x)
     gate = x @ params["w_gate"]
     up = x @ params["w_up"]
     if act == "silu":
@@ -167,7 +173,7 @@ def mlp_apply(params: Params, x: torch.Tensor, act: str = "silu") -> torch.Tenso
         gate = F.gelu(gate, approximate="tanh")
     else:
         raise ValueError(f"unknown activation {act}")
-    return (gate * up) @ params["w_down"]
+    return ax.reduce((gate * up) @ params["w_down"])
 
 
 # ---------------------------------------------------------------------------

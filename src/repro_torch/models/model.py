@@ -17,6 +17,17 @@ with fp16 scales under ``kv_quantized``, as the JAX package's prefill
 does); ``decode`` runs one token for every sequence against it, ``pos``
 (a host int) being the tokens already cached. ``unstack_cache`` turns a
 stacked cache into per-layer dicts.
+
+On a model axis (``dist.api``; the params are the rank's pieces) the
+vocabulary is split where the guard lets it (``embed/table`` and
+``lm_head/table`` rows): the embedding looks up the rank's rows, zeros
+elsewhere, and all-reduces; the loss takes each chunk's local logits, the
+global max and sum of exponentials by all-reduce, and the gold logit from
+the rank that holds it, so the full logits are never gathered for it;
+``apply``, ``prefill`` and ``decode`` all-gather their logits once. The
+blocks split their own work (``transformer``), and the cache prefill
+returns holds the rank's pieces of each leaf, as its first layer's
+entries shape them.
 """
 from __future__ import annotations
 
@@ -27,6 +38,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.api import WHOLE, ModelAxis, split_at
 from repro_torch.models import attention, rwkv, ssm, transformer
 from repro_torch.models.layers import (
     Params,
@@ -91,7 +103,14 @@ class Model:
         if cfg.frontend == "audio_frames":
             x = batch["frame_embeds"].to(cdt)
         else:
-            x = params["embed"]["table"][batch["tokens"]].to(cdt)
+            table, tokens = params["embed"]["table"], batch["tokens"]
+            ax = self._vocab_axis()
+            if ax.size == 1:
+                x = table[tokens].to(cdt)
+            else:  # the rank's rows, zeros for the others' tokens, summed
+                ids = tokens - ax.rank * table.shape[0]
+                mine = (ids >= 0) & (ids < table.shape[0])
+                x = ax.reduce(table[ids.clamp(0, table.shape[0] - 1)] * mine[..., None]).to(cdt)
             if cfg.scale_embeddings:
                 x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt, device=x.device)
         if cfg.frontend == "vision_patches" and "patch_embeds" in batch:
@@ -104,6 +123,16 @@ class Model:
         if self.cfg.tie_embeddings:
             return params["embed"]["table"]
         return params["lm_head"]["table"]
+
+    def _vocab_axis(self) -> ModelAxis:
+        """The model axis where it splits the vocabulary, else ``WHOLE``."""
+        return split_at(("model", None), (self.cfg.vocab_size, self.cfg.d_model))
+
+    def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """``x @ tableᵀ`` in the compute dtype, the whole vocabulary."""
+        table = self._head_table(params).to(self._compute_dtype())
+        ax = self._vocab_axis()
+        return ax.gather(ax.copy(x) @ table.T)
 
     def _positions(self, batch: Dict, x: torch.Tensor) -> Optional[torch.Tensor]:
         """The rotary positions of ``x`` (b, s, d): the batch's (b, 3, s) ids
@@ -134,8 +163,7 @@ class Model:
         families."""
         x, aux = self._trunk(params, batch)
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps, kernel_mode=self.opts.kernel_mode)
-        table = self._head_table(params).to(self._compute_dtype())
-        return x @ table.T, aux
+        return self._logits(params, x), aux
 
     def loss(self, params: Params, batch: Dict) -> torch.Tensor:
         """Causal LM loss, fp32: the mean over ``(b, s)`` of ``logsumexp -
@@ -153,15 +181,17 @@ class Model:
         if s % chunk:
             chunk = s
         grad = torch.is_grad_enabled() and (x.requires_grad or table.requires_grad)
+        ax = self._vocab_axis()
+        x = ax.copy(x)
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(0, s, chunk):
             xc, lc = x[:, i : i + chunk], labels[:, i : i + chunk]
             if grad:
                 total = total + checkpoint(
-                    _chunk_nll, xc, lc, table, use_reentrant=False, preserve_rng_state=False
+                    _chunk_nll, xc, lc, table, ax, use_reentrant=False, preserve_rng_state=False
                 )
             else:
-                total = total + _chunk_nll(xc, lc, table)
+                total = total + _chunk_nll(xc, lc, table, ax)
         return total / (b * s) + self.opts.aux_coeff * aux
 
     # ------------------------------------------------------------------
@@ -216,30 +246,33 @@ class Model:
             params["final_norm"], x[:, -1].contiguous(), self.cfg.norm_eps,
             kernel_mode=self.opts.kernel_mode,
         )
-        table = self._head_table(params).to(self._compute_dtype())
-        return x @ table.T, cache
+        return self._logits(params, x), cache
 
     def _prefill_trunk(self, params: Params, batch: Dict, max_len: Optional[int] = None):
         cfg = self.cfg
         inputs = batch["frame_embeds"] if cfg.frontend == "audio_frames" else batch["tokens"]
-        b, s, dev = inputs.shape[0], inputs.shape[1], inputs.device
-        cdt = self._compute_dtype()
+        s = inputs.shape[1]
+        cache: Dict[str, torch.Tensor] = {}
+
+        def put(i: int, name: str, t: torch.Tensor, slots: int = 0) -> None:
+            """Layer ``i``'s entry into the stacked leaf ``name``: zeros made
+            at the first layer in ``t``'s shape and dtype (the rank's pieces
+            on a model axis), dim 1 ``slots`` long if given (a KV cache's
+            capacity), ``t`` written into its first rows."""
+            if name not in cache:
+                shape = (t.shape[0], slots, *t.shape[2:]) if slots else t.shape
+                cache[name] = t.new_zeros((cfg.n_layers, *shape))
+            cache[name][i, :, : t.shape[1]] = t
+
         if cfg.family == "ssm":
-            cache = rwkv.rwkv_init_state(cfg, b, cdt, dev)
 
             def keep(i: int, entries: transformer.CacheEntries) -> None:
                 for name, t in entries.items():
-                    cache[name][i] = t
+                    put(i, name, t)
 
             return self._trunk(params, batch, on_cache=keep)[0], cache
 
         cap = attention.cache_capacity(cfg, max_len if max_len is not None else s)
-        quantized = self.opts.kv_quantized
-        cache = attention.init_kv_cache(cfg, b, cap, cdt, quantized, device=dev)
-        if cfg.family == "hybrid":
-            state = ssm.ssm_init_state(cfg, b, cdt, dev)
-            cache.update(h=state["h"],
-                         conv=state["conv"][:, :, : min(s, cfg.ssm_conv - 1)].contiguous())
 
         def keep_kv(i: int, entries: transformer.CacheEntries) -> None:
             # the last `cap` tokens; a ring cache (sliding window) aligns
@@ -249,14 +282,15 @@ class Model:
             if cfg.sliding_window > 0 and s >= cap and s % cap:
                 k = torch.roll(k, s % cap, dims=1)
                 v = torch.roll(v, s % cap, dims=1)
-            if quantized:  # int8 end to end: decode reads and extends it
-                k, cache["k_scale"][i, :, :n] = attention.quantize_kv(k)
-                v, cache["v_scale"][i, :, :n] = attention.quantize_kv(v)
-            cache["k"][i, :, :n] = k
-            cache["v"][i, :, :n] = v
+            scales = {}
+            if self.opts.kv_quantized:  # int8 end to end: decode reads and extends it
+                k, scales["k_scale"] = attention.quantize_kv(k)
+                v, scales["v_scale"] = attention.quantize_kv(v)
+            for name, t in {"k": k, "v": v, **scales}.items():
+                put(i, name, t, cap)
             if cfg.family == "hybrid":
-                cache["h"][i] = entries["h"]
-                cache["conv"][i] = entries["conv"]
+                put(i, "h", entries["h"])
+                put(i, "conv", entries["conv"])
 
         return self._trunk(params, batch, on_cache=keep_kv)[0], cache
 
@@ -285,17 +319,27 @@ class Model:
             cache_mode=o.decode_cache_mode,
         )
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps, kernel_mode=o.kernel_mode)
-        table = self._head_table(params).to(self._compute_dtype())
-        return x @ table.T, new_cache
+        return self._logits(params, x), new_cache
 
 
-def _chunk_nll(x: torch.Tensor, labels: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+def _chunk_nll(
+    x: torch.Tensor, labels: torch.Tensor, table: torch.Tensor, ax: ModelAxis = WHOLE
+) -> torch.Tensor:
     """Summed negative log-likelihood of one chunk: ``(b, c, d) @ tableᵀ``
-    in the compute dtype, then fp32."""
+    in the compute dtype, then fp32. ``ax``: the model axis splitting the
+    vocabulary, ``table`` the rank's rows."""
     logits = (x @ table.T).float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return (logz - gold).sum()
+    if ax.size == 1:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        return (logz - gold).sum()
+    n = table.shape[0]
+    top = ax.gather(logits.detach().amax(dim=-1, keepdim=True)).amax(dim=-1)
+    logz = torch.log(ax.reduce(torch.exp(logits - top[..., None]).sum(dim=-1))) + top
+    ids = labels.long() - ax.rank * n
+    mine = (ids >= 0) & (ids < n)
+    gold = torch.gather(logits, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
+    return (logz - ax.reduce(gold * mine)).sum()
 
 
 def unstack_cache(cache: Dict[str, torch.Tensor], n_layers: int) -> Tuple[Dict, ...]:

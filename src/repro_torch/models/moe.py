@@ -6,8 +6,13 @@ are per group. Each group's kept assignments are gathered into an
 ``(experts, capacity, d)`` block, the experts run as one batched matmul
 over the experts, and each assignment's slot output is gathered back and
 weighted by its gate. An assignment past its expert's capacity is
-dropped: it contributes nothing. The JAX package's sharding constraints
-(``constrain``) are left out: they do nothing on one device.
+dropped: it contributes nothing.
+
+On a model axis (``dist.api``) the experts are split over it where the
+guard lets them (JAX's ``("data", "expert", None, None)`` on the dispatch
+block): every rank routes the same tokens, so routing, capacity drops
+and the aux loss are unchanged; a rank runs only its experts' slots, and
+the combine, each token's gated sum over its experts, is all-reduced.
 
 On a data mesh (a sharding context whose mesh splits rows over several
 data ranks, ``dist.api.current()``), each rank holds its rows of the call
@@ -34,7 +39,7 @@ import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.api import current, data_axes
+from repro_torch.dist.api import current, data_axes, split_at
 from repro_torch.models.layers import Params, dense_init
 
 
@@ -180,11 +185,19 @@ def _dispatch_combine(
     n_groups, g_size, d = xg.shape
     e, k = cfg.n_experts, cfg.top_k
     slot_table, slot_of_flat = _dispatch_indices(expert_idx, e, cap, base)
+    slot_table, slot_of_flat = slot_table.long(), slot_of_flat.long()
+    ax = split_at(("data", "expert", None, None), (n_groups, e, cap, d))
+    if ax.size > 1:  # the rank's experts' slots; the others' are the sentinel
+        e //= ax.size
+        xg, gate_vals = ax.copy(xg), ax.copy(gate_vals)
+        slot_table = slot_table[:, ax.rank * e : (ax.rank + 1) * e]
+        slot_of_flat = slot_of_flat - ax.rank * e * cap
+        slot_of_flat = torch.where((slot_of_flat >= 0) & (slot_of_flat < e * cap),
+                                   slot_of_flat, e * cap)
     rows = torch.arange(n_groups, device=xg.device)
 
     # gather expert inputs: the sentinel row is zeros
     x_pad = torch.cat([xg, xg.new_zeros(n_groups, 1, d)], dim=1)
-    slot_table = slot_table.long()
     tok_idx = torch.where(slot_table < g_size * k, slot_table // k, g_size)
     expert_in = x_pad[rows[:, None, None], tok_idx]  # (g, e, c, d)
     expert_out = _expert_ffn(p, expert_in, cfg.gated_act)
@@ -192,9 +205,9 @@ def _dispatch_combine(
     # combine: gather each assignment's slot output, weight by its gate
     out_flat = expert_out.reshape(n_groups, e * cap, d)
     out_pad = torch.cat([out_flat, out_flat.new_zeros(n_groups, 1, d)], dim=1)
-    contrib = out_pad[rows[:, None], slot_of_flat.long()]
+    contrib = out_pad[rows[:, None], slot_of_flat]
     contrib = contrib.reshape(n_groups, g_size, k, d)
-    return torch.sum(contrib * gate_vals[..., None].to(contrib.dtype), dim=2)
+    return ax.reduce(torch.sum(contrib * gate_vals[..., None].to(contrib.dtype), dim=2))
 
 
 def _group_size(tokens: int, group_size: int) -> int:

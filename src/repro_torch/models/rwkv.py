@@ -20,6 +20,15 @@ plain version on a CPU tensor), at any length and with ``s0``. Under
 Where JAX promotes an fp32 × bf16 ``einsum`` to fp32, the bf16 leaf is
 upcast explicitly here (torch's matmul takes one dtype), so both compute
 the same thing.
+
+On a model axis (``dist.api``; JAX's ``("data", None, "model", None)`` on
+``r``) the params are the rank's pieces: time-mix ``wr``/``wk``/``wv``/``wg``
+are column-parallel on the rank's heads, where K4, the decay, the bonus
+and the per-head norm run, and ``wo`` is row-parallel and all-reduced;
+heads the guard does not split are gathered and run whole. The columns
+the rules split elsewhere are joined as the guard says: the mixing
+LoRA's (``mix_w1``) and channel-mix ``wr``'s are all-gathered, channel-mix
+``wk``/``wv`` are column/row-parallel and all-reduced.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.api import split_at
 from repro_torch.kernels.rwkv_scan import ops as wkv_ops
 from repro_torch.kernels.rwkv_scan.ref import wkv6_ref
 from repro_torch.models.layers import Params, dense_init
@@ -164,7 +174,8 @@ def _ddlerp(p: Params, x: torch.Tensor, x_prev: torch.Tensor) -> Tuple[torch.Ten
     xx = (x_prev - x).float()
     x32 = x.float()
     base = x32 + xx * p["mu_x"]
-    lora = torch.tanh(base @ p["mix_w1"].float())
+    ax = split_at((None, "model"), (x.shape[-1], N_MIX * LORA_DIM_MIX))
+    lora = ax.gather(torch.tanh(ax.copy(base) @ p["mix_w1"].float()))
     lora = lora.reshape(*lora.shape[:-1], N_MIX, LORA_DIM_MIX)
     delta = torch.einsum("bsnm,nmd->bsnd", lora, p["mix_w2"].float())  # (b,s,5,d)
     mixed = x32[:, :, None] + xx[:, :, None] * (p["mu"] + delta)
@@ -203,29 +214,32 @@ def tmix_apply(
     x_prev = _token_shift(x, shift_prev)
     xr, xk, xv, xw, xg = _ddlerp(p, x, x_prev)
     dt = x.dtype
-    r = xr.to(dt) @ p["wr"]
-    k = xk.to(dt) @ p["wk"]
-    v = xv.to(dt) @ p["wv"]
-    g = F.silu(xg.to(dt) @ p["wg"])
+    ax = split_at((None, "model"), (d, d))  # wr/wk/wv/wg columns, wo rows
+    local = ax.size > 1 and split_at(("data", None, "model", None), (b, s, h, hd)).size > 1
+    streams = zip((xr, xk, xv, xg), ("wr", "wk", "wv", "wg"))
+    r, k, v, g = (ax.copy(t.to(dt)) @ p[n] for t, n in streams)
+    if not local:  # the whole heads from the ranks' columns
+        r, k, v, g = (ax.gather(t) for t in (r, k, v, g))
+    g = F.silu(g)
     # data-dependent decay (fp32)
     decay_lora = torch.tanh(xw @ p["decay_w1"].float()) @ p["decay_w2"].float()
     w = torch.exp(-torch.exp(p["decay_base"] + decay_lora))  # (b, s, d) in (0,1)
+    u, ln_x = p["bonus"].float(), p["ln_x"]
+    if local:  # the rank's heads of what every rank computes whole
+        w, u, ln_x, h = ax.split(w), ax.split(u, 0), ax.split(ln_x), h // ax.size
 
     def heads(t):
         return t.reshape(b, s, h, hd).float()
 
     r4, k4, v4, w4 = heads(r), heads(k), heads(v), heads(w)
-    u = p["bonus"].float()
     if kernel_mode == "kernel":
         o, s_final = wkv_ops.wkv6(r4, k4, v4, w4, u, chunk=chunk, s0=s0, ragged=True)
     elif s == 1:
         o, s_final = wkv_ref(r4, k4, v4, w4, u, s0)
     else:
         o, s_final = wkv_chunked(r4, k4, v4, w4, u, chunk=chunk)
-    o = o.reshape(b, s, d).to(dt)
-    o = _group_norm(o, p["ln_x"], h)
-    out = (o * g) @ p["wo"]
-    return out, (x[:, -1:], s_final)
+    o = _group_norm(o.reshape(b, s, h * hd).to(dt), ln_x, h) * g
+    return ax.reduce((o if local else ax.split(o)) @ p["wo"]), (x[:, -1:], s_final)
 
 
 def cmix_apply(
@@ -241,9 +255,11 @@ def cmix_apply(
     x32 = x.float()
     xk = (x32 + xx * p["mu_k"]).to(x.dtype)
     xr = (x32 + xx * p["mu_r"]).to(x.dtype)
-    k = torch.square(torch.relu(xk @ p["wk"]))
-    kv = k @ p["wv"]
-    out = torch.sigmoid(xr @ p["wr"]) * kv
+    d = x.shape[-1]
+    ax = split_at((None, "model"), (d, cfg.d_ff))  # wk columns, wv rows
+    kv = ax.reduce(torch.square(torch.relu(ax.copy(xk) @ p["wk"])) @ p["wv"])
+    ax = split_at((None, "model"), (d, d))  # wr columns
+    out = torch.sigmoid(ax.gather(ax.copy(xr) @ p["wr"])) * kv
     return out, x[:, -1:]
 
 

@@ -16,9 +16,14 @@ Paths, one math:
   * ``ssm_decode``       — one token, from the conv window and h.
 
 The JAX package has no kernel for this scan (it is plain jnp), and neither
-has the port: it runs in plain PyTorch on every device. JAX's sharding
-constraint on the input projection is left out: it does nothing on one
-device.
+has the port: it runs in plain PyTorch on every device.
+
+On a model axis (``dist.api``; JAX's ``("data", None, "model")`` on the
+input projection) the inner channels are split where the guard lets them
+(``_in_proj``): ``in_proj``'s column pieces are all-gathered and each
+rank keeps its channels of ``x`` and ``z``, the conv, ``dt_proj``,
+``a_log``, the scan and the state run on them, ``x_proj`` and
+``out_proj`` are row-parallel and all-reduced.
 
 ``jax.nn.softplus`` has no threshold, where ``F.softplus`` returns ``x``
 above 20. The exact value there exceeds ``x`` by ``log1p(exp(-x))``,
@@ -35,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.api import ModelAxis, split_at
 from repro_torch.models.layers import Params, dense_init
 
 
@@ -84,17 +90,26 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return (out + b.float()).to(x.dtype)
 
 
-def _ssm_inputs(p: Params, cfg: ArchConfig, xz: torch.Tensor):
-    """The pre-scan computation from the input projection ``xz`` (b, s,
-    2 d_inner): (x, z, dt fp32, B fp32, C fp32, A fp32-or-compute, < 0)."""
+def _in_proj(p: Params, cfg: ArchConfig, xin: torch.Tensor):
+    """``(x, z, ax)``: the input projection's halves (b, s, c), the rank's
+    channels where ``ax``, the model axis, splits them, else whole."""
+    d_inner = ssm_dims(cfg)[0]
+    ax = split_at(("data", None, "model"), (*xin.shape[:2], 2 * d_inner))
+    x, z = ax.gather(ax.copy(xin) @ p["in_proj"]).chunk(2, dim=-1)
+    ax = split_at(("data", None, "model"), (*xin.shape[:2], d_inner))
+    return ax.split(x), ax.split(z), ax
+
+
+def _ssm_inputs(p: Params, cfg: ArchConfig, x: torch.Tensor, ax: ModelAxis):
+    """The pre-scan computation from the input projection's ``x`` half:
+    (x, dt fp32, B fp32, C fp32, A fp32-or-compute, < 0)."""
     _, dt_rank, n = ssm_dims(cfg)
-    x, z = xz.chunk(2, dim=-1)
     x = F.silu(_causal_conv(x, p["conv_w"], p["conv_b"]))
-    proj = x @ p["x_proj"]
+    proj = ax.copy(ax.reduce(x @ p["x_proj"]))  # row-parallel; every rank's channels read it
     dt_in, b_in, c_in = proj.split([dt_rank, n, n], dim=-1)
     dt = softplus((dt_in @ p["dt_proj"]).float() + p["dt_bias"])  # (b, s, c) fp32
     a = -torch.exp(p["a_log"])  # (c, n)
-    return x, z, dt, b_in.float(), c_in.float(), a
+    return x, dt, b_in.float(), c_in.float(), a
 
 
 def ssm_scan_ref(
@@ -175,15 +190,14 @@ def ssm_apply(
     d_model). With ``return_state`` also ``(h_final (b, c, n) fp32, conv
     state)``: the last ``ssm_conv - 1`` pre-conv inputs, or all ``s`` of
     them when the prompt is shorter, as the JAX package keeps them."""
-    xz = xin @ p["in_proj"]
-    x, z, dt, b_in, c_in, a = _ssm_inputs(p, cfg, xz)
+    x_in, z, ax = _in_proj(p, cfg, xin)
+    x, dt, b_in, c_in, a = _ssm_inputs(p, cfg, x_in, ax)
     y, h_final = ssm_scan_chunked(dt, a, b_in, c_in, x, chunk=chunk)
     y = y + p["d_skip"] * x.float()
     y = (y * F.silu(z.float())).to(xin.dtype)
-    out = y @ p["out_proj"]
+    out = ax.reduce(y @ p["out_proj"])
     if return_state:
-        conv_state = xz.chunk(2, dim=-1)[0][:, -(cfg.ssm_conv - 1):]
-        return out, (h_final, conv_state)
+        return out, (h_final, x_in[:, -(cfg.ssm_conv - 1):])
     return out
 
 
@@ -212,12 +226,11 @@ def ssm_decode(
     ``{"conv": (b, k - 1, c), "h": (b, c, n)}``; returns (out (b, 1,
     d_model), new state)."""
     _, dt_rank, n = ssm_dims(cfg)
-    xz = xin @ p["in_proj"]
-    x_new, z = xz.chunk(2, dim=-1)  # (b, 1, c)
+    x_new, z, ax = _in_proj(p, cfg, xin)  # (b, 1, c)
     window = torch.cat([state["conv"], x_new], dim=1)  # (b, k, c)
     x = torch.einsum("bkc,kc->bc", window.float(), p["conv_w"].float()) + p["conv_b"].float()
     x = F.silu(x).to(xin.dtype)[:, None, :]  # (b, 1, c)
-    proj = x @ p["x_proj"]
+    proj = ax.copy(ax.reduce(x @ p["x_proj"]))
     dt_in, b_in, c_in = proj.split([dt_rank, n, n], dim=-1)
     dt = softplus((dt_in @ p["dt_proj"]).float() + p["dt_bias"])[:, 0]  # (b, c)
     a = -torch.exp(p["a_log"])
@@ -226,5 +239,4 @@ def ssm_decode(
     y = torch.einsum("bcn,bn->bc", h, c_in.float()[:, 0])
     y = y + p["d_skip"] * x[:, 0].float()
     y = (y * F.silu(z[:, 0].float())).to(xin.dtype)
-    out = (y @ p["out_proj"])[:, None, :]
-    return out, {"conv": window[:, 1:], "h": h}
+    return ax.reduce(y @ p["out_proj"])[:, None, :], {"conv": window[:, 1:], "h": h}

@@ -125,7 +125,7 @@ def block_apply(
     if cfg.is_moe:
         out, aux = moe.moe_apply(p["moe"], cfg, h, group_size=moe_group)
     else:
-        out = mlp_apply(p["mlp"], h, cfg.gated_act)
+        out = mlp_apply(p["mlp"], h, cfg.gated_act, cfg.d_ff)
     return x + out, aux, entries
 
 
@@ -212,7 +212,7 @@ def block_decode(
     if cfg.is_moe:  # one group of the batch's tokens
         out, _ = moe.moe_apply(p["moe"], cfg, h, group_size=h.shape[0], capacity_factor=2.0)
     else:
-        out = mlp_apply(p["mlp"], h, cfg.gated_act)
+        out = mlp_apply(p["mlp"], h, cfg.gated_act, cfg.d_ff)
     return x + out, new
 
 

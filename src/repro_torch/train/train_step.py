@@ -15,24 +15,29 @@ as a zero-padded copy of the whole stack.
 
 On a mesh (JAX's GSPMD step): params and AdamW state are ``DTensor``s laid
 out by the sharding rules, and the batch's rows are split over the data
-axes (``dist.sharding.batch_shardings``). The kernels take plain tensors,
-so every rank gathers each param whole (``full_tensor()``), takes the loss
-and gradients of its own rows, cuts each gradient to its param's model
-slice, and averages that slice over the data axes only (ranks that differ
-only in their model index saw the same rows); each rank keeps the piece
-its placements hold, and AdamW updates
-the local shards, clipping by the global fp32 norm (a sharded leaf's
-squares summed over the axes it is sharded on, a replicated leaf counted
-once). On a one-device mesh this is the single-device step, bit for bit.
-The MoE layer takes JAX's global semantics over the ranks' rows (its
-groups, capacity drops and aux loss are the global microbatch's,
-``models/moe.py``), reading the data ranks from the sharding context the
-step runs under, so the data mean of the ranks' losses and gradients is
-the GSPMD step's. The model axis holds shards but does no split work yet
-(tensor-parallel compute is not ported).
+axes (``dist.sharding.batch_shardings``). The step runs under the active
+sharding context, or the mesh's own (``dist.sharding.make_context``) if
+none is. Each rank computes with its
+model pieces of the params (``to_local()``; a ZeRO-3 leaf is first
+gathered over the data axes only, never over the model axis), and the
+model code splits its work on the model axis where the guard lets it,
+with the collectives GSPMD would insert (``dist.api``): tensor-parallel
+attention, MLP, SSM and rwkv heads, expert-parallel MoE, vocab-parallel
+embedding and loss. So a rank's gradient of a model piece is already
+that piece's, and only the mean over the data axes remains (ranks that
+differ only in their model index saw the same rows); a ZeRO-3 leaf's is
+then cut to its data shard. AdamW updates the local shards, clipping by
+the global fp32 norm (a sharded leaf's squares summed over the axes it is
+sharded on, a replicated leaf counted once). On a one-device mesh this is
+the single-device step, bit for bit. The MoE layer takes JAX's global
+semantics over the ranks' rows (its groups, capacity drops and aux loss
+are the global microbatch's, ``models/moe.py``), reading the data ranks
+from the sharding context, so the data mean of the ranks' losses and
+gradients is the GSPMD step's.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -42,7 +47,8 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils import _pytree as pytree
 
-from repro_torch.dist.api import data_axes, is_layout
+from repro_torch.dist.api import current, data_axes, is_layout, use_sharding
+from repro_torch.dist.sharding import make_context
 from repro_torch.models.model import Model
 from repro_torch.train.optimizer import AdamW, norm_of_squares, sum_of_squares
 
@@ -54,8 +60,8 @@ class TrainRunConfig:
     grad_transform: Optional[Callable] = None  # e.g. compression hook
     # JAX's accumulator layout: a (DeviceMesh, placements) tree mirroring
     # the params whose data axes replicate. Accepted and checked for the JAX
-    # API; it changes nothing here, where a rank accumulates its whole
-    # gradient locally and always reduces only its params' model slice.
+    # API; it changes nothing here, where a rank accumulates the gradients
+    # of its params' model pieces locally, which is that layout.
     grad_accum_shardings: Optional[Any] = None
 
 
@@ -135,7 +141,8 @@ def make_grad_fn(model: Model, run: Optional[TrainRunConfig] = None) -> Callable
     def grad_fn(params, batch):
         if not is_sharded(params):
             return local_grad_fn(params, batch)
-        return _mesh_grads(local_grad_fn, params, batch)
+        with on_mesh(params, model):
+            return _mesh_grads(local_grad_fn, params, batch)
 
     return grad_fn
 
@@ -143,6 +150,15 @@ def make_grad_fn(model: Model, run: Optional[TrainRunConfig] = None) -> Callable
 def is_sharded(params) -> bool:
     """Whether ``params`` live on a mesh (``DTensor`` leaves)."""
     return any(isinstance(t, DTensor) for t in pytree.tree_leaves(params))
+
+
+def on_mesh(params, model: Model):
+    """Where ``params`` are on a mesh, the active sharding context, or else
+    the mesh's own (``dist.sharding.make_context``), installed: the model
+    code splits its work on the model axis of the context it runs under."""
+    if not is_sharded(params):
+        return contextlib.nullcontext()
+    return use_sharding(current() or make_context(_mesh_of(params), model.cfg))
 
 
 def local_pieces(tree):
@@ -187,28 +203,32 @@ def _mean_over_data(t: torch.Tensor, mesh) -> torch.Tensor:
     return t.div_(n) if n > 1 else t
 
 
+def _model_placements(p: DTensor) -> list:
+    """``p``'s placements with the data axes replicated: the layout the
+    step computes with."""
+    data = set(data_axes(p.device_mesh))
+    return [Replicate() if i in data else pl for i, pl in enumerate(p.placements)]
+
+
 @torch.no_grad()
 def _reduce_grads(grads, params, mesh) -> list:
-    """Each rank's piece of the data-axis mean: a whole local gradient is
-    first cut to its param's model slice (the param's placements with the
-    data axes replicated), so the reduction moves only that slice."""
-    whole = [Replicate()] * mesh.ndim
-    data = set(data_axes(mesh))
-    out = []
-    for g, p in zip(pytree.tree_leaves(grads), pytree.tree_leaves(params)):
-        model = [Replicate() if i in data else pl for i, pl in enumerate(p.placements)]
-        g = _mean_over_data(_cut(g, mesh, whole, model).contiguous(), mesh)
-        out.append(_cut(g, mesh, model, p.placements))
-    return out
+    """Each rank's piece of the data-axis mean of the gradients of its
+    params' model pieces, cut to the params' placements."""
+    return [_cut(_mean_over_data(g.contiguous(), mesh), mesh, _model_placements(p), p.placements)
+            for g, p in zip(pytree.tree_leaves(grads), pytree.tree_leaves(params))]
+
+
+def _model_piece(p: DTensor) -> torch.Tensor:
+    pl = _model_placements(p)
+    return (p if tuple(pl) == tuple(p.placements) else p.redistribute(p.device_mesh, pl)).to_local()
 
 
 def _mesh_grads(local_grad_fn, params, batch):
     """``(loss, grads)`` on a mesh: the loss averaged over the data axes,
     the gradients as each rank's pieces under its params' placements."""
     mesh = _mesh_of(params)
-    full = pytree.tree_map(lambda t: t.full_tensor(), params)  # every rank gathers
-    loss, grads = local_grad_fn(full, pytree.tree_map(_batch_rows, batch))
-    del full
+    loss, grads = local_grad_fn(pytree.tree_map(_model_piece, params),
+                                pytree.tree_map(_batch_rows, batch))
     _, spec = pytree.tree_flatten(params)
     pieces = _reduce_grads(grads, params, mesh)
     return _mean_over_data(loss.clone(), mesh), pytree.tree_unflatten(pieces, spec)

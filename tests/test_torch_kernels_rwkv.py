@@ -3,11 +3,11 @@
 kernel in interpret mode on the JAX test's cases (tests/test_kernels_rwkv.py)
 x {slow, fast, faster} decay at its 2e-3, state chaining through ``s0``, the
 port's ``wkv_chunked`` against the JAX one, and the chunk contract (a
-ragged length raises unless ``ragged=True``). ``wkv6_subchunk_ref``, the
-CUDA kernel's arithmetic (sub-chunks of 16, reference points, 3xTF32) in
-plain torch, is held against the same oracles, at decays that underflow
-to 0 or sit at the kernel's -60 floor on log w, and from a state with a
-ragged last chunk."""
+ragged length raises unless ``ragged=True``). ``wkv6_subchunk_ref``
+(``tests/wkv6_rehearsal.py``), the CUDA kernel's arithmetic (sub-chunks of
+16, reference points, 3xTF32) in plain torch, is held against the same
+oracles, at decays that underflow to 0 or sit at the kernel's -60 floor on
+log w, and from a state with a ragged last chunk."""
 import numpy as np
 import pytest
 
@@ -23,13 +23,9 @@ from repro.kernels.rwkv_scan.ops import wkv6 as jax_wkv6  # noqa: E402
 from repro.kernels.rwkv_scan.ref import wkv6_ref as jax_wkv6_ref  # noqa: E402
 from repro.models import rwkv as jax_rwkv  # noqa: E402
 from repro_torch.kernels.rwkv_scan import ops  # noqa: E402
-from repro_torch.kernels.rwkv_scan.ref import (  # noqa: E402
-    _mm3,
-    _tf32,
-    wkv6_ref,
-    wkv6_subchunk_ref,
-)
+from repro_torch.kernels.rwkv_scan.ref import wkv6_ref  # noqa: E402
 from repro_torch.models import rwkv  # noqa: E402
+from wkv6_rehearsal import _mm3, _tf32, wkv6_subchunk_ref  # noqa: E402
 
 CASES = [
     # (b, s, h, dk, dv, chunk)

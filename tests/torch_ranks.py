@@ -34,6 +34,19 @@ Cases (inputs from ``<workdir>/inputs.pt``, rank 0's result to
     its ``argv``, which joins a group from torchrun's variables
     (``MASTER_PORT`` the run's ``port``); ``fp32`` runs it with fp32
     compute. The result holds the steps and rank 0's printed lines a run.
+  * ``tp`` (``tests/test_torch_tp.py``): on a (1, 2) ``data, model`` mesh,
+    where the model axis splits the work, each run of ``inputs["runs"]``
+    (an arch's smoke config, ``tp_config``) places its params by
+    ``param_shardings(serve=True)``, prefills ``prompt`` through
+    ``make_prefill_step`` and decodes ``feed``'s tokens one at a time
+    through ``make_decode_step``, then generates greedily from ``prompt``
+    (``greedy_generate``); then places them for training and takes the
+    loss and gradients of ``batch`` through ``make_grad_fn``. No sharding
+    context is active: the steps install the mesh's own. The result holds
+    the logits, the greedy tokens, the cache after the last decode step
+    and the gradients gathered whole, the loss, and how many times a leaf
+    sharded on the model axis was gathered whole (``DTensor.full_tensor``)
+    inside those steps.
 
 Imports only torch and the port."""
 import os
@@ -48,6 +61,7 @@ MODEL_OPTS = dict(compute_dtype="float32", loss_chunk=8, moe_group=16, wkv_chunk
 WARMUP = dict(lr=3e-4, warmup_steps=200, total_steps=50_000)
 MICROBATCHES = 2
 MESH = (2, 2)
+TP_MESH = (1, 2)
 RESUME_STEPS, RESUME_FAIL_AT, WRITE_DELAY_S = 3, 2, 0.3
 
 
@@ -113,7 +127,7 @@ def _mesh_step(mesh, run: dict, model_opts: dict, aux: bool = False) -> dict:
     from repro_torch.dist.sharding import batch_shardings, make_context, param_shardings
     from repro_torch.models import ModelOptions, build_model
     from repro_torch.train.optimizer import AdamW, AdamWConfig
-    from repro_torch.train.train_step import TrainRunConfig, make_train_step
+    from repro_torch.train.train_step import TrainRunConfig, _model_piece, make_train_step
     import torch
     import torch.distributed as dist
 
@@ -128,13 +142,13 @@ def _mesh_step(mesh, run: dict, model_opts: dict, aux: bool = False) -> dict:
         state = opt.init(run["params"])
         state = place(state, param_shardings(state, cfg, mesh))
         batch = place(run["batch"], batch_shardings(cfg, ShapeConfig("t", "train", s, b), mesh))
-        if aux:
-            full = pytree.tree_map(lambda t: t.full_tensor(), params)
+        if aux:  # the model on each rank's pieces, as the step runs it
+            pieces = pytree.tree_map(_model_piece, params)
             rows = {k: v.to_local() for k, v in batch.items()}
             with torch.no_grad():
-                mine = [float(model.apply(full, {k: v[j::MICROBATCHES] for k, v in rows.items()})[1])
+                mine = [float(model.apply(pieces, {k: v[j::MICROBATCHES] for k, v in rows.items()})[1])
                         for j in range(MICROBATCHES)]
-            del full
+            del pieces
             out["aux"] = [None] * dist.get_world_size()
             dist.all_gather_object(out["aux"], mine)
         accum = _drop_data(p_sh) if run.get("local_accum") else None
@@ -335,6 +349,73 @@ def case_train(workdir: Path) -> dict:
     return out
 
 
+def tp_config(run: dict):
+    """``run``'s config: its arch's smoke config with ``run["cfg"]``'s fields."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+
+    return replace(get_config(run["arch"]).smoke(), **run.get("cfg", {}))
+
+
+def _tp_run(mesh, run: dict) -> dict:
+    from torch.distributed.tensor import DTensor, Shard
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist.api import place
+    from repro_torch.dist.sharding import batch_shardings, param_shardings
+    from repro_torch.models import ModelOptions, build_model
+    from repro_torch.train.serve_step import greedy_generate, make_decode_step, make_prefill_step
+    from repro_torch.train.train_step import make_grad_fn
+
+    cfg = tp_config(run)
+    model = build_model(cfg, ModelOptions(**{**MODEL_OPTS, **run.get("opts", {})}))
+    prompt, feed, batch = run["prompt"], run["feed"], run["batch"]
+    b, s = batch["labels"].shape
+    b_sh = batch_shardings(cfg, ShapeConfig("t", "train", s, b), mesh)
+    full, gathers = DTensor.full_tensor, []
+
+    def counted(t, *args, **kw):
+        gathers.append(any(isinstance(pl, Shard) for pl in t.placements))
+        return full(t, *args, **kw)
+
+    out = {"logits": []}
+    DTensor.full_tensor = counted
+    max_len = prompt.shape[1] + feed.shape[1]
+    try:
+        params = place(run["params"], param_shardings(run["params"], cfg, mesh, serve=True))
+        tokens = place({"tokens": prompt}, {"tokens": b_sh["tokens"]})
+        logits, cache = make_prefill_step(model, max_len)(params, tokens)
+        out["logits"].append(logits)
+        decode = make_decode_step(model)
+        for i in range(feed.shape[1]):
+            step_in = place({"tokens": feed[:, i : i + 1]}, {"tokens": b_sh["tokens"]})
+            logits, cache = decode(params, step_in, cache, prompt.shape[1] + i)
+            out["logits"].append(logits)
+        out["greedy"] = greedy_generate(model, params, {"tokens": prompt}, feed.shape[1], max_len)
+        params = place(run["params"], param_shardings(run["params"], cfg, mesh))
+        loss, grads = make_grad_fn(model)(params, place(batch, b_sh))
+    finally:
+        DTensor.full_tensor = full
+    out["model_sharded_gathers"] = sum(gathers)
+    out["cache"] = pytree.tree_map(lambda t: t.full_tensor(), cache)
+    out["loss"] = float(loss)
+    out["grads"] = pytree.tree_map(
+        lambda g, p: DTensor.from_local(g, mesh, p.placements, run_check=False).full_tensor(),
+        grads, params)
+    return out
+
+
+def case_tp(workdir: Path) -> dict:
+    from repro_torch.launch.mesh import make_mesh
+    import torch
+
+    inputs = torch.load(workdir / "inputs.pt", weights_only=False)
+    mesh = make_mesh(TP_MESH, AXES, "cpu")
+    return {name: _tp_run(mesh, run) for name, run in inputs["runs"].items()}
+
+
 def main() -> None:
     import torch
     import torch.distributed as dist
@@ -347,7 +428,8 @@ def main() -> None:
     store = dist.FileStore(str(workdir / f"{case}.store"), world)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
     try:
-        out = {"step": case_step, "restore": case_restore, "train": case_train}[case](workdir)
+        cases = {"step": case_step, "restore": case_restore, "train": case_train, "tp": case_tp}
+        out = cases[case](workdir)
         if rank == 0:
             torch.save(out, workdir / f"{case}.pt")
         if dist.is_initialized():
