@@ -4,14 +4,14 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, at
-first use), then runs sixteen phases, each printing JSON lines (phase 16
-runs after phase 4):
+first use), then runs seventeen phases, each printing JSON lines (phase 16
+runs after phase 4, phase 17 after phase 7):
 
 1. env      — the card's name and power limit (nvidia-smi), torch/CUDA
               versions, the kernels' build time, and ptxas's registers and
               spills of the tensor-core flash kernels, the backward kernels
-              and the WKV6 kernel (a spill in the WKV6 kernel or in a
-              flash-attention backward kernel fails the run).
+              and the WKV6 kernels (a spill in the WKV6 forward kernel or
+              in a flash-attention backward kernel fails the run).
 2. kernels  — every kernel at the serve path's shapes and at prefill
               sizes, held against its plain PyTorch version on the card
               (tolerance stated per line), timed beside the plain version,
@@ -32,7 +32,14 @@ runs after phase 4):
               each kernel's device time; the flash-attention backward also
               with its route (bf16 and fp32 on the tensor cores), its
               launch plan and a bit-for-bit repeat. fp32 attention's bound
-              is at the 3xTF32 line (the TF32 peak over three).
+              is at the 3xTF32 line (the TF32 peak over three). The WKV6
+              backward (B3) at rwkv6-7b's serve prompt, (1, 512), (1,
+              2048), a (1, 4096) training microbatch and a ragged (1, 100)
+              from a state with a cotangent on the final state, in the
+              three decay regimes: each gradient against autograd of the
+              plain forward within 1e-5 relative Frobenius, or twice the
+              plain version's own gap from an fp64 run where that is
+              larger, bit for bit on a repeat.
 3. serve    — ``repro_torch.launch.serve`` with its default services,
               gemma-2b, qwen3-8b and rwkv6-7b, at full width and depth
               (random weights from fixed seeds) on one ``SalusExecutor``:
@@ -177,6 +184,16 @@ runs after phase 4):
               4096), each held against the one-process port on the same
               params; K1/K3/K4/B1/B2 launched on each rank's local heads;
               params resident and the step's peak a rank.
+17. rwkv_train — rwkv6-7b at full width, 4 of 32 layers (run after
+              train_parity): (a) three AdamW steps as a ``SalusExecutor``
+              session at the runtime tables' settings (4 microbatches of
+              one 4096-token sequence, remat, fp32 params, bf16 compute),
+              exact K1/B1/K4/B3 launch counts, a profiled step with B3's
+              device time, step seconds, tokens a second and the peak;
+              (b) one (1, 4096) batch's fp32 loss and every gradient leaf
+              through the kernels against the plain path (1e-5, 1e-4);
+              (c) the train CLI and ``make_trainer``'s session at smoke
+              size on the card.
 Then each phase's seconds and the ``{"kernels": [...]}`` summary line.
 
 Any failed check raises and the script exits non-zero. The last line is
@@ -234,6 +251,7 @@ RMS_SRC = "src/repro_torch/csrc/rmsnorm.cu"
 FLASH_SRC = "src/repro_torch/csrc/flash_attention.cu"
 FLASH_BWD_SRC = "src/repro_torch/csrc/flash_attention_bwd.cu"
 WKV_SRC = "src/repro_torch/csrc/wkv6.cu"
+WKV_BWD_SRC = "src/repro_torch/csrc/wkv6_bwd.cu"
 RMS_TPU = "src/repro/kernels/fused_rmsnorm/kernel.py:19"
 RMS_RES_TPU = "src/repro/kernels/fused_rmsnorm/kernel.py:27"
 FLASH_TPU = "src/repro/kernels/flash_attention/kernel.py:35"
@@ -242,6 +260,8 @@ SERVE_ARCHS = ["gemma-2b", "qwen3-8b", "rwkv6-7b"]
 TRAIN_ARCH = "gemma-2b"
 TRAIN_BATCH = 4  # global batch of TRAIN_4K-length sequences
 TRAIN_STEPS = 3
+RWKV_ARCH = "rwkv6-7b"
+RWKV_TRAIN_DEPTH = 4  # phase rwkv_train: 4 of 32 layers, as phase tp cuts rwkv (1.42e9 params)
 DECODE_PROMPT = 511  # tokens prefilled before the decode checks
 DECODE_NEW = 16  # greedy tokens
 DECODE_CACHE_GB = 40  # the decode shape's batch is halved until its state fits
@@ -405,12 +425,14 @@ def phase_env() -> dict:
         "kernel_build_s": build_s,
         "flash_wgmma_ptxas": {k: v for k, v in regs.items() if "flash_fwd_kernel_wgmma" in k},
         "wkv6_ptxas": {k: v for k, v in regs.items() if "wkv6_fwd_kernel" in k},
+        "wkv6_bwd_ptxas": {k: v for k, v in regs.items() if "wkv6_bwd_" in k},
         "backward_ptxas": {k: v for k, v in regs.items()
                            if "flash_bwd_" in k or "rmsnorm_bwd_kernel" in k},
         "kernels_with_spills": sorted(k for k, v in regs.items() if v.get("spill_stores")),
     }
     emit(info)
     check(bool(info["wkv6_ptxas"]), "no ptxas report of the WKV6 kernel")
+    check(bool(info["wkv6_bwd_ptxas"]), "no ptxas report of the WKV6 backward kernel")
     check(any("flash_bwd_dkdv_kernel_wgmma" in k for k in info["backward_ptxas"]),
           "no ptxas report of the tensor-core flash backward")
     for name, v in (*info["wkv6_ptxas"].items(),
@@ -738,6 +760,83 @@ def wkv6_case(b, s, h, d, chunk, regime, iters=10, plain_iters=2, carried=False)
     return res
 
 
+WKV_GRADS = ("dr", "dk", "dv", "dw", "du", "ds0")
+
+
+def wkv6_bwd_case(b, s, h, d, regime, iters=10, carried=False) -> dict:
+    """The WKV6 backward (B3) against its plain version, autograd through
+    ``ref.wkv6_ref``, on the same CUDA tensors: a cotangent on the output,
+    and with ``carried`` a random ``s0`` and a cotangent on the final state
+    too (a training loss never reads the state). The control is the plain
+    version's own gap from the same function in fp64: each gradient is held
+    within BWD_TOL, or twice its control where that is larger."""
+    from repro_torch.kernels.rwkv_scan import ops
+    from repro_torch.kernels.rwkv_scan.ref import wkv6_bwd_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(s * 17 + b)
+    r, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda") for _ in range(3))
+    span, low = DECAY_REGIMES[regime]
+    w = torch.sigmoid(torch.randn(b, s, h, d, generator=gen, device="cuda")) * span + low
+    u = torch.randn(h, d, generator=gen, device="cuda") * 0.1
+    s0 = torch.randn(b, h, d, d, generator=gen, device="cuda") if carried else None
+    do = torch.randn(b, s, h, d, generator=gen, device="cuda")
+    dstate = torch.randn(b, h, d, d, generator=gen, device="cuda") if carried else None
+    args = (do, dstate, r, k, v, w, u, s0)
+    run = lambda: ops.wkv6_bwd(*args)
+    before = ops.wkv6_bwd.launches
+    got = run()
+    again = run()
+    sync()
+    launched = ops.wkv6_bwd.launches - before
+    repeat = all(x is None or torch.equal(x, y) for x, y in zip(got, again))
+    del again
+    # the plain version timed on the call that checks (events around one
+    # call, after the kernel's warm-up; at (1, 4096) it is a 4096-step loop)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = wkv6_bwd_ref(*args)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    exact = wkv6_bwd_ref(*(None if t is None else t.double() for t in args))
+    rel, control, tol, errs = {}, {}, {}, []
+    for name, a, p, x in zip(WKV_GRADS, got, want, exact):
+        if p is None:
+            continue
+        rel[name] = rel_fro(a, p)
+        control[name] = ((p.double() - x).norm() / x.norm().clamp_min(1e-30)).item()
+        tol[name] = max(BWD_TOL[torch.float32], 2 * control[name])
+        errs.append(max_err(a, p))
+    finite = all(bool(torch.isfinite(t).all().item()) for t in got if t is not None)
+    del want, exact
+    ok = finite and repeat and launched == 2 and all(rel[n] <= tol[n] for n in rel)
+    ms = time_ms(run, iters)
+    launch_ms = host_ms(run, iters)
+    by_kernel = kernel_device_us(run) if s >= 2048 else None
+    # r, k, w, v and do read once, dr, dk, dw, dv written once; u read, du
+    # written; with a state, s0 and its cotangent read and ds0 written. Six
+    # multiply-adds a state element and step (the state recomputed, its
+    # cotangent, dr, dk, dv, dw)
+    nbytes = 4 * (9 * b * s * h * d + 2 * h * d + (3 * b * h * d * d if carried else 0))
+    ops_count = 12.0 * b * s * h * d * d
+    bound_ms, bound_by = bound(nbytes, ops_count, PEAK_FLOPS[torch.float32])
+    res = {
+        "phase": "kernels", "kernel": "wkv6_bwd",
+        "shape": {"b": b, "s": s, "h": h, "dk": d, "dv": d, "decay": regime, "s0": carried,
+                  "state_cotangent": carried},
+        "dtype": "float32", "max_abs_err": max(errs), "rel_fro": rel,
+        "plain_fp32_vs_fp64": control, "tol": tol, "finite": finite,
+        "repeat_bit_for_bit": repeat, "launches_a_call": launched / 2, "ok": ok,
+        "ms": ms, "host_ms": launch_ms, "plain_ms": plain_ms,
+        "library_ms": None,  # no PyTorch call computes the WKV6 backward
+        "bound_ms": bound_ms, "bound_by": bound_by, "device_us_by_kernel": by_kernel,
+    }
+    emit(res)
+    check(ok, f"wkv6_bwd {res['shape']}: {rel} against {tol}, finite {finite}, "
+              f"repeat {repeat}, launches {launched} for 2 calls")
+    return res
+
+
 def grad_time_ms(out: torch.Tensor, inputs, grad: torch.Tensor, iters: int) -> float:
     """Event time of one backward of ``out`` (built once, with its graph
     retained) with respect to ``inputs``."""
@@ -1037,6 +1136,15 @@ def phase_kernels() -> dict:
         res = wkv6_case(**c)
         s = res["shape"]
         results[("wkv6", s["b"], s["s"], s["h"], s["chunk"], s["decay"])] = res
+    # the WKV6 backward (B3) at rwkv6-7b's 64 heads of 64: the serve prompt,
+    # the parity and prefill prompts, a TRAIN_4K microbatch, and a ragged
+    # length from a state with the final state's cotangent (the backward
+    # takes no chunk: its segments are 16 steps), in all three regimes
+    for regime in DECAY_REGIMES:
+        for c in (dict(b=4, s=16, iters=50), dict(b=1, s=512), dict(b=1, s=2048, iters=5),
+                  dict(b=1, s=4096, iters=3), dict(b=1, s=100, carried=True)):
+            res = wkv6_bwd_case(h=64, d=64, regime=regime, **c)
+            results[("wkv6_bwd", c["b"], c["s"], regime)] = res
     # backward kernels at the training shapes: gemma-2b's norm rows (one
     # 4096-token microbatch), qwen3-8b's q-norm rows at (1, 4096), and a
     # large fp32 case
@@ -1095,6 +1203,7 @@ KERNEL_KINDS = (
     ("rmsnorm", ("rmsnorm_kernel",)),
     ("flash_attention_bwd", ("flash_bwd_",)),
     ("flash_attention", ("flash_fwd_kernel",)),
+    ("wkv6_bwd", ("wkv6_bwd_kernel", "wkv6_bwd_sum_kernel")),
     ("wkv6", ("wkv6_fwd_kernel",)),
     ("gemm", ("gemm", "xmma", "nvjet", "cutlass", "sm90_")),
 )
@@ -1309,7 +1418,7 @@ def phase_serve(archs=SERVE_ARCHS, configs=None, kinds=KERNEL_KINDS) -> dict:
 
 def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
                  moe_res: dict, families_res: dict, fleet_res: dict, ckpt_res: dict,
-                 cli_res: dict, tp_res: dict) -> None:
+                 cli_res: dict, tp_res: dict, rwkv_res: dict) -> None:
     """The summary line: each kernel the serve and train paths launch. The
     forward kernels at their largest serve-path shape (bf16 for the norm
     and attention, whose largest is qwen3-8b's; fp32 for WKV6, rwkv6-7b's
@@ -1334,7 +1443,10 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
     every kernel, a run each (``launches_ckpt``), and the cli phase's, a
     run each (``launches_cli``: the full-depth CLI runs, the resume's A,
     B and C, each example). The tp phase's local-head shapes and each
-    rank's launches there (``at_tp``: its serve, prefill and train runs)."""
+    rank's launches there (``at_tp``: its serve, prefill and train runs).
+    The WKV6 backward (B3) at a (1, 4096) training microbatch with the
+    rwkv_train phase's launches (K4's there beside it), and at its other
+    shapes and regimes (``at``)."""
     rms = k[("rmsnorm", 64, 4096, "bfloat16")]
     rms_res = k[("rmsnorm_residual", 64, 4096, "bfloat16")]
     fa = k[("flash_attention", 4, 16, 32, 128, None, 0, "bfloat16")]
@@ -1342,6 +1454,8 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
     rms_bwd = k[("rmsnorm_bwd", 4096, 2048, "bfloat16")]
     fa_bwd = k[("flash_attention_bwd", 1, 4096, 8, 256, None, 0, "bfloat16")]
     fa_moe = k[("flash_attention", 1, MOE_PARITY_PROMPT, 48, 128, 4096, 0, "bfloat16")]
+    wkv_bwd = k[("wkv6_bwd", 1, 4096, "slow")]
+    rwkv_steps, rwkv_entry = rwkv_res["steps"], rwkv_res["entry_points"]
     keys = ("max_abs_err", "ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def at(res):
@@ -1428,7 +1542,19 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
          "launches_decode": decode["wkv6"], "at_decode": at(k[("wkv6", 128, 1, 64, 1, "slow")]),
          "launches_ckpt": ckpt("wkv6"),
          "launches_cli": cli("wkv6"),
-         "at_tp": at_tp("wkv6", [k[("wkv6", 1, TP_PREFILL, 32, 64, "slow")]])},
+         "at_tp": at_tp("wkv6", [k[("wkv6", 1, TP_PREFILL, 32, 64, "slow")]]),
+         "launches_rwkv_train": rwkv_steps["launches"]["wkv6"],
+         "launches_a_rwkv_train_step": rwkv_steps["launches_per_step"]["wkv6"]},
+        {"name": "wkv6_bwd", "route": "cuda", "source": WKV_BWD_SRC, "replaces": WKV_TPU,
+         "backward_of": "wkv6 (K4); no TPU counterpart",
+         "launches": rwkv_steps["launches"]["wkv6_bwd"],
+         "launches_a_train_step": rwkv_steps["launches_per_step"]["wkv6_bwd"],
+         "shape": wkv_bwd["shape"], "dtype": "float32", **{x: wkv_bwd[x] for x in keys},
+         "rel_fro": wkv_bwd["rel_fro"], "plain_fp32_vs_fp64": wkv_bwd["plain_fp32_vs_fp64"],
+         "at": [{**at(v), "rel_fro": v["rel_fro"]} for key, v in k.items()
+                if key[0] == "wkv6_bwd" and v is not wkv_bwd],
+         "launches_rwkv_entry_points": {n: r["launches"]["wkv6_bwd"]
+                                        for n, r in rwkv_entry.items()}},
         {"name": "rmsnorm_bwd", "route": "cuda", "source": RMS_SRC, "replaces": RMS_TPU,
          "backward_of": "rmsnorm (K1); no TPU counterpart",
          "launches": train["rmsnorm_bwd"], "launches_a_train_step": per_step["rmsnorm_bwd"],
@@ -1822,7 +1948,8 @@ def kernel_counters() -> dict:
 
     return {"rmsnorm": rms_ops.rmsnorm, "rmsnorm_bwd": rms_ops.rmsnorm_bwd,
             "flash_attention": fa_ops.flash_attention,
-            "flash_attention_bwd": fa_ops.flash_attention_bwd, "wkv6": wkv_ops.wkv6}
+            "flash_attention_bwd": fa_ops.flash_attention_bwd, "wkv6": wkv_ops.wkv6,
+            "wkv6_bwd": wkv_ops.wkv6_bwd}
 
 
 def zero_counts(counters: dict) -> None:
@@ -1831,19 +1958,26 @@ def zero_counts(counters: dict) -> None:
 
 
 def launches_per_microbatch(cfg) -> dict:
-    """Kernel launches of one loss-and-gradient pass of a dense model with
-    remat: each layer's norms (and qk-norms) and attention run forward
-    twice (the pass and the checkpoint's recompute) and backward once; the
-    final norm, outside the checkpoints, once each way."""
+    """Kernel launches of one loss-and-gradient pass of a dense or rwkv
+    model with remat: each layer's norms (and qk-norms) and attention, or
+    WKV6 scan, run forward twice (the pass and the checkpoint's recompute)
+    and backward once; the final norm, outside the checkpoints, once each
+    way."""
     norms = cfg.n_layers * (4 if cfg.qk_norm else 2)
-    return {"rmsnorm": 2 * norms + 1, "rmsnorm_bwd": norms + 1,
-            "flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers, "wkv6": 0}
+    mixers = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
+              "wkv6": 0, "wkv6_bwd": 0}
+    if cfg.family == "ssm":
+        mixers = {"flash_attention": 0, "flash_attention_bwd": 0, "wkv6": 2 * cfg.n_layers,
+                  "wkv6_bwd": cfg.n_layers}
+    return {"rmsnorm": 2 * norms + 1, "rmsnorm_bwd": norms + 1, **mixers}
 
 
-def train_model(kernel_mode: str = "kernel", compute_dtype: str = "bfloat16", n_layers=None):
-    """gemma-2b at full width and depth (or ``n_layers`` deep) with the
-    runtime tables' options for TRAIN_4K, its run config at a global batch
-    of TRAIN_BATCH, and its AdamW config."""
+def train_model(kernel_mode: str = "kernel", compute_dtype: str = "bfloat16", n_layers=None,
+                arch: str = TRAIN_ARCH, **opts):
+    """``arch`` (gemma-2b) at full width and depth (or ``n_layers`` deep)
+    with the runtime tables' options for TRAIN_4K (``opts`` replacing
+    some), its run config at a global batch of TRAIN_BATCH, and its AdamW
+    config."""
     from repro_torch.configs import TRAIN_4K, get_config
     from repro_torch.models import build_model
     from repro_torch.train.runtime import (
@@ -1852,14 +1986,23 @@ def train_model(kernel_mode: str = "kernel", compute_dtype: str = "bfloat16", n_
         train_run_config_for,
     )
 
-    cfg = get_config(TRAIN_ARCH) if n_layers is None else depth_cut(TRAIN_ARCH, n_layers)
+    cfg = get_config(arch) if n_layers is None else depth_cut(arch, n_layers)
     shape = replace(TRAIN_4K, global_batch=TRAIN_BATCH)
     opts = replace(model_options_for(cfg, shape), kernel_mode=kernel_mode,
-                   compute_dtype=compute_dtype)
+                   compute_dtype=compute_dtype, **opts)
     return cfg, shape, build_model(cfg, opts), train_run_config_for(cfg, shape), adamw_config_for(cfg)
 
 
 def phase_train() -> dict:
+    return train_session("train", *train_model())
+
+
+def train_session(phase: str, cfg, shape, model, run, ocfg) -> dict:
+    """TRAIN_STEPS AdamW steps of ``make_train_step`` as a training session
+    on a ``SalusExecutor``, fed by ``SyntheticLM``, its profile from
+    ``profile_model``: finite losses, optimizer steps 1.., exactly the
+    launches a step implies, and one more step under the profiler, where
+    each kernel the step launches must show device time."""
     from torch.utils import _pytree as pytree
 
     from repro_torch.core import GB, SalusExecutor, VirtualDevice, get_policy, profile_model
@@ -1868,7 +2011,6 @@ def phase_train() -> dict:
     from repro_torch.train.train_step import make_train_step
 
     dev = torch.device("cuda")
-    cfg, shape, model, run, ocfg = train_model()
     params = model.init(torch.Generator(device=dev).manual_seed(15))
     opt = AdamW(ocfg)
     opt_state = opt.init(params)
@@ -1900,30 +2042,33 @@ def phase_train() -> dict:
     report = vdev.run()
     launches = {name: fn.launches for name, fn in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    check(not report.failures, f"train failures: {report.failures}")
+    check(not report.failures, f"{phase} failures: {report.failures}")
     check(sess.finished and len(sess.metrics_log) == TRAIN_STEPS,
-          f"train ran {len(sess.metrics_log)} of {TRAIN_STEPS} steps")
+          f"{phase} ran {len(sess.metrics_log)} of {TRAIN_STEPS} steps")
     metrics = [{k: float(v) for k, v in m.items()} for m in sess.metrics_log]
     losses = [m["loss"] for m in metrics]
-    check(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
+    check(all(math.isfinite(x) for x in losses), f"{phase}: non-finite losses {losses}")
     check([int(m["step"]) for m in metrics] == list(range(1, TRAIN_STEPS + 1)),
           f"optimizer steps {[m['step'] for m in metrics]}: profiling took a hidden step")
     per_step = {k: run.num_microbatches * v for k, v in launches_per_microbatch(cfg).items()}
     expected = {k: TRAIN_STEPS * v for k, v in per_step.items()}
-    check(launches == expected, f"train launches {launches} != expected {expected}")
+    check(launches == expected, f"{phase} launches {launches} != expected {expected}")
     # one more step under the profiler (after the counts were read)
     batch = data_fn(TRAIN_STEPS)
     prof_step = profiled(lambda: step(params, opt_state, batch))
-    for name in ("rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_bwd"):
-        check(prof_step["device_ms_by_kind"][name] > 0, f"no {name} device time in the profiled step")
+    for name, n in per_step.items():
+        if n:
+            check(prof_step["device_ms_by_kind"][name] > 0,
+                  f"{phase}: no {name} device time in the profiled step")
     res = {
-        "phase": "train",
+        "phase": phase,
         "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
         "params": cfg.param_count(), "param_gb": param_gb,
         "shape": {"seq_len": shape.seq_len, "global_batch": shape.global_batch,
                   "microbatches": run.num_microbatches, "accum_dtype": run.accum_dtype},
         "model_options": {"remat": model.opts.remat, "loss_chunk": model.opts.loss_chunk,
                           "compute_dtype": model.opts.compute_dtype,
+                          "param_dtype": model.opts.param_dtype,
                           "kernel_mode": model.opts.kernel_mode},
         "adamw": {"lr": ocfg.lr, "warmup_steps": ocfg.warmup_steps, "state_dtype": ocfg.state_dtype},
         "losses": losses, "metrics": metrics,
@@ -1945,6 +2090,38 @@ def phase_train() -> dict:
     return res
 
 
+def loss_and_grads(arch: str, n_layers, params, batch, kernel_mode: str, dtype: str,
+                   **opts) -> tuple:
+    """The training model's loss and stacked gradients on ``batch`` with
+    ``kernel_mode``, compute ``dtype`` and ``opts``, its seconds; the
+    kernels' launches must be one pass's (none on the plain path)."""
+    from repro_torch.train.train_step import stack_grads, value_and_grad
+
+    cfg, _, m, _, _ = train_model(kernel_mode, dtype, n_layers, arch, **opts)
+    per_mb = launches_per_microbatch(cfg)
+    counters = kernel_counters()
+    zero_counts(counters)
+    sync()
+    t0 = time.perf_counter()
+    loss, g = value_and_grad(m, params, batch)
+    g = stack_grads(g)
+    sync()
+    launched = {name: fn.launches for name, fn in counters.items()}
+    want = per_mb if kernel_mode == "kernel" else dict.fromkeys(per_mb, 0)
+    check(launched == want, f"{arch} {kernel_mode} {dtype}: launches {launched} != {want}")
+    return float(loss), g, time.perf_counter() - t0
+
+
+def leaf_gaps(a, b) -> dict:
+    """Relative Frobenius gap of each leaf, by its path."""
+    from torch.utils import _pytree as pytree
+
+    out = {}
+    for (path, x), y in zip(pytree.tree_flatten_with_path(a)[0], pytree.tree_leaves(b)):
+        out[pytree.keystr(path)] = rel_fro(x, y)
+    return out
+
+
 def phase_train_parity() -> dict:
     """The training model on one (1, 4096) batch: loss and every gradient
     leaf through the kernels against the plain path, in fp32 (loss within
@@ -1953,35 +2130,15 @@ def phase_train_parity() -> dict:
     from torch.utils import _pytree as pytree
 
     from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.train.train_step import stack_grads, value_and_grad
 
     dev = torch.device("cuda")
     cfg, shape, model, _, _ = train_model()
     params = model.init(torch.Generator(device=dev).manual_seed(15))
     batch = {k: torch.from_numpy(v).to(dev)
              for k, v in SyntheticLM(cfg.vocab_size, shape.seq_len, 1, seed=1).batch(0).items()}
-    counters = kernel_counters()
-    per_mb = launches_per_microbatch(cfg)
 
     def grads(kernel_mode, dtype):
-        _, _, m, _, _ = train_model(kernel_mode, dtype)
-        zero_counts(counters)
-        sync()
-        t0 = time.perf_counter()
-        loss, g = value_and_grad(m, params, batch)
-        g = stack_grads(g)
-        sync()
-        launched = {name: fn.launches for name, fn in counters.items()}
-        want = per_mb if kernel_mode == "kernel" else dict.fromkeys(per_mb, 0)
-        check(launched == want, f"{kernel_mode} {dtype}: launches {launched} != {want}")
-        return float(loss), g, time.perf_counter() - t0
-
-    def leaf_gaps(a, b):
-        """Relative Frobenius gap of each leaf, by its path."""
-        out = {}
-        for (path, x), y in zip(pytree.tree_flatten_with_path(a)[0], pytree.tree_leaves(b)):
-            out[pytree.keystr(path)] = rel_fro(x, y)
-        return out
+        return loss_and_grads(TRAIN_ARCH, None, params, batch, kernel_mode, dtype)
 
     l_r32, g_r32, s_r32 = grads("reference", "float32")
     l_k32, g_k32, s_k32 = grads("kernel", "float32")
@@ -2014,6 +2171,146 @@ def phase_train_parity() -> dict:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    return res
+
+
+RWKV_CONTROL_CHUNKS = (32, 16)  # the plain path's other WKV chunkings
+# two fp32 ulps, relative: about the plain WKV output's own error from an
+# fp64 recurrence at rwkv6-7b's initial decays (2.2e-7 for wkv_chunked, K4
+# 3.4e-7, the step-by-step oracle 4.5e-7; PERF.md, PR 28)
+RWKV_WKV_NOISE = 2.0 ** -22
+
+
+@contextlib.contextmanager
+def wkv_output_noise(rel: float, seed: int = 0):
+    """Around a plain-path run: its WKV output (``models.rwkv.wkv_chunked``,
+    which ``tmix_apply`` calls through the module) times ``1 + rel z``, z
+    standard normal from a seeded generator: the gradients' sensitivity to
+    noise at the WKV output's own fp32 error level."""
+    from repro_torch.models import rwkv
+
+    chunked = rwkv.wkv_chunked
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def noisy(r, k, v, w, u, *, chunk=64):
+        o, state = chunked(r, k, v, w, u, chunk=chunk)
+        return o * (1 + rel * torch.randn(o.shape, generator=gen, device=o.device)), state
+
+    rwkv.wkv_chunked = noisy
+    try:
+        yield
+    finally:
+        rwkv.wkv_chunked = chunked
+
+
+def rwkv_train_parity() -> dict:
+    """rwkv6-7b at RWKV_TRAIN_DEPTH on one (1, 4096) batch: the fp32 loss
+    and every gradient leaf through K1/B1/K4/B3 against the plain path
+    (``wkv_chunked`` at the runtime's chunk of 64, and autograd). The loss
+    is held within 1e-5 relative. The model's fp32 gradients carry more
+    noise than train_parity's 1e-4 bar: the plain path itself, at WKV
+    chunks of 32 and 16 (the same function, other sums), moves leaves by up
+    to ~2e-3, and noise of RWKV_WKV_NOISE on its WKV output by up to ~5e-4.
+    So, as the kernels phase holds B3 beside the plain version's own fp64
+    gap, each leaf is held within 1e-4, or twice the largest of those three
+    gaps of the plain path from itself where that is larger; all are
+    printed."""
+    from repro_torch.data.pipeline import SyntheticLM
+
+    dev = torch.device("cuda")
+    cfg, shape, model, _, _ = train_model(n_layers=RWKV_TRAIN_DEPTH, arch=RWKV_ARCH)
+    params = model.init(torch.Generator(device=dev).manual_seed(16))
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in SyntheticLM(cfg.vocab_size, shape.seq_len, 1, seed=1).batch(0).items()}
+
+    def grads(mode, **opts):
+        return loss_and_grads(RWKV_ARCH, RWKV_TRAIN_DEPTH, params, batch, mode, "float32", **opts)
+
+    l_r, g_r, s_r = grads("reference")
+    l_k, g_k, s_k = grads("kernel")
+    gaps = leaf_gaps(g_k, g_r)
+    del g_k
+    control = {}
+
+    def plain_gap(name, **opts):
+        l_c, g_c, _ = grads("reference", **opts)
+        control[name] = {"loss_rel": abs(l_c - l_r) / abs(l_r), "grad_rel_fro": leaf_gaps(g_c, g_r)}
+
+    for chunk in RWKV_CONTROL_CHUNKS:
+        plain_gap(f"chunk_{chunk}", wkv_chunk=chunk)
+    with wkv_output_noise(RWKV_WKV_NOISE):
+        plain_gap("wkv_output_noise")
+    tol = {x: max(1e-4, 2 * max(c["grad_rel_fro"][x] for c in control.values())) for x in gaps}
+    worst = max(gaps, key=lambda x: gaps[x] / tol[x])
+    loss_rel = abs(l_k - l_r) / abs(l_r)
+    res = {"batch": [1, shape.seq_len], "loss_kernel": l_k, "loss_plain": l_r,
+           "loss_rel": loss_rel, "loss_tol": 1e-5, "grad_rel_fro": gaps,
+           "plain_against_itself": control, "wkv_output_noise": RWKV_WKV_NOISE,
+           "grad_tol": tol, "worst_leaf": [worst, gaps[worst], tol[worst]],
+           "largest_gap": max(gaps.values()), "seconds": {"plain": s_r, "kernel": s_k}}
+    check(loss_rel <= 1e-5, f"rwkv fp32 loss kernel {l_k} vs plain {l_r}")
+    check(gaps[worst] <= tol[worst],
+          f"rwkv fp32 gradient {worst}: relative gap {gaps[worst]} > {tol[worst]}")
+    del params, g_r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def rwkv_entry_points() -> dict:
+    """rwkv6-7b at smoke size on the card through the user's entry points:
+    the train CLI's ``main`` (3 steps) and ``make_trainer``'s background
+    trainer stepping as a session on an executor (3 iterations); finite
+    losses and exactly a pass's launches a microbatch (B3 among them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import GB, SalusExecutor, VirtualDevice, get_policy
+    from repro_torch.launch import train as cli
+    from repro_torch.launch.serve import make_trainer
+
+    cfg = get_config(RWKV_ARCH).smoke()
+    per = launches_per_microbatch(cfg)
+    counters = kernel_counters()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    rec = cli.main(["--arch", RWKV_ARCH, "--smoke", "--steps", "3", "--device", "cuda"])
+    sync()
+    cli_s = time.perf_counter() - t0
+    cli_launches = {name: fn.launches for name, fn in counters.items()}
+    cli_losses = [rec["losses"][i] for i in sorted(rec["losses"])]
+    dev = torch.device("cuda")
+    step, params, data_fn = make_trainer(RWKV_ARCH, smoke=True, device=dev)
+    vdev = VirtualDevice(SalusExecutor(int(8 * GB), get_policy("fifo"), device=dev))
+    zero_counts(counters)
+    sess = vdev.create_session(f"train:{cfg.name}", step, params, data_fn, n_iters=3,
+                               kind="train")
+    report = vdev.run()
+    trainer_launches = {name: fn.launches for name, fn in counters.items()}
+    trainer_losses = [float(m["loss"]) for m in sess.metrics_log]
+    res = {"cli": {"losses": cli_losses, "wall_s": cli_s, "launches": cli_launches},
+           "trainer": {"losses": trainer_losses, "launches": trainer_launches,
+                       "failures": report.failures}}
+    want = {k: 3 * v for k, v in per.items()}
+    check(cli_launches == want, f"rwkv CLI launches {cli_launches} != {want}")
+    check(len(cli_losses) == 3 and all(math.isfinite(x) for x in cli_losses),
+          f"rwkv CLI losses {cli_losses}")
+    # three iterations and the profiling step ``create_session`` takes
+    want = {k: 4 * v for k, v in per.items()}
+    check(not report.failures and trainer_launches == want,
+          f"rwkv trainer launches {trainer_launches} != {want}, failures {report.failures}")
+    check(len(trainer_losses) == 3 and all(math.isfinite(x) for x in trainer_losses),
+          f"rwkv trainer losses {trainer_losses}")
+    return res
+
+
+def phase_rwkv_train() -> dict:
+    """rwkv6-7b trains on the card: the session's steps, the kernels
+    against the plain path, and the CLI and serve trainer at smoke size."""
+    cut = train_model(n_layers=RWKV_TRAIN_DEPTH, arch=RWKV_ARCH)
+    res = train_session("rwkv_train", *cut)
+    del cut
+    res = {"phase": "rwkv_train", "steps": res, "parity_fp32": rwkv_train_parity(),
+           "entry_points": rwkv_entry_points(), "nvidia_smi": nvidia_smi()}
+    emit({k: v for k, v in res.items() if k != "steps"})
     return res
 
 
@@ -4252,6 +4549,7 @@ def main() -> int:
     paging_res = timed("paging", phase_paging)
     train_res = timed("train", phase_train)
     timed("train_parity", phase_train_parity)
+    rwkv_res = timed("rwkv_train", phase_rwkv_train)
     timed("serve_train", phase_serve_train)
     decode_res = timed("decode", phase_decode)
     moe_res = timed("moe", phase_moe)
@@ -4262,7 +4560,7 @@ def main() -> int:
     cli_res = timed("cli", phase_cli, train_res)
     emit({"phase_seconds": seconds})
     kernels_line(k, serve_res, train_res, decode_res, moe_res, families_res, fleet_res, ckpt_res,
-                 cli_res, tp_res)
+                 cli_res, tp_res, rwkv_res)
     emit({"phase": "done", "wall_s": time.perf_counter() - t0})
     emit({"ok": True, "device": {
         "platform": "gpu",

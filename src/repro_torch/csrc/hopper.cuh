@@ -274,14 +274,6 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// log2(x) on the special-function unit (absolute error below 2^-22 for x
-// in [0.5, 2], relative elsewhere; log2(0) = -inf, subnormal x as 0)
-__device__ __forceinline__ float log2_approx(float x) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // d[16 x 8] += A[16 x 8] * B[8 x 8], TF32 operands, fp32 accumulate. For
 // lane l, g = l / 4 and q = l % 4 (PTX ISA, mma.m16n8k8 .tf32 fragments;
 // CUTLASS's SM80_16x8x8_F32TF32TF32F32_TN traits):

@@ -157,6 +157,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, p,  # state columns a block (0: the kernel's choice), device, stream
     ]
     lib.wkv6_fwd_tiled.restype = i
+    lib.wkv6_bwd_workspace.argtypes = [i, i, i, i, i]  # b, s, h, dk, dv
+    lib.wkv6_bwd_workspace.restype = ll
+    # r, k, v, w, u, s0, do, dstate (the last three or null); dr, dk, dv,
+    # dw, du, ds0 (or null), workspace; b, s, h, dk, dv; r/k/v/w (batch,
+    # seq, head) strides; device, stream
+    lib.wkv6_bwd.argtypes = [p] * 15 + [i] * 5 + [ll] * 12 + [i, p]
+    lib.wkv6_bwd.restype = i
 
 
 def library() -> ctypes.CDLL:

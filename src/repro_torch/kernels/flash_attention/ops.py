@@ -9,7 +9,7 @@ never because another route failed:
 
 * ``"wgmma"`` — bf16 with d in 64, 128 or 256: the tensor-core kernel,
   which loads q/k/v by TMA. The wrapper computes each tensor map's
-  geometry (``tma_geometry``) and raises ``ValueError`` on a view TMA
+  geometry (``_geometry``) and raises ``ValueError`` on a view TMA
   cannot read: a base that is not 16-byte aligned, or a batch, sequence
   or head stride that is not a multiple of 16 bytes.
 * ``"simt"`` — fp32 at any supported d (its 2e-5 parity rules out TF32
@@ -51,7 +51,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -88,19 +88,6 @@ class TmaGeometry(NamedTuple):
     dims: tuple  # (d, h, s, b): innermost first
     strides: tuple  # bytes, of h, s and b
     box: tuple
-
-
-def tma_geometry(
-    shape: Sequence[int], strides: Sequence[int], data_ptr: int, element_size: int
-) -> TmaGeometry:
-    """The rank-4 tensor map of a ``(b, s, h, d)`` view with a contiguous
-    last dimension (element strides ``strides``): dims innermost first,
-    byte strides of the head, sequence and batch dimensions, and the box.
-    A dimension of size 1 is never stepped over, so its stride is taken as
-    the extent of the dimensions inside it. Raises ``ValueError`` where TMA
-    cannot read the view."""
-    _check_base(data_ptr)
-    return _geometry(tuple(shape), tuple(strides), element_size)
 
 
 def _check_base(data_ptr: int) -> None:
@@ -180,44 +167,6 @@ def bwd_plan(b: int, sq: int, sk: int, hq: int, hkv: int, d: int, causal: bool =
                    if n_rep % s == 0 and per_split * s >= BWD_MIN_BLOCKS), n_rep)
     scratch = 2 * splits * b * sk * hkv * d * 4 if splits > 1 else 0
     return BwdPlan(n_kt, n_qt, causal, splits, per_split * splits, n_qt * hq * b, scratch)
-
-
-def tf32_stream_rows(d: int) -> int:
-    """Rows of a streamed tile on the fp32 tensor-core route (queries in
-    the dK/dV pass, keys in the dQ pass; ``kTcStream`` in the source): 64
-    at d 64, 32 at d 128, 16 at d 256."""
-    return {64: 64, 128: 32, 256: 16}[d]
-
-
-def bwd_query_steps(k0: int, rows: int, sq: int, sk: int, causal: bool = True,
-                    window: Optional[int] = None, q_offset: int = 0) -> range:
-    """The first query row of each step a dK/dV block walks for the key
-    tile at ``k0``, ``rows`` queries a step: the steps cover every query
-    that sees a key of the tile, from ``max(0, k0 - q_offset)`` under the
-    causal mask to the window's last, as the kernels compute the band."""
-    k_last = min(k0 + BWD_TILE, sk) - 1
-    q_lo = max(0, k0 - q_offset) if causal else 0
-    q_hi = min(sq, k_last + window - q_offset) if window else sq
-    if q_hi <= q_lo:
-        return range(0)
-    return range(q_lo // rows * rows, q_hi, rows)
-
-
-def bwd_blocks(plan: BwdPlan, b: int, hq: int, hkv: int):
-    """The dK/dV blocks in the kernel's grid order (x: key-tile pair, y:
-    split, z: batch and kv head), each as ``(batch, kv head, split, key
-    tiles, query heads)``: the tiles in the order the block walks them,
-    the heads in the order it sums them."""
-    n_kt, n_rep = plan.key_tiles, hq // hkv
-    heads = n_rep // plan.splits
-    n_x = -(-n_kt // 2) if plan.paired else n_kt
-    for z in range(b * hkv):
-        bi, hk = divmod(z, hkv)
-        for g in range(plan.splits):
-            for p in range(n_x):
-                tiles = (p, n_kt - 1 - p) if plan.paired and n_kt - 1 - p != p else (p,)
-                h0 = hk * n_rep + g * heads
-                yield bi, hk, g, tiles, tuple(range(h0, h0 + heads))
 
 
 def flash_attention(

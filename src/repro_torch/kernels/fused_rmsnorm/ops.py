@@ -12,9 +12,8 @@ call goes through ``RMSNormFunction``, whose backward is the hand-written
 kernel ``rmsnorm_bwd`` (``csrc/rmsnorm.cu``); ``rmsnorm_bwd`` is also
 public, with the plain ``ref.rmsnorm_bwd_ref`` on the CPU. Its launch
 shape (row slots a block, the depth of its cp.async ring) and block count
-are pure functions here (``bwd_launch_shape``, ``bwd_blocks``, and
-``bwd_rows`` for the rows each block and slot sums), cached, and its
-dscale partials live in one scratch a (device, stream). The residual
+are pure functions here (``bwd_launch_shape``, ``bwd_blocks``), cached,
+and its dscale partials live in one scratch a (device, stream). The residual
 form (K2) has no backward kernel yet and raises under autograd on CUDA
 rather than cut the gradient.
 
@@ -127,17 +126,6 @@ def bwd_blocks(rows: int, shape: BwdShape, sm_count: int) -> int:
     shapes). Each block writes one partial row of the scale's gradient,
     which a second kernel sums in block order."""
     return max(1, min(-(-rows // shape.rows_per_block), sm_count))
-
-
-def bwd_rows(rows: int, shape: BwdShape, blocks: int):
-    """The rows each (block, slot) reduces, in the order it sums them into
-    its dscale partial: block i takes row groups i, i + blocks, ...; slot j
-    of a group is its row j. The block's partial row sums its slots' sums
-    in slot order; the second kernel sums the blocks' rows in block order."""
-    slots = shape.rows_per_block
-    groups = -(-rows // slots)
-    return [[[grp * slots + j for grp in range(i, groups, blocks) if grp * slots + j < rows]
-             for j in range(slots)] for i in range(blocks)]
 
 
 # dscale partials, one fp32 scratch a (device, stream), grown as needed:

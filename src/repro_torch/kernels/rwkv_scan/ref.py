@@ -36,3 +36,23 @@ def wkv6_ref(
         outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t], state + u[..., :, None] * kv))
         state = w[:, t, :, :, None] * state + kv
     return torch.stack(outs, dim=1), state
+
+
+def wkv6_bwd_ref(
+    do: Optional[torch.Tensor],  # (b, s, h, dv), or None: zero
+    dstate: Optional[torch.Tensor],  # (b, h, dk, dv), or None: zero
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    s0: Optional[torch.Tensor] = None,
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """``(dr, dk, dv, dw, du, ds0)`` by autograd through ``wkv6_ref`` under
+    the cotangents of ``(o, final state)``; ``ds0`` is None without ``s0``."""
+    ins = [t.detach().requires_grad_() for t in (r, k, v, w, u, s0) if t is not None]
+    with torch.enable_grad():
+        outs = wkv6_ref(*ins)
+        cots = [torch.zeros_like(y) if g is None else g for y, g in zip(outs, (do, dstate))]
+        grads = torch.autograd.grad(outs, ins, cots)
+    return (*grads, None) if s0 is None else grads

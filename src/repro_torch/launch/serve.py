@@ -91,8 +91,7 @@ def make_trainer(name: str, smoke: bool, device="cuda", opts: ModelOptions | Non
     handed it, and profiling it takes no hidden step). Params are drawn
     from a generator seeded by ``stable_seed(name) ^ 0x5A105``; batch ``i``
     is ``(2, 16)`` tokens from a generator seeded by ``i``, with the labels
-    the tokens rolled by one. ``opts`` defaults to ``TRAIN_OPTS``. An rwkv
-    trainer on the card raises: the WKV6 kernel has no backward yet."""
+    the tokens rolled by one. ``opts`` defaults to ``TRAIN_OPTS``."""
     dev = torch.device(device)
     cfg = get_config(name)
     if smoke:

@@ -22,8 +22,7 @@ variables (``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) it
 initialises from them, without them it makes a one-rank group over a
 ``HashStore`` (no network); NCCL on ``cuda``, gloo on ``cpu``; the group
 is destroyed on exit. It runs on the card (``LOCAL_RANK``'s) unless given
-``--device cpu``; there is no fallback. An rwkv arch on the card raises
-``NotImplementedError``: the WKV6 kernel has no backward yet.
+``--device cpu``; there is no fallback.
 
 On a mesh whose model axis shards a leaf, ``--compress-grads`` forms its
 int8 blocks over each rank's piece of the gradient (JAX's over the whole
@@ -149,10 +148,6 @@ def run(cfg: ArchConfig, args: argparse.Namespace) -> dict:
     record: each step's loss and seconds, the steps resumed from, the
     restarts and the stragglers flagged."""
     dev = pick_device(args.device)
-    if dev.type == "cuda" and cfg.rwkv_head_dim:
-        raise NotImplementedError(
-            f"{cfg.name}: the WKV6 kernel has no backward yet, so rwkv trains on the CPU "
-            f"only (--device cpu)")
     if dev.type == "cuda":
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         torch.cuda.set_device(dev)

@@ -843,16 +843,82 @@ def test_smoke_model_grads_kernel_match_reference(cuda, arch):
 
 
 def test_wkv6_refuses_autograd(cuda):
-    r = torch.randn(1, 16, 2, 16, device=cuda, requires_grad=True)
-    w = torch.rand(1, 16, 2, 16, device=cuda) * 0.5 + 0.4
-    u = torch.zeros(2, 16, device=cuda)
-    before = wkv_ops.wkv6.launches
-    with pytest.raises(NotImplementedError, match="backward"):
-        wkv_ops.wkv6(r, r, r, w, u)
-    assert wkv_ops.wkv6.launches == before
+    """Under autograd on CUDA tensors ``wkv6`` no longer refuses: it
+    launches K4 once, and the backward B3 once, and every gradient of r,
+    k, v, w, u and s0 (a loss on the output and on the final state) is
+    within 1e-5 relative Frobenius of autograd through the plain version.
+    Without grad only K4 launches."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    b, s, h, d = 2, 50, 3, 16
+    leaves = [torch.randn(b, s, h, d, generator=gen, device=cuda) for _ in range(3)]
+    leaves.append(torch.rand(b, s, h, d, generator=gen, device=cuda) * 0.5 + 0.4)
+    leaves.append(torch.randn(h, d, generator=gen, device=cuda) * 0.1)
+    leaves.append(torch.randn(b, h, d, d, generator=gen, device=cuda))
+    co = torch.randn(b, s, h, d, generator=gen, device=cuda)
+    cs = torch.randn(b, h, d, d, generator=gen, device=cuda)
+    grads = []
+    for fn in (lambda *a: wkv_ops.wkv6(*a[:5], chunk=16, s0=a[5], ragged=True), wkv6_ref):
+        ins = [t.clone().requires_grad_() for t in leaves]
+        before = (wkv_ops.wkv6.launches, wkv_ops.wkv6_bwd.launches)
+        o, sf = fn(*ins)
+        ((o * co).sum() + (sf * cs).sum()).backward()
+        torch.cuda.synchronize()
+        grads.append([t.grad for t in ins])
+        launched = (wkv_ops.wkv6.launches - before[0], wkv_ops.wkv6_bwd.launches - before[1])
+        assert launched == ((1, 1) if fn is not wkv6_ref else (0, 0))
+    for a, want in zip(*grads):
+        assert torch.isfinite(a).all() and _rel(a, want) <= BWD_TOL[torch.float32]
+    before = (wkv_ops.wkv6.launches, wkv_ops.wkv6_bwd.launches)
     with torch.no_grad():
-        wkv_ops.wkv6(r, r, r, w, u)
-    assert wkv_ops.wkv6.launches == before + 1
+        wkv_ops.wkv6(*leaves[:5], chunk=16, s0=leaves[5], ragged=True)
+    assert (wkv_ops.wkv6.launches, wkv_ops.wkv6_bwd.launches) == (before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize(
+    "b,s,h,dk,dv,span,low,s0,dstate,strided",
+    [
+        (4, 16, 64, 64, 64, 0.1, 0.88, False, False, False),  # rwkv6-7b's serve prompt
+        (1, 100, 8, 64, 64, 0.5, 0.15, True, True, False),  # ragged, from a state
+        (1, 512, 4, 64, 64, 0.9, 0.05, False, True, False),  # the faster regime
+        (2, 37, 3, 16, 16, 0.5, 0.15, True, False, True),  # strided views of one buffer
+        (1, 64, 2, 8, 8, 0.1, 0.88, True, True, False),
+        (1, 33, 2, 64, 8, 0.5, 0.15, False, True, False),
+        (1, 70, 2, 32, 32, 0.0, 0.0, True, True, False),  # decays of 0
+        (1, 70, 2, 32, 32, 0.0, 1e-30, False, True, False),  # below K4's e^-60 floor
+    ],
+)
+def test_wkv6_bwd_kernel_matches_plain(cuda, b, s, h, dk, dv, span, low, s0, dstate, strided):
+    """B3 against autograd through ``wkv6_ref`` on the same CUDA tensors:
+    every gradient within 1e-5 relative Frobenius (BWD_TOL), finite, one
+    launch a call, and a second call bit for bit the first."""
+    from repro_torch.kernels.rwkv_scan.ref import wkv6_bwd_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(s + dk + dv)
+    if strided:
+        buf = torch.randn(b, s, h, 3 * dk + dv + 4, generator=gen, device=cuda)
+        r, k, v = buf[..., :dk], buf[..., dk:2 * dk], buf[..., 3 * dk:3 * dk + dv]
+        w = buf[..., 2 * dk:3 * dk]
+        w.copy_(torch.sigmoid(w) * span + low)
+    else:
+        r, k = (torch.randn(b, s, h, dk, generator=gen, device=cuda) for _ in range(2))
+        v = torch.randn(b, s, h, dv, generator=gen, device=cuda)
+        w = torch.sigmoid(torch.randn(b, s, h, dk, generator=gen, device=cuda)) * span + low
+    u = torch.randn(h, dk, generator=gen, device=cuda) * 0.1
+    st = torch.randn(b, h, dk, dv, generator=gen, device=cuda) if s0 else None
+    do = torch.randn(b, s, h, dv, generator=gen, device=cuda)
+    ds = torch.randn(b, h, dk, dv, generator=gen, device=cuda) if dstate else None
+    before = wkv_ops.wkv6_bwd.launches
+    got = wkv_ops.wkv6_bwd(do, ds, r, k, v, w, u, st)
+    again = wkv_ops.wkv6_bwd(do, ds, r, k, v, w, u, st)
+    torch.cuda.synchronize()
+    assert wkv_ops.wkv6_bwd.launches == before + 2
+    want = wkv6_bwd_ref(do, ds, r, k, v, w, u, st)
+    for name, a, a2, ref in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, again, want):
+        if ref is None:
+            assert a is None
+            continue
+        assert torch.isfinite(a).all() and torch.equal(a, a2), name
+        assert _rel(a, ref) <= BWD_TOL[torch.float32], (name, _rel(a, ref))
 
 
 # ---------------------------------------------------------------------------
@@ -1249,10 +1315,17 @@ def test_cli_steps_at_smoke_size(cuda, extra, passes):
 
 
 def test_cli_refuses_rwkv_on_the_card(cuda):
-    from repro_torch.launch.train import main
+    """rwkv6-7b trains on the card through the CLI now: 3 ``--smoke`` steps
+    with finite losses and exactly a pass's launches a microbatch, K4
+    twice (remat) and B3 once a layer."""
+    import chip_smoke as cs
 
-    with pytest.raises(NotImplementedError, match="WKV6"):
-        main(["--arch", "rwkv6-7b", "--smoke"])
+    cfg = get_config("rwkv6-7b").smoke()
+    per = cs.launches_per_microbatch(cfg)
+    assert per["wkv6_bwd"] == cfg.n_layers and per["wkv6"] == 2 * cfg.n_layers
+    rec = cs.cli_run(cfg, ["--steps", "3", "--device", "cuda"], cs.kernel_counters(),
+                     {k: 3 * v for k, v in per.items()})
+    assert sorted(rec["losses"]) == [0, 1, 2] and rec["restarts"] == 0
 
 
 def test_quickstart_and_inference_packing_examples_on_the_card(cuda, capsys):

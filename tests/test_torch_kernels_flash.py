@@ -16,6 +16,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash  # noqa: E402
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
+import kernel_plans as plans  # noqa: E402
 
 CASES = [
     # (b, sq, hq, hkv, d, causal, window, bq, bk)
@@ -166,7 +167,7 @@ def test_flash_bwd_plan_covers_each_key_tile_and_head_once(case):
     is the grid's."""
     b, sq, sk, hq, hkv, d, causal = case
     plan = ops.bwd_plan(b, sq, sk, hq, hkv, d, causal)
-    blocks = list(ops.bwd_blocks(plan, b, hq, hkv))
+    blocks = list(plans.flash_bwd_blocks(plan, b, hq, hkv))
     assert len(blocks) == plan.dkdv_blocks
     seen = [(bi, t, h) for bi, hk, _, tiles, heads in blocks for t in tiles for h in heads
             if h // (hq // hkv) == hk]
@@ -181,7 +182,7 @@ def test_flash_bwd_plan_balances_the_causal_triangle():
     (1, 4096) every block walks 65 query tiles a head."""
     plan = ops.bwd_plan(1, 4096, 4096, 8, 1, 256, True)
     n = plan.key_tiles
-    for *_, tiles, _ in ops.bwd_blocks(plan, 1, 8, 1):
+    for *_, tiles, _ in plans.flash_bwd_blocks(plan, 1, 8, 1):
         assert sum(n - t for t in tiles) == n + 1
 
 
@@ -217,7 +218,7 @@ def test_flash_bwd_plan_fixes_the_summation_order(case):
     b, sq, sk, hq, hkv, d, causal = case
     plan = ops.bwd_plan(b, sq, sk, hq, hkv, d, causal)
     order = {}
-    for bi, hk, g, tiles, heads in ops.bwd_blocks(plan, b, hq, hkv):
+    for bi, hk, g, tiles, heads in plans.flash_bwd_blocks(plan, b, hq, hkv):
         assert list(heads) == sorted(heads)
         for t in tiles:
             order.setdefault((bi, hk, t), []).append((g, heads))
@@ -263,11 +264,11 @@ def test_flash_bwd_tf32_plan_covers_each_key_tile_head_and_query_once(case):
     b, sq, sk, hq, hkv, d, causal, window, q_offset = case
     assert ops.bwd_route(torch.float32, d) == "mma_tf32"
     plan = ops.bwd_plan(b, sq, sk, hq, hkv, d, causal)
-    seen = [(bi, t, h) for bi, _, _, tiles, heads in ops.bwd_blocks(plan, b, hq, hkv)
+    seen = [(bi, t, h) for bi, _, _, tiles, heads in plans.flash_bwd_blocks(plan, b, hq, hkv)
             for t in tiles for h in heads]
     assert sorted(seen) == [(bi, t, h) for bi in range(b) for t in range(plan.key_tiles)
                             for h in range(hq)]
-    rows = ops.tf32_stream_rows(d)
+    rows = plans.tf32_stream_rows(d)
     mask = torch.ones(sq, sk, dtype=torch.bool)
     qpos, kpos = torch.arange(sq)[:, None] + q_offset, torch.arange(sk)[None, :]
     if causal:
@@ -276,7 +277,7 @@ def test_flash_bwd_tf32_plan_covers_each_key_tile_head_and_query_once(case):
         mask &= kpos > qpos - window
     for t in range(plan.key_tiles):
         k0 = t * ops.BWD_TILE
-        steps = list(ops.bwd_query_steps(k0, rows, sq, sk, causal, window, q_offset))
+        steps = list(plans.bwd_query_steps(k0, rows, sq, sk, causal, window, q_offset))
         walked = [q for q0 in steps for q in range(q0, min(q0 + rows, sq))]
         assert len(walked) == len(set(walked))
         need = set(torch.nonzero(mask[:, k0:k0 + ops.BWD_TILE].any(dim=1)).flatten().tolist())
@@ -293,14 +294,14 @@ def test_flash_bwd_tf32_plan_fixes_the_summation_order(case):
     b, sq, sk, hq, hkv, d, causal, window, q_offset = case
     plan = ops.bwd_plan(b, sq, sk, hq, hkv, d, causal)
     order = {}
-    for bi, hk, g, tiles, heads in ops.bwd_blocks(plan, b, hq, hkv):
+    for bi, hk, g, tiles, heads in plans.flash_bwd_blocks(plan, b, hq, hkv):
         assert list(heads) == sorted(heads)
         for t in tiles:
             order.setdefault((bi, hk, t), []).append(g)
     assert all(gs == list(range(plan.splits)) for gs in order.values())
-    rows = ops.tf32_stream_rows(d)
+    rows = plans.tf32_stream_rows(d)
     for t in range(plan.key_tiles):
-        steps = list(ops.bwd_query_steps(t * 64, rows, sq, sk, causal, window, q_offset))
+        steps = list(plans.bwd_query_steps(t * 64, rows, sq, sk, causal, window, q_offset))
         assert steps == sorted(steps)
     ops.bwd_plan.cache_clear()
     assert ops.bwd_plan(b, sq, sk, hq, hkv, d, causal) == plan
@@ -309,13 +310,13 @@ def test_flash_bwd_tf32_plan_fixes_the_summation_order(case):
 def test_flash_bwd_tf32_stream_rows_match_the_source():
     src = (ops._build.CSRC / "flash_attention_bwd.cu").read_text()
     assert "constexpr int kTcStream = D == 256 ? 16 : D == 128 ? 32 : 64;" in src
-    assert [ops.tf32_stream_rows(d) for d in (64, 128, 256)] == [64, 32, 16]
+    assert [plans.tf32_stream_rows(d) for d in (64, 128, 256)] == [64, 32, 16]
 
 
 @pytest.mark.parametrize("d", [64, 128, 256])
 def test_tma_geometry_contiguous(d):
     t = torch.zeros((2, 100, 8, d), dtype=torch.bfloat16)
-    g = ops.tma_geometry(t.shape, t.stride(), t.data_ptr(), t.element_size())
+    g = plans.tma_geometry(t.shape, t.stride(), t.data_ptr(), t.element_size())
     assert g.dims == (d, 8, 100, 2)
     assert g.strides == (2 * d, 2 * d * 8, 2 * d * 8 * 100)
     assert g.box == (64, 1, 64, 1)
@@ -327,8 +328,8 @@ def test_tma_geometry_strided_view(d):
     sequence and batch strides step over the other two."""
     qkv = torch.zeros((2, 64, 3, 4, d), dtype=torch.bfloat16)
     q, k, _ = qkv.unbind(2)
-    gq = ops.tma_geometry(q.shape, q.stride(), q.data_ptr(), 2)
-    gk = ops.tma_geometry(k.shape, k.stride(), k.data_ptr(), 2)
+    gq = plans.tma_geometry(q.shape, q.stride(), q.data_ptr(), 2)
+    gk = plans.tma_geometry(k.shape, k.stride(), k.data_ptr(), 2)
     assert gq.dims == gk.dims == (d, 4, 64, 2)
     assert gq.strides == gk.strides == (2 * d, 2 * d * 12, 2 * d * 12 * 64)
     assert gk.box == (64, 1, 64, 1)
@@ -337,7 +338,7 @@ def test_tma_geometry_strided_view(d):
 def test_tma_geometry_size_one_dims_take_inner_extent():
     """A dimension of size 1 is never stepped over: its stride, whatever
     the view says, is replaced by the extent inside it."""
-    g = ops.tma_geometry((1, 5, 1, 128), (7, 384, 3, 1), 0x1000, 2)
+    g = plans.tma_geometry((1, 5, 1, 128), (7, 384, 3, 1), 0x1000, 2)
     assert g.dims == (128, 1, 5, 1)
     assert g.strides == (256, 768, 768 * 5)
 
@@ -353,7 +354,7 @@ def test_tma_geometry_size_one_dims_take_inner_extent():
 )
 def test_tma_geometry_refuses_misaligned(shape, strides, ptr, match):
     with pytest.raises(ValueError, match=match):
-        ops.tma_geometry(shape, strides, ptr, 2)
+        plans.tma_geometry(shape, strides, ptr, 2)
 
 
 # ---------------------------------------------------------------------------

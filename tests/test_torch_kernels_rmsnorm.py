@@ -15,6 +15,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.fused_rmsnorm.ops import rmsnorm as jax_rmsnorm  # noqa: E402
 from repro.kernels.fused_rmsnorm.ref import rmsnorm_ref as jax_rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.fused_rmsnorm import ops  # noqa: E402
+import kernel_plans as plans  # noqa: E402
 
 SHAPES = [(4, 16, 64), (2, 32, 128), (7, 96), (1, 1, 256)]
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5), "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -240,14 +241,14 @@ def test_rmsnorm_bwd_rows_cover_every_row_once_in_a_fixed_order(rows, d, element
     give the same bits."""
     shape = ops.bwd_launch_shape(d, element_size)
     blocks = ops.bwd_blocks(rows, shape, sm_count)
-    plan = ops.bwd_rows(rows, shape, blocks)
+    plan = plans.rmsnorm_bwd_rows(rows, shape, blocks)
     assert len(plan) == blocks and all(len(slots) == shape.rows_per_block for slots in plan)
     walked = [r for slots in plan for mine in slots for r in mine]
     assert sorted(walked) == list(range(rows))
     assert all(mine == sorted(mine) for slots in plan for mine in slots)
     ops.bwd_launch_shape.cache_clear()
     again = ops.bwd_launch_shape(d, element_size)
-    assert ops.bwd_rows(rows, again, ops.bwd_blocks(rows, again, sm_count)) == plan
+    assert plans.rmsnorm_bwd_rows(rows, again, ops.bwd_blocks(rows, again, sm_count)) == plan
 
 
 def test_rmsnorm_bwd_constants_match_the_source():

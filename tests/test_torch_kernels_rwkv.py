@@ -7,7 +7,15 @@ ragged length raises unless ``ragged=True``). ``wkv6_subchunk_ref``
 (``tests/wkv6_rehearsal.py``), the CUDA kernel's arithmetic (sub-chunks of
 16, reference points, 3xTF32) in plain torch, is held against the same
 oracles, at decays that underflow to 0 or sit at the kernel's -60 floor on
-log w, and from a state with a ragged last chunk."""
+log w, and from a state with a ragged last chunk.
+
+The backward: autograd through the port's ``wkv6_ref`` (``ops.wkv6_bwd``'s
+CPU path, the backward kernel's plain version) against ``jax.vjp`` of the
+JAX oracle, with cotangents on the output and the final state, with and
+without ``s0``; ``wkv6_bwd_segmented`` (``tests/wkv6_bwd_rehearsal.py``),
+the backward kernel's arithmetic, against that plain version; and
+``WKV6Function``'s gradients with its kernels replaced by the plain
+versions."""
 import numpy as np
 import pytest
 
@@ -17,6 +25,7 @@ from torch_cores import share_cores  # noqa: E402
 
 share_cores()
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.rwkv_scan.ops import wkv6 as jax_wkv6  # noqa: E402
@@ -25,6 +34,8 @@ from repro.models import rwkv as jax_rwkv  # noqa: E402
 from repro_torch.kernels.rwkv_scan import ops  # noqa: E402
 from repro_torch.kernels.rwkv_scan.ref import wkv6_ref  # noqa: E402
 from repro_torch.models import rwkv  # noqa: E402
+from repro_torch.kernels.rwkv_scan.ref import wkv6_bwd_ref  # noqa: E402
+from wkv6_bwd_rehearsal import SEG, TILE, wkv6_bwd_segmented  # noqa: E402
 from wkv6_rehearsal import _mm3, _tf32, wkv6_subchunk_ref  # noqa: E402
 
 CASES = [
@@ -227,3 +238,138 @@ def test_wkv6_subchunk_ref_keeps_fp32_accuracy(regime):
     o, sf = wkv6_subchunk_ref(*_t(arrays), chunk=64)
     for ours, exact in ((o, o64), (sf, s64)):
         assert ((ours.double() - exact).norm() / exact.norm()).item() < 5e-6
+
+
+# ---------------------------------------------------------------------------
+# the backward (B3's plain version and its arithmetic)
+# ---------------------------------------------------------------------------
+
+BWD_REL = 1e-5  # relative Frobenius, each gradient (chip_smoke.BWD_TOL's fp32)
+GRADS = ("dr", "dk", "dv", "dw", "du", "ds0")
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _cotangents(b, s, h, dk, dv, seed, with_s0):
+    g = np.random.default_rng(seed)
+    s0 = g.standard_normal((b, h, dk, dv), dtype=np.float32) if with_s0 else None
+    do = g.standard_normal((b, s, h, dv), dtype=np.float32)
+    ds = g.standard_normal((b, h, dk, dv), dtype=np.float32)
+    return s0, do, ds
+
+
+@jax.jit
+def _jax_vjp(r, k, v, w, u, s0, do, ds):
+    _, pull = jax.vjp(jax_wkv6_ref, r, k, v, w, u, s0)
+    return pull((do, ds))
+
+
+@jax.jit
+def _jax_vjp_zero_state(r, k, v, w, u, do, ds):
+    _, pull = jax.vjp(lambda *a: jax_wkv6_ref(*a), r, k, v, w, u)
+    return pull((do, ds))
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("regime", ["slow", "fast", "faster"])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_wkv6_bwd_ref_vs_jax_vjp(case, regime, with_s0):
+    """Every gradient of ``(o, final state)`` under cotangents on both,
+    within 1e-5 relative Frobenius and the forward's 2e-3 of JAX's."""
+    b, s, h, dk, dv, _ = case
+    arrays = _inputs(b, s, h, dk, dv, regime, seed=CASES.index(case))
+    s0, do, ds = _cotangents(b, s, h, dk, dv, 50 + CASES.index(case), with_s0)
+    ours = ops.wkv6_bwd(torch.from_numpy(do), torch.from_numpy(ds), *_t(arrays),
+                        s0=None if s0 is None else torch.from_numpy(s0))
+    if with_s0:
+        theirs = _jax_vjp(*_j(arrays), jnp.asarray(s0), jnp.asarray(do), jnp.asarray(ds))
+    else:
+        theirs = (*_jax_vjp_zero_state(*_j(arrays), jnp.asarray(do), jnp.asarray(ds)), None)
+        assert ours[5] is None
+    for name, a, want in zip(GRADS, ours, theirs):
+        if want is None:
+            continue
+        a = a.numpy()
+        assert np.isfinite(a).all(), name
+        assert _rel(a, want) <= BWD_REL, (name, _rel(a, want))
+        np.testing.assert_allclose(a, np.asarray(want), **TOL, err_msg=name)
+
+
+def _bwd_inputs(b, s, h, dk, dv, regime, seed, with_s0, low=None):
+    r, k, v, w, u = _inputs(b, s, h, dk, dv, regime, seed=seed)
+    if low is not None:
+        w[..., ::2] = low
+    s0, do, ds = _cotangents(b, s, h, dk, dv, seed + 1, with_s0)
+    tensors = [torch.from_numpy(x) for x in (do, ds, r, k, v, w, u)]
+    return (*tensors, None if s0 is None else torch.from_numpy(s0))
+
+
+@pytest.mark.parametrize(
+    "b,s,h,dk,dv,regime,with_s0,low",
+    [
+        (1, 40, 2, 64, 64, "slow", True, None),  # four tiles a head, a ragged last segment
+        (2, 37, 3, 16, 16, "fast", True, None),
+        (1, 33, 2, 8, 8, "slow", False, None),  # a tile of 8 columns
+        (1, 21, 2, 64, 8, "fast", True, None),
+        (1, 48, 2, 16, 32, "faster", False, None),
+        (1, 35, 2, 16, 16, "fast", True, 0.0),  # decays that underflowed to 0
+        (1, 35, 2, 16, 16, "fast", False, 1e-30),  # below K4's e^-60 floor
+        (1, 5, 2, 16, 16, "slow", True, None),  # shorter than one segment
+    ],
+)
+def test_wkv6_bwd_rehearsal_matches_the_plain_backward(b, s, h, dk, dv, regime, with_s0, low):
+    """The backward kernel's checkpoints, recompute, ``dw`` product and sum
+    orders give the plain version's gradients within 1e-5, all finite."""
+    args = _bwd_inputs(b, s, h, dk, dv, regime, seed=s + dk, with_s0=with_s0, low=low)
+    got = wkv6_bwd_segmented(*args)
+    want = wkv6_bwd_ref(*args)
+    for name, a, ref in zip(GRADS, got, want):
+        if ref is None:
+            assert a is None
+            continue
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, ref) <= BWD_REL, (name, _rel(a, ref))
+
+
+def test_wkv6_bwd_rehearsal_is_finite_in_the_faster_regime_and_one_cotangent():
+    """Decays down to 0.05 over 200 steps, only the final state's cotangent
+    (a state carried to the next call) or only the output's."""
+    args = list(_bwd_inputs(1, 200, 2, 32, 32, "faster", seed=3, with_s0=True))
+    for drop in (0, 1):
+        one = list(args)
+        one[drop] = None
+        got = wkv6_bwd_segmented(*one)
+        want = wkv6_bwd_ref(*one)
+        for name, a, ref in zip(GRADS, got, want):
+            assert torch.isfinite(a).all(), name
+            assert _rel(a, ref) <= BWD_REL, (drop, name, _rel(a, ref))
+
+
+def test_wkv6_bwd_rehearsal_constants_match_the_source():
+    src = (ops._build.CSRC / "wkv6_bwd.cu").read_text()
+    assert f"constexpr int kSeg = {SEG};" in src
+    assert f"constexpr int kTile = {TILE};" in src
+
+
+@pytest.mark.parametrize("need", [(0, 1, 2, 3, 4, 5), (0, 3), (5,), (1, 4)])
+@pytest.mark.parametrize("use_state", [True, False])
+def test_wkv6_function_gradients_with_plain_kernels(monkeypatch, need, use_state):
+    """``WKV6Function`` with its forward launch replaced by the plain
+    forward (its backward takes the plain backward on CPU tensors): the
+    gradients of the inputs that require them equal autograd through
+    ``wkv6_ref``, a final state the loss never reads included."""
+    monkeypatch.setattr(ops, "_forward", lambda r, k, v, w, u, chunk, s0, tile: wkv6_ref(
+        r.detach(), k.detach(), v.detach(), w.detach(), u.detach(),
+        None if s0 is None else s0.detach()))
+    co, cs, *leaves = _bwd_inputs(2, 21, 2, 16, 16, "fast", seed=4, with_s0=True)
+    grads = []
+    for apply in (lambda *a: ops.WKV6Function.apply(*a, 8, 0), wkv6_ref):
+        ins = [t.clone().requires_grad_(i in need) for i, t in enumerate(leaves)]
+        o, sf = apply(*ins)
+        loss = (o * co).sum() + ((sf * cs).sum() if use_state else 0)
+        grads.append(torch.autograd.grad(loss, [t for t in ins if t.requires_grad]))
+    for a, want in zip(*grads):
+        assert _rel(a.detach(), want) <= BWD_REL

@@ -19,6 +19,7 @@ Then, in this process on a one-rank group: the verify recipe's run at
 restart budget, the CLI's flags and model options against JAX's, rwkv on
 the card, and twins of tests/test_train.py's ``TestTrainStep`` through
 the CLI's step."""
+import contextlib
 import os
 import shutil
 import socket
@@ -311,16 +312,26 @@ def test_flags_model_options_and_adamw_are_jax_clis(monkeypatch, argv):
 
 
 def test_no_cuda_raises_and_rwkv_on_the_card_raises(monkeypatch):
-    """Without ``--device cpu`` and no card the CLI raises; an rwkv arch
-    on the card raises NotImplementedError before anything is built."""
+    """Without ``--device cpu`` and no card the CLI raises. An rwkv arch on
+    the card no longer raises (the WKV6 kernel has its backward): on a
+    pretend card, ``run`` sets the card's device, joins its group and
+    reaches ``_train`` with the config and the card."""
     import repro_torch.launch.train as cli
 
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["--arch", "qwen3-8b", "--smoke"])
+    reached = {}
     monkeypatch.setattr(cli, "pick_device", lambda name: torch.device(name))
-    with pytest.raises(NotImplementedError, match="WKV6"):
-        cli.main(["--arch", "rwkv6-7b", "--smoke"])
+    monkeypatch.setattr(torch.cuda, "set_device", lambda dev: reached.update(set_device=dev))
+    monkeypatch.setattr(cli, "process_group",
+                        lambda dev: contextlib.nullcontext(reached.update(group=dev)))
+    monkeypatch.setattr(cli, "_train", lambda cfg, args, dev: {"cfg": cfg, "dev": dev})
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    out = cli.main(["--arch", "rwkv6-7b", "--smoke"])
+    card = torch.device("cuda", 0)
+    assert out["cfg"].name == "rwkv6-7b-smoke" and out["cfg"].rwkv_head_dim
+    assert out["dev"] == reached["set_device"] == reached["group"] == card
 
 
 # twins of tests/test_train.py::TestTrainStep through the CLI's step
