@@ -432,10 +432,11 @@ def phase_env() -> dict:
     }
     emit(info)
     check(bool(info["wkv6_ptxas"]), "no ptxas report of the WKV6 kernel")
-    check(bool(info["wkv6_bwd_ptxas"]), "no ptxas report of the WKV6 backward kernel")
+    check(all(any(n in k for k in info["wkv6_bwd_ptxas"]) for n in WKV_BWD_KERNELS),
+          f"no ptxas report of every WKV6 backward kernel {WKV_BWD_KERNELS}")
     check(any("flash_bwd_dkdv_kernel_wgmma" in k for k in info["backward_ptxas"]),
           "no ptxas report of the tensor-core flash backward")
-    for name, v in (*info["wkv6_ptxas"].items(),
+    for name, v in (*info["wkv6_ptxas"].items(), *info["wkv6_bwd_ptxas"].items(),
                     *((k, v) for k, v in info["backward_ptxas"].items() if "flash_bwd_" in k)):
         check(not v.get("spill_stores") and not v.get("spill_loads"),
               f"{name} spills: {v}")
@@ -761,6 +762,26 @@ def wkv6_case(b, s, h, d, chunk, regime, iters=10, plain_iters=2, carried=False)
 
 
 WKV_GRADS = ("dr", "dk", "dv", "dw", "du", "ds0")
+# B3's three kernels: passes A and B (boundary states and cotangents), pass
+# C (every chunk), du's sum
+WKV_BWD_KERNELS = ("wkv6_bwd_bound_kernel", "wkv6_bwd_chunk_kernel", "wkv6_bwd_du_kernel")
+
+
+def wkv6_bwd_occupancy(dk: int, dv: int) -> dict:
+    """Blocks resident an SM of each B3 kernel at these head sizes (the
+    occupancy calculator, through ``wkv6_bwd_occupancy``), and pass C's
+    threads a block."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = _build.library().wkv6_bwd_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 4)()
+    _build.check(fn(dk, dv, torch.cuda.current_device(), ctypes.addressof(out)),
+                 "wkv6_bwd_occupancy")
+    return {**dict(zip(WKV_BWD_KERNELS, out[:3])), "chunk_threads": out[3],
+            "chunk_warps_an_sm": out[1] * out[3] // 32}
 
 
 def wkv6_bwd_case(b, s, h, d, regime, iters=10, carried=False) -> dict:
@@ -1139,7 +1160,9 @@ def phase_kernels() -> dict:
     # the WKV6 backward (B3) at rwkv6-7b's 64 heads of 64: the serve prompt,
     # the parity and prefill prompts, a TRAIN_4K microbatch, and a ragged
     # length from a state with the final state's cotangent (the backward
-    # takes no chunk: its segments are 16 steps), in all three regimes
+    # takes no chunk argument: its chunks are 32 steps), in all three
+    # regimes; first, the blocks each of its kernels keeps resident an SM
+    emit({"phase": "kernels", "kernel": "wkv6_bwd", "blocks_an_sm": wkv6_bwd_occupancy(64, 64)})
     for regime in DECAY_REGIMES:
         for c in (dict(b=4, s=16, iters=50), dict(b=1, s=512), dict(b=1, s=2048, iters=5),
                   dict(b=1, s=4096, iters=3), dict(b=1, s=100, carried=True)):
@@ -1203,7 +1226,7 @@ KERNEL_KINDS = (
     ("rmsnorm", ("rmsnorm_kernel",)),
     ("flash_attention_bwd", ("flash_bwd_",)),
     ("flash_attention", ("flash_fwd_kernel",)),
-    ("wkv6_bwd", ("wkv6_bwd_kernel", "wkv6_bwd_sum_kernel")),
+    ("wkv6_bwd", WKV_BWD_KERNELS),
     ("wkv6", ("wkv6_fwd_kernel",)),
     ("gemm", ("gemm", "xmma", "nvjet", "cutlass", "sm90_")),
 )

@@ -885,6 +885,8 @@ def test_wkv6_refuses_autograd(cuda):
         (1, 33, 2, 64, 8, 0.5, 0.15, False, True, False),
         (1, 70, 2, 32, 32, 0.0, 0.0, True, True, False),  # decays of 0
         (1, 70, 2, 32, 32, 0.0, 1e-30, False, True, False),  # below K4's e^-60 floor
+        (1, 300, 4, 64, 64, 0.5, 0.15, True, True, False),  # ten chunks, ragged, from a state
+        (1, 4096, 8, 64, 64, 0.1, 0.88, False, False, False),  # pass C: more than one wave
     ],
 )
 def test_wkv6_bwd_kernel_matches_plain(cuda, b, s, h, dk, dv, span, low, s0, dstate, strided):

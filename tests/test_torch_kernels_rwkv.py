@@ -12,8 +12,11 @@ log w, and from a state with a ragged last chunk.
 The backward: autograd through the port's ``wkv6_ref`` (``ops.wkv6_bwd``'s
 CPU path, the backward kernel's plain version) against ``jax.vjp`` of the
 JAX oracle, with cotangents on the output and the final state, with and
-without ``s0``; ``wkv6_bwd_segmented`` (``tests/wkv6_bwd_rehearsal.py``),
-the backward kernel's arithmetic, against that plain version; and
+without ``s0``; ``wkv6_bwd_chunked`` (``tests/wkv6_bwd_rehearsal.py``),
+the backward kernel's arithmetic (boundary states and cotangents by the
+chunk's closed form, every chunk from them by the step recurrences),
+against that plain version, its boundary states against the plain
+forward's; and
 ``WKV6Function``'s gradients with its kernels replaced by the plain
 versions."""
 import numpy as np
@@ -35,7 +38,7 @@ from repro_torch.kernels.rwkv_scan import ops  # noqa: E402
 from repro_torch.kernels.rwkv_scan.ref import wkv6_ref  # noqa: E402
 from repro_torch.models import rwkv  # noqa: E402
 from repro_torch.kernels.rwkv_scan.ref import wkv6_bwd_ref  # noqa: E402
-from wkv6_bwd_rehearsal import SEG, TILE, wkv6_bwd_segmented  # noqa: E402
+from wkv6_bwd_rehearsal import CHUNK, COLS, SEG, _boundaries, wkv6_bwd_chunked  # noqa: E402
 from wkv6_rehearsal import _mm3, _tf32, wkv6_subchunk_ref  # noqa: E402
 
 CASES = [
@@ -310,21 +313,24 @@ def _bwd_inputs(b, s, h, dk, dv, regime, seed, with_s0, low=None):
 @pytest.mark.parametrize(
     "b,s,h,dk,dv,regime,with_s0,low",
     [
-        (1, 40, 2, 64, 64, "slow", True, None),  # four tiles a head, a ragged last segment
+        (1, 40, 2, 64, 64, "slow", True, None),  # two chunks, the last ragged
         (2, 37, 3, 16, 16, "fast", True, None),
-        (1, 33, 2, 8, 8, "slow", False, None),  # a tile of 8 columns
+        (1, 33, 2, 8, 8, "slow", False, None),  # one lane a row
         (1, 21, 2, 64, 8, "fast", True, None),
         (1, 48, 2, 16, 32, "faster", False, None),
         (1, 35, 2, 16, 16, "fast", True, 0.0),  # decays that underflowed to 0
         (1, 35, 2, 16, 16, "fast", False, 1e-30),  # below K4's e^-60 floor
         (1, 5, 2, 16, 16, "slow", True, None),  # shorter than one segment
+        (1, 150, 2, 64, 64, "slow", True, None),  # five chunks, a ragged tail, from s0
+        (2, 200, 2, 16, 16, "faster", True, None),  # seven chunks, a ragged tail, from s0
     ],
 )
 def test_wkv6_bwd_rehearsal_matches_the_plain_backward(b, s, h, dk, dv, regime, with_s0, low):
-    """The backward kernel's checkpoints, recompute, ``dw`` product and sum
-    orders give the plain version's gradients within 1e-5, all finite."""
+    """The backward kernel's boundary states and cotangents, its chunks'
+    checkpoints and recompute, the ``dw`` product and the sum orders give
+    the plain version's gradients within 1e-5, all finite."""
     args = _bwd_inputs(b, s, h, dk, dv, regime, seed=s + dk, with_s0=with_s0, low=low)
-    got = wkv6_bwd_segmented(*args)
+    got = wkv6_bwd_chunked(*args)
     want = wkv6_bwd_ref(*args)
     for name, a, ref in zip(GRADS, got, want):
         if ref is None:
@@ -341,7 +347,7 @@ def test_wkv6_bwd_rehearsal_is_finite_in_the_faster_regime_and_one_cotangent():
     for drop in (0, 1):
         one = list(args)
         one[drop] = None
-        got = wkv6_bwd_segmented(*one)
+        got = wkv6_bwd_chunked(*one)
         want = wkv6_bwd_ref(*one)
         for name, a, ref in zip(GRADS, got, want):
             assert torch.isfinite(a).all(), name
@@ -350,8 +356,26 @@ def test_wkv6_bwd_rehearsal_is_finite_in_the_faster_regime_and_one_cotangent():
 
 def test_wkv6_bwd_rehearsal_constants_match_the_source():
     src = (ops._build.CSRC / "wkv6_bwd.cu").read_text()
+    assert f"constexpr int kChunk = {CHUNK};" in src
     assert f"constexpr int kSeg = {SEG};" in src
-    assert f"constexpr int kTile = {TILE};" in src
+    assert f"constexpr int kCols = {COLS};" in src
+
+
+@pytest.mark.parametrize("regime,low", [("slow", None), ("faster", None), ("fast", 0.0)])
+def test_wkv6_bwd_rehearsal_boundary_states_match_the_forward(regime, low):
+    """Pass A's states at every chunk's start, by the closed form with K4's
+    floor on log w, equal the plain forward's final state over each prefix
+    within 1e-6 relative Frobenius, decays of 0 included."""
+    r, k, v, w, u = _inputs(1, 3 * CHUNK + 7, 2, 16, 16, regime, seed=21)
+    if low is not None:
+        w[..., ::2] = low
+    s0 = np.random.default_rng(22).standard_normal((1, 2, 16, 16)).astype(np.float32)
+    rt, kt, vt, wt, ut, st = _t((r, k, v, w, u, s0))
+    states, last = _boundaries(*(x.permute(0, 2, 1, 3) for x in (kt, vt, wt)), st, False)
+    for n, got in enumerate([*states[1:], last]):
+        end = min(r.shape[1], (n + 1) * CHUNK)
+        _, want = wkv6_ref(rt[:, :end], kt[:, :end], vt[:, :end], wt[:, :end], ut, st)
+        assert _rel(got, want) <= 1e-6, (n, _rel(got, want))
 
 
 @pytest.mark.parametrize("need", [(0, 1, 2, 3, 4, 5), (0, 3), (5,), (1, 4)])
