@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, at
-first use), then runs seventeen phases, each printing JSON lines (phase 16
-runs after phase 4, phase 17 after phase 7):
+first use), then runs eighteen phases, each printing JSON lines (phase 16
+runs after phase 4, phase 18 after phase 6, phase 17 after phase 7):
 
 1. env      — the card's name and power limit (nvidia-smi), torch/CUDA
               versions, the kernels' build time, and ptxas's registers and
@@ -194,6 +194,19 @@ runs after phase 4, phase 17 after phase 7):
               through the kernels against the plain path (1e-5, 1e-4);
               (c) the train CLI and ``make_trainer``'s session at smoke
               size on the card.
+18. dryrun  — the dry run (``repro_torch.launch.dryrun``) against the
+              card (``phase_dryrun``, after train): the serve phase's
+              qwen3-8b (4, 16) prefill (bf16 params) and the train phase's
+              gemma-2b step, each counted on one rank under fake tensors
+              (kernels by their ``cost``), then run once timed and once
+              under ``torch.profiler`` with its FLOPs: the count's peak
+              within 10% of ``max_memory_allocated``, its products' FLOPs
+              within 1% of the profiler's (ops that ran a kernel), each
+              kernel's launches equal to the wrappers' counters; the
+              roofline terms, the measured time and the share of the
+              bound. The CLI on qwen2-72b train_4k, mixtral-8x22b
+              decode_32k and rwkv6-7b long_500k on the 16x16 fake mesh,
+              kernel mode, meanwhile (started once the step is timed).
 Then each phase's seconds and the ``{"kernels": [...]}`` summary line.
 
 Any failed check raises and the script exits non-zero. The last line is
@@ -206,6 +219,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -219,16 +233,6 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM published peaks (dense), the bound's denominators: bf16 on the
-# tensor cores; fp32 outside them (the norms' and WKV6's elementwise fp32
-# arithmetic)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# fp32-accurate products on the tensor cores: three TF32 products each
-# (3xTF32), so the TF32 line over three. fp32 attention (forward and
-# backward) may not use plain TF32, but this is the least time the card
-# could take for its products.
-PEAK_FLOPS_FP32_ATTENTION = 494.7e12 / 3
 # the JAX kernel tests' tolerances (tests/test_kernels_rmsnorm.py, _flash.py)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -383,13 +387,20 @@ def within(a: torch.Tensor, b: torch.Tensor, tol: float) -> bool:
     return bool(((a - b).abs() <= tol + tol * b.abs()).all().item())
 
 
-def attention_peak_flops(dtype) -> float:
-    return PEAK_FLOPS_FP32_ATTENTION if dtype == torch.float32 else PEAK_FLOPS[dtype]
+def bound(cost, dtype, attention: bool = False):
+    """``(ms, "bytes" or "operations")``: the least time of a kernel call's
+    ``cost`` (``(operations, bytes)``, its wrapper's ``cost``), its bytes
+    read or written once, at the H100's figures (``launch/roofline.py``):
+    fp32 arithmetic for the norms and WKV6, ``dtype``'s products for
+    attention (fp32 attention at the 3xTF32 line)."""
+    from repro_torch.launch.roofline import (
+        HBM_BYTES_PER_S,
+        PEAK_FLOPS,
+        PEAK_FLOPS_FP32_ATTENTION,
+    )
 
-
-def bound(nbytes: float, ops: float, flops_per_s: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / flops_per_s
+    rate = PEAK_FLOPS_FP32_ATTENTION if attention and dtype == torch.float32 else PEAK_FLOPS[dtype]
+    t_bytes, t_ops = cost[1] / HBM_BYTES_PER_S, cost[0] / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -490,10 +501,8 @@ def rmsnorm_case(rows: int, d: int, dtype, residual: bool, iters: int) -> dict:
     library_ms = None
     if not residual and hasattr(F, "rms_norm"):
         library_ms = time_ms(lambda: F.rms_norm(x, (d,), scale, 1e-6), iters)
-    es = x.element_size()
-    nbytes = rows * d * es * (3 if residual else 2) + d * scale.element_size()
-    ops_count = rows * d * (5 if residual else 4)
-    bound_ms, bound_by = bound(nbytes, ops_count, PEAK_FLOPS[torch.float32])
+    bound_ms, bound_by = bound(ops.cost(rows, d, x.element_size(), scale.element_size(),
+                                        residual=residual), torch.float32)
     res = {
         "phase": "kernels",
         "kernel": "rmsnorm_residual" if residual else "rmsnorm",
@@ -578,11 +587,9 @@ def flash_case(b, sq, sk, hq, hkv, d, dtype, *, causal=True, window=None,
             library_ms = time_ms(
                 lambda: F.scaled_dot_product_attention(qt, ke, ve, attn_mask=mask), iters)
             del ke, ve
-    pairs = int(mask.sum().item())  # the (query, key) pairs this input needs
-    flops = 4.0 * b * hq * d * pairs
-    es = q.element_size()
-    nbytes = es * (2 * b * sq * hq * d + 2 * b * sk * hkv * d)
-    bound_ms, bound_by = bound(nbytes, flops, attention_peak_flops(dtype))
+    cost = ops.cost(b, sq, sk, hq, hkv, d, q.element_size(), **kw)  # the pairs the mask needs
+    flops = cost[0]
+    bound_ms, bound_by = bound(cost, dtype, attention=True)
     res = {
         "phase": "kernels",
         "kernel": "flash_attention",
@@ -665,9 +672,9 @@ def flash_decode_case(b, sk, hq, hkv, d, iters=10) -> dict:
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     library_ms = time_ms(
         lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=hq != hkv), iters)
-    flops = 4.0 * b * hq * d * sk
-    nbytes = q.element_size() * (2 * b * hq * d + 2 * b * sk * hkv * d)
-    bound_ms, bound_by = bound(nbytes, flops, PEAK_FLOPS[dtype])
+    cost = ops.cost(b, 1, sk, hq, hkv, d, q.element_size(), causal=False)
+    flops = cost[0]
+    bound_ms, bound_by = bound(cost, dtype, attention=True)
     res = {
         "phase": "kernels", "kernel": "flash_attention", "decode": True,
         "shape": {"b": b, "sq": 1, "sk": sk, "hq": hq, "hkv": hkv, "d": d, "causal": False,
@@ -730,13 +737,7 @@ def wkv6_case(b, s, h, d, chunk, regime, iters=10, plain_iters=2, carried=False)
     launch_ms = host_ms(run, iters)
     plain_ms = time_ms(plain, plain_iters)
     chunked_ms = time_ms(chunked, plain_iters) if chunked else None
-    # each input read once (r, k, w, v, u, and s0 when carried), o and the
-    # state written once; the recurrence's two multiply-adds per state
-    # element and step
-    nbytes = 4 * (b * s * h * (3 * d + d) + h * d + b * s * h * d
-                  + (2 if carried else 1) * b * h * d * d)
-    ops_count = 4.0 * b * s * h * d * d
-    bound_ms, bound_by = bound(nbytes, ops_count, PEAK_FLOPS[torch.float32])
+    bound_ms, bound_by = bound(ops.cost(b, s, h, d, d, carried=carried), torch.float32)
     res = {
         "phase": "kernels",
         "kernel": "wkv6",
@@ -834,13 +835,8 @@ def wkv6_bwd_case(b, s, h, d, regime, iters=10, carried=False) -> dict:
     ms = time_ms(run, iters)
     launch_ms = host_ms(run, iters)
     by_kernel = kernel_device_us(run) if s >= 2048 else None
-    # r, k, w, v and do read once, dr, dk, dw, dv written once; u read, du
-    # written; with a state, s0 and its cotangent read and ds0 written. Six
-    # multiply-adds a state element and step (the state recomputed, its
-    # cotangent, dr, dk, dv, dw)
-    nbytes = 4 * (9 * b * s * h * d + 2 * h * d + (3 * b * h * d * d if carried else 0))
-    ops_count = 12.0 * b * s * h * d * d
-    bound_ms, bound_by = bound(nbytes, ops_count, PEAK_FLOPS[torch.float32])
+    bound_ms, bound_by = bound(ops.cost(b, s, h, d, d, carried=carried, backward=True),
+                               torch.float32)
     res = {
         "phase": "kernels", "kernel": "wkv6_bwd",
         "shape": {"b": b, "s": s, "h": h, "dk": d, "dv": d, "decay": regime, "s0": carried,
@@ -894,10 +890,8 @@ def rmsnorm_bwd_case(rows: int, d: int, dtype, iters: int) -> dict:
         library_ms = grad_time_ms(F.rms_norm(xl, (d,), sl, 1e-6), (xl, sl), g, iters)
     by_kernel = kernel_device_us(run)
     es = x.element_size()
-    # g and x read once, dx written once; the scale read, its gradient written
-    nbytes = 3 * rows * d * es + 2 * d * scale.element_size()
-    ops_count = 10 * rows * d
-    bound_ms, bound_by = bound(nbytes, ops_count, PEAK_FLOPS[torch.float32])
+    bound_ms, bound_by = bound(ops.cost(rows, d, es, scale.element_size(), backward=True),
+                               torch.float32)
     res = {
         "phase": "kernels", "kernel": "rmsnorm_bwd", "shape": [rows, d],
         "dtype": str(dtype).removeprefix("torch."),
@@ -987,14 +981,10 @@ def flash_bwd_case(b, sq, sk, hq, hkv, d, dtype, *, window=None, q_offset=0, ite
     route = ops.bwd_route(dtype, d)
     plan = ops.bwd_plan(b, sq, sk, hq, hkv, d, True)._asdict() if route != "simt" else None
     by_kernel = kernel_device_us(run) if route != "simt" and sq >= 512 else None
-    pairs = int(mask.sum().item())  # the (query, key) pairs this input needs
-    # five products of 2 d multiply-adds a pair and head: S, dP, dV, dK, dQ
-    flops = 10.0 * b * hq * d * pairs
-    es = q.element_size()
-    # q, o, dO read and dq written (b sq hq d each); k, v read and dk, dv
-    # written (b sk hkv d each); lse read
-    nbytes = es * (4 * b * sq * hq * d + 4 * b * sk * hkv * d) + 4 * b * hq * sq
-    bound_ms, bound_by = bound(nbytes, flops, attention_peak_flops(dtype))
+    cost = ops.cost(b, sq, sk, hq, hkv, d, q.element_size(), window=window, q_offset=q_offset,
+                    backward=True)  # the pairs the mask needs
+    flops = cost[0]
+    bound_ms, bound_by = bound(cost, dtype, attention=True)
     res = {
         "phase": "kernels", "kernel": "flash_attention_bwd",
         "shape": {"b": b, "sq": sq, "sk": sk, "hq": hq, "hkv": hkv, "d": d,
@@ -2786,6 +2776,8 @@ def decode_timing(cfg, opts, params, batch=None, kinds=DECODE_KERNEL_KINDS) -> d
         n_valid = sum(min(pos0 + i + 1, slots) for i in range(DECODE_STEPS)) / DECODE_STEPS
         ssm = ssm_state_bytes(cfg)
         state_bytes = b * ((decode_state_bytes(cfg, quantized, 1) - ssm) * n_valid + 2 * ssm)
+    from repro_torch.launch.roofline import HBM_BYTES_PER_S
+
     bound_ms = (param_bytes + state_bytes) / HBM_BYTES_PER_S * 1e3
     if batch is not None:
         batch_cut = f"set to {batch}"
@@ -4539,6 +4531,187 @@ def phase_tp() -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 18: dryrun
+# ---------------------------------------------------------------------------
+
+# the dry-run CLI's cells on the 16x16 fake mesh, one process each
+DRYRUN_CELLS = (("qwen2-72b", "train_4k"), ("mixtral-8x22b", "decode_32k"),
+                ("rwkv6-7b", "long_500k"))
+DRYRUN_PEAK_TOL = 0.10  # the count's peak against max_memory_allocated
+DRYRUN_PRODUCT_TOL = 0.01  # its products' FLOPs against the profiler's
+PRODUCT_OPS = ("mm", "addmm", "bmm", "baddbmm")
+
+
+def storage_bytes(tree) -> int:
+    """Bytes of the distinct storages under ``tree``."""
+    from torch.utils import _pytree as pytree
+
+    sts = {t.untyped_storage()._cdata: t.untyped_storage().nbytes()
+           for t in pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)}
+    return sum(sts.values())
+
+
+def dryrun_held(name: str, step, fake_args, args, microbatches: int = 1, then=None) -> dict:
+    """``step`` counted on one rank (``launch.dryrun.count`` on the fake
+    tensors ``fake_args()`` makes, the kernels by their ``cost``), then run
+    on the card on ``args``: once timed, ``then()`` called, once under
+    ``torch.profiler`` with its FLOPs. The count's peak is held against
+    ``max_memory_allocated`` over the profiled call (the allocations alive
+    before it other than ``args`` taken out), its products' FLOPs against
+    the profiler's, and each kernel's launches against the wrappers'
+    counters."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import dryrun, roofline
+
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        counter, _, memory = dryrun.count(step, fake_args(), microbatches)
+    count_s = time.perf_counter() - t0
+    counters = kernel_counters()
+    sync()
+    t0 = time.perf_counter()
+    step(*args)
+    sync()
+    measured_s = time.perf_counter() - t0
+    if then is not None:
+        then()
+    others = torch.cuda.memory_allocated() - storage_bytes(args)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_flops=True) as prof:
+        step(*args)
+        sync()
+    peak = torch.cuda.max_memory_allocated() - others
+    launches = {n: fn.launches for n, fn in counters.items()}
+    counted = {n: counter.kernels.get(n, {}).get("launches", 0) for n in counters}
+    # a product whose op ran a kernel; the profiler also gives FLOPs to the
+    # ops a remat recompute opens and stops before they run (the
+    # checkpoint's early stop, once the tensors the backward needs exist)
+    names = {f"aten::{k}" for k in PRODUCT_OPS}
+    events = [e for e in prof.events() if e.name in names]
+    card_products = sum(e.flops for e in events if e.device_time_total > 0)
+    stopped = sum(e.flops for e in events if e.device_time_total <= 0)
+    products = sum(counter.flops_by_op.get(k, 0) for k in PRODUCT_OPS)
+    terms = roofline.roofline_terms(counter.flops, counter.hbm_bytes, 0.0)
+    res = {
+        "phase": "dryrun", "cell": name, "microbatches": microbatches, "count_s": count_s,
+        "peak_gb": {"count": counter.peak / 1e9, "card": peak / 1e9,
+                    "ratio": counter.peak / peak},
+        "memory": memory,
+        "product_flops": {"count": products, "profiler": card_products,
+                          "ratio": products / card_products if card_products else None,
+                          "profiler_not_run": stopped},
+        "flops": counter.flops, "hbm_bytes": counter.hbm_bytes,
+        "kernels": counter.kernels, "launches": {"count": counted, "card": launches},
+        "roofline": terms, "measured_s": measured_s,
+        "bound_share": terms["step_lower_bound_s"] / measured_s,
+    }
+    emit(res)
+    check(abs(res["peak_gb"]["ratio"] - 1) <= DRYRUN_PEAK_TOL,
+          f"dryrun {name}: peak {counter.peak} counted against {peak} on the card")
+    check(card_products > 0 and abs(res["product_flops"]["ratio"] - 1) <= DRYRUN_PRODUCT_TOL,
+          f"dryrun {name}: product FLOPs {products} counted against {card_products}")
+    check(counted == launches, f"dryrun {name}: launches {counted} counted against {launches}")
+    return res
+
+
+def phase_dryrun(train_res: dict) -> dict:
+    """The dry run (``repro_torch.launch.dryrun``) against the card: the
+    serve phase's qwen3-8b prefill of a (4, 16) prompt (bf16 params) and
+    the train phase's gemma-2b step (full depth, TRAIN_BATCH x 4096 tokens
+    in 4 microbatches, kernel mode), each counted on one rank and held
+    against a real call (``dryrun_held``); the CLI on DRYRUN_CELLS on the
+    16x16 fake mesh, kernel mode, one process a cell, started once the
+    train step has been timed, each report read."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.dryrun import DEVICE, abstract_params
+    from repro_torch.launch.serve import PROMPT_SHAPE, SERVE_OPTS, stable_seed
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import make_train_step
+
+    dev = torch.device("cuda")
+    qcfg = get_config("qwen3-8b")
+    serve_model = build_model(qcfg, replace(SERVE_OPTS, param_dtype="bfloat16"))
+    prefill = lambda p, batch: serve_model.prefill(p, batch, max_len=64)  # noqa: E731
+    fake_prompt = lambda: {"tokens": torch.zeros(PROMPT_SHAPE, dtype=torch.int32,  # noqa: E731
+                                                 device=DEVICE)}
+    qparams = serve_model.init(torch.Generator(device=dev).manual_seed(stable_seed("qwen3-8b")))
+    prompt = {"tokens": torch.randint(0, qcfg.vocab_size, PROMPT_SHAPE, device=dev,
+                                      generator=torch.Generator(device=dev).manual_seed(0))}
+    serve = dryrun_held("qwen3-8b prefill", prefill,
+                        lambda: (abstract_params(serve_model), fake_prompt()), (qparams, prompt))
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out_dir = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    cli = []
+
+    def start_cli():
+        cli.extend(subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a, "--shape", sh,
+             "--kernel-mode", "kernel", "--out", str(out_dir)], env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for a, sh in DRYRUN_CELLS)
+
+    cfg, shape, model, run, ocfg = train_model()
+    opt = AdamW(ocfg)
+    step = make_train_step(model, opt, run)
+    b, s = shape.global_batch, shape.seq_len
+
+    def fake_train():
+        p = abstract_params(model)
+        tok = torch.zeros(b, s, dtype=torch.int32, device=DEVICE)
+        return p, opt.init(p), {"tokens": tok, "labels": tok}
+
+    params = model.init(torch.Generator(device=dev).manual_seed(18))
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in SyntheticLM(cfg.vocab_size, s, b, seed=0).batch(0).items()}
+    try:
+        train = dryrun_held(f"{cfg.name} train", step, fake_train,
+                            (params, opt.init(params), batch), run.num_microbatches, start_cli)
+    finally:
+        outs = []
+        for p in cli:
+            try:
+                outs.append(p.communicate(timeout=600)[0])
+            except subprocess.TimeoutExpired:
+                for q in cli:
+                    q.kill()
+                raise
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the train phase's steps, through SalusExecutor sessions
+    train_s = sorted(train_res["step_s"])[len(train_res["step_s"]) // 2]
+    train.update(train_phase_step_s=train_s,
+                 train_phase_bound_share=train["roofline"]["step_lower_bound_s"] / train_s)
+    emit({"phase": "dryrun", "cell": train["cell"], "train_phase_step_s": train_s,
+          "train_phase_bound_share": train["train_phase_bound_share"]})
+    cells = {}
+    for (a, sh), p, out in zip(DRYRUN_CELLS, cli, outs):
+        check(p.returncode == 0, f"dryrun CLI {a} {sh}: rc {p.returncode}\n{out[-3000:]}")
+        r = json.loads((out_dir / f"{a}__{sh}__16x16.json").read_text())
+        cells[f"{a} {sh}"] = {k: r[k] for k in (
+            "peak_bytes_per_device", "fits_80GB", "flops_per_device", "hbm_bytes_per_device",
+            "roofline", "useful_flops_ratio", "kernels", "count_s")}
+        cells[f"{a} {sh}"]["collective_bytes"] = r["collectives"]["total_bytes"]
+        check(r["n_devices"] == 256 and r["roofline"]["step_lower_bound_s"] > 0,
+              f"dryrun CLI {a} {sh}: {r['n_devices']} devices, roofline {r['roofline']}")
+    check(len(cells) == len(DRYRUN_CELLS), f"dryrun CLI: {len(cells)} of {len(DRYRUN_CELLS)} cells")
+    res = {"phase": "dryrun", "cli_cells": cells}
+    emit(res)
+    return {"train": train, "serve": serve, **res}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -4571,6 +4744,7 @@ def main() -> int:
     tp_res = timed("tp", phase_tp)
     paging_res = timed("paging", phase_paging)
     train_res = timed("train", phase_train)
+    timed("dryrun", phase_dryrun, train_res)
     timed("train_parity", phase_train_parity)
     rwkv_res = timed("rwkv_train", phase_rwkv_train)
     timed("serve_train", phase_serve_train)

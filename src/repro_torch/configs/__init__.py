@@ -7,13 +7,22 @@ Holds every arch of the JAX package's registry, copied from its
 ``configs/hymba_1p5b.py``, ``configs/qwen2_vl_72b.py`` and
 ``configs/musicgen_medium.py``; any other name raises ``KeyError``. The
 workload shapes (``SHAPES``, ``TRAIN_4K``, ``DECODE_32K``) are copies of
-``configs/base.py``'s.
+``configs/base.py``'s, and ``get_shape``, ``all_cells`` and
+``skipped_cells`` its registry's.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
-from repro_torch.configs.base import DECODE_32K, SHAPES, TRAIN_4K, ArchConfig, ShapeConfig
+from repro_torch.configs.base import (
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
+    SHAPES,
+    TRAIN_4K,
+    ArchConfig,
+    ShapeConfig,
+)
 
 # gemma-2b — dense, GeGLU, MQA (kv=1), head_dim=256 [arXiv:2403.08295].
 # Tied embeddings scaled by sqrt(d_model).
@@ -202,9 +211,10 @@ MUSICGEN_MEDIUM = ArchConfig(
     frontend="audio_frames",
 )
 
+# in the JAX registry's order, which ``all_cells`` keeps
 ARCHS: Dict[str, ArchConfig] = {
-    c.name: c for c in (GEMMA_2B, QWEN3_8B, RWKV6_7B, QWEN1P5_32B, QWEN2_72B, MIXTRAL_8X22B,
-                        QWEN3_MOE_235B, HYMBA_1P5B, QWEN2_VL_72B, MUSICGEN_MEDIUM)
+    c.name: c for c in (HYMBA_1P5B, QWEN3_MOE_235B, MIXTRAL_8X22B, MUSICGEN_MEDIUM, QWEN1P5_32B,
+                        QWEN3_8B, GEMMA_2B, QWEN2_72B, RWKV6_7B, QWEN2_VL_72B)
 }
 
 
@@ -216,8 +226,24 @@ def get_config(name: str) -> ArchConfig:
     return ARCHS[name]
 
 
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; known: {sorted(SHAPES)}")
+    return SHAPES[name]
+
+
+def all_cells() -> List[tuple]:
+    """Every runnable (arch, shape) cell of the assignment matrix."""
+    return [(a, s) for a in ARCHS.values() for s in SHAPES.values() if a.supports(s)]
+
+
+def skipped_cells() -> List[tuple]:
+    return [(a, s) for a in ARCHS.values() for s in SHAPES.values() if not a.supports(s)]
+
+
 __all__ = [
-    "ArchConfig", "ARCHS", "DECODE_32K", "GEMMA_2B", "HYMBA_1P5B", "MIXTRAL_8X22B",
+    "ArchConfig", "ARCHS", "DECODE_32K", "LONG_500K", "PREFILL_32K", "all_cells", "get_shape",
+    "skipped_cells", "GEMMA_2B", "HYMBA_1P5B", "MIXTRAL_8X22B",
     "MUSICGEN_MEDIUM", "QWEN1P5_32B", "QWEN2_72B", "QWEN2_VL_72B", "QWEN3_8B", "QWEN3_MOE_235B",
     "RWKV6_7B", "SHAPES", "ShapeConfig", "TRAIN_4K", "get_config",
 ]

@@ -20,6 +20,13 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
 
+    @property
+    def tokens_per_step(self) -> int:
+        if self.kind == "decode":
+            return self.global_batch  # one new token per sequence
+        return self.seq_len * self.global_batch
+
+
 TRAIN_4K = ShapeConfig("train_4k", "train", 4096, 256)
 PREFILL_32K = ShapeConfig("prefill_32k", "prefill", 32768, 32)
 DECODE_32K = ShapeConfig("decode_32k", "decode", 32768, 128)
@@ -96,6 +103,15 @@ class ArchConfig:
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True when the arch can serve 500k-token contexts: SSM state,
+        sliding-window attention, or hybrid of the two."""
+        return self.family == "ssm" or self.sliding_window > 0
+
+    def supports(self, shape: ShapeConfig) -> bool:
+        return self.sub_quadratic if shape.name == "long_500k" else True
+
     # ------------------------------------------------------------------
     # Parameter counting (analytic)
     # ------------------------------------------------------------------
@@ -143,6 +159,11 @@ class ArchConfig:
             total += self.vocab_size * self.d_model  # lm head
         total += self.d_model  # final norm
         return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only top_k experts active)."""
+        inactive = (self.n_experts - self.top_k) * 3 * self.d_model * self.d_ff
+        return self.param_count() - (self.n_layers * inactive if self.is_moe else 0)
 
     # ------------------------------------------------------------------
     # Smoke (reduced) variant for CPU tests

@@ -8,6 +8,10 @@ at the repository root, keyed by a hash of the sources, the headers they
 include (``csrc/*.cuh``) and the flags, so an edited file rebuilds and an
 unchanged one is loaded as it is. A failed build raises; nothing falls
 back to the plain PyTorch versions.
+
+A ``FakeTensor`` (the dry run's, ``launch/dryrun.py``) never reaches a
+launch: each wrapper checks ``fake`` before it, and ``charge`` hands the
+call's cost to the active op counters (``launch/op_count.py``).
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from pathlib import Path
 from typing import List, Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -46,6 +51,34 @@ def count_launch(fn) -> None:
     plain attribute."""
     with _count_lock:
         fn.launches += 1
+
+
+# the active op counters (launch/op_count.py), which fake calls charge
+counters: list = []
+
+
+def fake(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a fake tensor, which no kernel launches on."""
+    return isinstance(t, FakeTensor)
+
+
+def takes_kernel(t: torch.Tensor, what: str) -> bool:
+    """Whether a call on ``t`` goes to the kernel: a CUDA tensor, or a fake
+    one on any device (the dry run counts the kernel); a CPU tensor takes
+    the plain version. Raises on any other device."""
+    if fake(t) or t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{what}: unsupported device {t.device}")
+
+
+def charge(fn, cost, out):
+    """A fake call of ``fn``'s kernel: its ``cost`` ``(operations, bytes)``
+    to each active op counter, ``fn.launches`` untouched; returns ``out``."""
+    for c in counters:
+        c.kernel(fn.__name__, *cost)
+    return out
 
 
 def nvcc_path() -> str:

@@ -44,7 +44,9 @@ Both tensor-core routes run on the launch plan ``bwd_plan`` computes,
 which spreads a kv head's key tiles over enough blocks to fill the card.
 
 ``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
-kernel launches (never plain-version calls).
+kernel launches (never plain-version calls). A fake tensor (the dry
+run's) takes the kernels' path up to the launch, then returns the
+outputs' shapes (the forward's LSE too) and charges ``cost``.
 """
 from __future__ import annotations
 
@@ -169,6 +171,34 @@ def bwd_plan(b: int, sq: int, sk: int, hq: int, hkv: int, d: int, causal: bool =
     return BwdPlan(n_kt, n_qt, causal, splits, per_split * splits, n_qt * hq * b, scratch)
 
 
+@functools.lru_cache(maxsize=1024)
+def pairs(sq: int, sk: int, causal: bool = True, window: Optional[int] = None,
+          q_offset: int = 0) -> int:
+    """The (query, key) pairs the mask lets through: query ``i`` at
+    position ``i + q_offset`` sees keys up to it (causal) and after it less
+    ``window``."""
+    n = 0
+    for p in range(q_offset, q_offset + sq):
+        hi = min(sk - 1, p) if causal else sk - 1
+        n += max(0, hi - (max(0, p - window + 1) if window else 0) + 1)
+    return n
+
+
+def cost(b: int, sq: int, sk: int, hq: int, hkv: int, d: int, itemsize: int, *,
+         causal: bool = True, window: Optional[int] = None, q_offset: int = 0,
+         backward: bool = False) -> Tuple[float, float]:
+    """``(operations, bytes)`` of one call on the pairs the mask needs: the
+    forward's two products (S, PV) of 2 d multiply-adds a pair and head,
+    q, k, v read and o written once; the backward's five (S, dP, dV, dK,
+    dQ), q, o, dO, k, v and the LSE read and dq, dk, dv written once. The
+    forward's LSE (4 bytes a row, training only) is left out."""
+    n = b * hq * d * pairs(sq, sk, causal, window, q_offset)
+    if backward:
+        return (10.0 * n, itemsize * (4.0 * b * sq * hq * d + 4 * b * sk * hkv * d)
+                + 4 * b * hq * sq)
+    return 4.0 * n, itemsize * (2.0 * b * sq * hq * d + 2 * b * sk * hkv * d)
+
+
 def flash_attention(
     q: torch.Tensor,  # (b, s_q, hq, d)
     k: torch.Tensor,  # (b, s_k, hkv, d)
@@ -185,11 +215,9 @@ def flash_attention(
     bq, bk = min(block_q, sq), min(block_k, sk)
     if sq % bq or sk % bk:
         raise ValueError(f"seq ({sq},{sk}) must divide blocks ({bq},{bk})")
-    device = q.device
-    if device.type == "cpu":
+    if not _build.takes_kernel(q, "flash_attention"):
         return attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
-    if device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {device}")
+    device = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -216,9 +244,13 @@ def _forward(q, k, v, causal, window, q_offset, want_lse):
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     device = q.device
-    tma = _tma_args(q, k, v) if route(q.dtype, d) == "wgmma" else None
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=device) if want_lse else None
+    if _build.fake(q):
+        return _build.charge(flash_attention, cost(b, sq, sk, hq, hkv, d, q.element_size(),
+                                                   causal=causal, window=window,
+                                                   q_offset=q_offset), (out, lse))
+    tma = _tma_args(q, k, v) if route(q.dtype, d) == "wgmma" else None
     if out.numel() == 0:
         return out, lse
     qs, ks, vs = q.stride(), k.stride(), v.stride()
@@ -282,13 +314,11 @@ def flash_attention_bwd(
     of its ``bwd_route`` (D = rowsum(dO O), dK/dV, the sum of the splits'
     partials where ``bwd_plan`` splits, dQ) on contiguous copies of any
     strided input."""
-    device = q.device
-    if device.type == "cpu":
+    if not _build.takes_kernel(q, "flash_attention_bwd"):
         return attention_bwd_ref(
             dout, q, k, v, out, lse, causal=causal, window=window, q_offset=q_offset
         )
-    if device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd: unsupported device {device}")
+    device = q.device
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
@@ -304,6 +334,10 @@ def flash_attention_bwd(
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, sq) or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous float32 ({b}, {hq}, {sq})")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if _build.fake(q):
+        return _build.charge(flash_attention_bwd, cost(
+            b, sq, sk, hq, hkv, d, q.element_size(), causal=causal, window=window,
+            q_offset=q_offset, backward=True), (dq, dk, dv))
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     tma, part, plan = None, None, None

@@ -19,7 +19,8 @@ rather than cut the gradient.
 
 ``rmsnorm.launches`` and ``rmsnorm_bwd.launches`` count kernel launches
 (never plain-version calls), so a run can show that its path went through
-the kernels.
+the kernels. A fake tensor (the dry run's) takes the kernels' path up to
+the launch, then returns the outputs' shapes and charges ``cost``.
 """
 from __future__ import annotations
 
@@ -152,6 +153,18 @@ def _check(t: torch.Tensor, name: str, device: torch.device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def cost(rows: int, d: int, itemsize: int, scale_itemsize: int, *, residual: bool = False,
+         backward: bool = False) -> Tuple[float, float]:
+    """``(operations, bytes)`` of one call at fp32 arithmetic: x (and the
+    residual) read once, the output written once, the scale read; the
+    backward reads g and x, writes dx, reads the scale and writes its
+    gradient."""
+    if backward:
+        return 10.0 * rows * d, 3.0 * rows * d * itemsize + 2 * d * scale_itemsize
+    return (rows * d * (5.0 if residual else 4.0),
+            rows * d * itemsize * (3 if residual else 2) + d * scale_itemsize)
+
+
 def rmsnorm(
     x: torch.Tensor,  # (..., d)
     scale: torch.Tensor,  # (d,)
@@ -159,11 +172,8 @@ def rmsnorm(
     *,
     eps: float = 1e-6,
 ) -> torch.Tensor:
-    device = x.device
-    if device.type == "cpu":
+    if not _build.takes_kernel(x, "rmsnorm"):
         return rmsnorm_ref(x, scale, residual, eps)
-    if device.type != "cuda":
-        raise ValueError(f"rmsnorm: unsupported device {device}")
     if torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x, scale, residual)
     ):
@@ -183,16 +193,18 @@ def _forward(x, scale, residual, eps):
     _check(scale, "scale", device)
     if scale.shape != (d,):
         raise ValueError(f"scale shape {tuple(scale.shape)} != ({d},)")
-    ptrs = [x.data_ptr(), scale.data_ptr()]
     if residual is not None:
         _check(residual, "residual", device)
         if residual.shape != x.shape or residual.dtype != x.dtype:
             raise ValueError("residual must match x in shape and dtype")
-        ptrs.append(residual.data_ptr())
     out = torch.empty_like(x)
+    if _build.fake(x):
+        return _build.charge(rmsnorm, cost(x.numel() // d, d, x.element_size(),
+                                           scale.element_size(), residual=residual is not None),
+                             out)
     if out.numel() == 0:
         return out
-    ptrs.append(out.data_ptr())
+    ptrs = [t.data_ptr() for t in (x, scale, residual, out) if t is not None]
     shape = launch_shape(d, x.element_size(), all(p % VECTOR_BYTES == 0 for p in ptrs))
     err = _build.library().rmsnorm_fwd(
         x.data_ptr(),
@@ -245,11 +257,9 @@ def rmsnorm_bwd(
     """``(dx, dscale)`` of the no-residual RMSNorm: dx in x's dtype, dscale
     in the scale's. A CPU tensor takes ``ref.rmsnorm_bwd_ref``; a CUDA
     tensor launches the backward kernel (``g`` is made contiguous)."""
-    device = x.device
-    if device.type == "cpu":
+    if not _build.takes_kernel(x, "rmsnorm_bwd"):
         return rmsnorm_bwd_ref(g, x, scale, eps)
-    if device.type != "cuda":
-        raise ValueError(f"rmsnorm_bwd: unsupported device {device}")
+    device = x.device
     d = x.shape[-1]
     g = g.contiguous()
     _check(x, "x", device)
@@ -262,6 +272,9 @@ def rmsnorm_bwd(
     dx = torch.empty_like(x)
     dscale = torch.empty_like(scale)
     rows = x.numel() // d
+    if _build.fake(x):
+        return _build.charge(rmsnorm_bwd, cost(rows, d, x.element_size(), scale.element_size(),
+                                               backward=True), (dx, dscale))
     if rows == 0:
         return dx, dscale.zero_()
     es = x.element_size()

@@ -31,7 +31,9 @@ gradients of ``(o, final state)`` with respect to r, k, v, w, u and s0.
 rehearses the kernel's arithmetic.
 
 ``wkv6.launches`` and ``wkv6_bwd.launches`` count kernel launches (never
-plain-version calls).
+plain-version calls). A fake tensor (the dry run's) takes the kernels'
+path up to the launch, then returns the outputs' shapes (the final state
+too) and charges ``cost``.
 """
 from __future__ import annotations
 
@@ -44,6 +46,22 @@ from repro_torch.kernels.rwkv_scan.ref import wkv6_bwd_ref, wkv6_ref
 
 HEAD_DIMS = (8, 16, 32, 64)
 MAX_CHUNK = 64
+
+
+def cost(b: int, s: int, h: int, dk: int, dv: int, *, carried: bool = False,
+         backward: bool = False) -> Tuple[float, float]:
+    """``(operations, bytes)`` of one call, all fp32. The forward: two
+    multiply-adds a state element and step; r, k, w, v and u read, o and
+    the state written once (s0 read too when ``carried``). The backward:
+    six (the state recomputed, its cotangent, dr, dk, dv, dw); r, k, w, v
+    and do read, dr, dk, dw, dv written, u read and du written (s0 and the
+    state's cotangent read and ds0 written when ``carried``)."""
+    state = b * h * dk * dv
+    if backward:
+        return 12.0 * b * s * h * dk * dv, 4.0 * (b * s * h * (6 * dk + 3 * dv) + 2 * h * dk
+                                                  + (3 * state if carried else 0))
+    return 4.0 * b * s * h * dk * dv, 4.0 * (b * s * h * (3 * dk + 2 * dv) + h * dk
+                                             + (2 if carried else 1) * state)
 
 
 def wkv6(
@@ -68,10 +86,8 @@ def _wkv6(r, k, v, w, u, chunk, s0, ragged, column_tile):
     if chunk < 1 or (s % chunk and not ragged):
         raise ValueError(f"seq {s} must divide chunk {chunk}")
     _validate(r, k, v, w, u, s0)
-    if r.device.type == "cpu":
+    if not _build.takes_kernel(r, "wkv6"):
         return wkv6_ref(r, k, v, w, u, s0)
-    if r.device.type != "cuda":
-        raise ValueError(f"wkv6: unsupported device {r.device}")
     if torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (r, k, v, w, u, s0)
     ):
@@ -133,6 +149,8 @@ def _forward(r, k, v, w, u, chunk, s0, column_tile):
         raise ValueError(f"chunk {chunk} > {MAX_CHUNK}, the kernel's largest")
     o = torch.empty((b, s, h, dv), dtype=torch.float32, device=r.device)
     state = torch.empty((b, h, dk, dv), dtype=torch.float32, device=r.device)
+    if _build.fake(r):
+        return _build.charge(wkv6, cost(b, s, h, dk, dv, carried=s0 is not None), (o, state))
     if o.numel() == 0:
         return o, (state.zero_() if s0 is None else state.copy_(s0))
     dev = _device_index(r)
@@ -183,13 +201,14 @@ def wkv6_bwd(do, dstate, r, k, v, w, u, s0=None):
         if t is not None and (t.device, t.dtype, t.shape) != (r.device, torch.float32, shape):
             raise ValueError(f"a cotangent {t.dtype} {tuple(t.shape)} on {t.device}, "
                              f"expected float32 {shape} on {r.device}")
-    if r.device.type == "cpu":
+    if not _build.takes_kernel(r, "wkv6_bwd"):
         return wkv6_bwd_ref(do, dstate, r, k, v, w, u, s0)
-    if r.device.type != "cuda":
-        raise ValueError(f"wkv6_bwd: unsupported device {r.device}")
     _check_layout(r, k, v, w, u, s0)
     grads = [torch.empty(t.shape, dtype=torch.float32, device=r.device)
              for t in (r, k, v, w, u, s0) if t is not None]
+    if _build.fake(r):
+        return _build.charge(wkv6_bwd, cost(b, s, h, dk, dv, carried=s0 is not None,
+                                            backward=True), (*grads, None)[:6])
     if r.numel() == 0:  # no step, batch entry or head: nothing to launch
         for g in grads:
             g.zero_()

@@ -125,8 +125,8 @@ def apply_mrope(
     the section that owns it (the first ``t`` planes by the temporal id,
     the next ``h`` by the height id, the rest by the width id)."""
     inv_freq = rope_frequencies(x.shape[-1], theta, x.device)
-    sec = torch.tensor(mrope_sections(x.shape[-1]), device=x.device)
-    owner = torch.repeat_interleave(torch.arange(3, device=x.device), sec)  # (half,)
+    owner = torch.tensor([i for i, n in enumerate(mrope_sections(x.shape[-1])) for _ in range(n)],
+                         device=x.device)  # (half,)
     ang = positions[..., None].float() * inv_freq  # (b, 3, s, half)
     angles = torch.gather(ang, 1, owner.expand(ang.shape[0], 1, ang.shape[2], -1))[:, 0]
     cos = torch.cos(angles)[..., None, :]  # (b, s, 1, half)

@@ -171,7 +171,10 @@ class Model:
         head runs over sequence chunks of ``min(loss_chunk, s)`` positions
         (``s`` when that does not divide it); each chunk's logits are the
         compute-dtype product cast to fp32, and under a gradient each chunk
-        is checkpointed, so no more than one chunk's logits are live."""
+        of several is checkpointed, so no more than one chunk's logits are
+        live. A single chunk is not: its logits are kept for the backward,
+        as JAX's compiled step keeps them (XLA merges the recompute of a
+        one-trip loop with its forward), rather than computed twice."""
         x, aux = self._trunk(params, batch)
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps, kernel_mode=self.opts.kernel_mode)
         labels = batch["labels"]
@@ -180,13 +183,13 @@ class Model:
         chunk = min(self.opts.loss_chunk, s)
         if s % chunk:
             chunk = s
-        grad = torch.is_grad_enabled() and (x.requires_grad or table.requires_grad)
+        remat = s > chunk and torch.is_grad_enabled() and (x.requires_grad or table.requires_grad)
         ax = self._vocab_axis()
         x = ax.copy(x)
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(0, s, chunk):
             xc, lc = x[:, i : i + chunk], labels[:, i : i + chunk]
-            if grad:
+            if remat:
                 total = total + checkpoint(
                     _chunk_nll, xc, lc, table, ax, use_reentrant=False, preserve_rng_state=False
                 )

@@ -93,11 +93,17 @@ def route(router_w: torch.Tensor, x: torch.Tensor, top_k: int):
     return gate_vals, idx[..., :top_k].to(torch.int32), probs
 
 
+def _bincount(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(idx, minlength=n)`` of int64 ``idx`` below ``n``,
+    its length known without reading ``idx`` (fake tensors take it)."""
+    return torch.zeros(n, dtype=torch.long, device=idx.device).index_add_(0, idx, torch.ones_like(idx))
+
+
 def load_balance_loss(probs: torch.Tensor, expert_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
     """Switch-style auxiliary loss: E * sum_e f_e * p_e, with f_e the
     assignments to expert e a token and p_e its mean router probability."""
     n_tokens = probs.numel() // n_experts
-    counts = torch.bincount(expert_idx.reshape(-1).long(), minlength=n_experts)
+    counts = _bincount(expert_idx.reshape(-1).long(), n_experts)
     f = counts.float() / n_tokens
     p = probs.reshape(-1, n_experts).mean(dim=0)
     return n_experts * torch.sum(f * p)
@@ -133,7 +139,7 @@ def _dispatch_indices(
     order = torch.argsort(flat, dim=-1, stable=True)  # token order kept per expert
     sorted_expert = torch.gather(flat, 1, order)
     group_base = n_experts * torch.arange(n_groups, device=dev)[:, None]
-    counts = torch.bincount((flat + group_base).reshape(-1), minlength=n_groups * n_experts)
+    counts = _bincount((flat + group_base).reshape(-1), n_groups * n_experts)
     counts = counts.view(n_groups, n_experts)
     offsets = torch.cumsum(counts, dim=-1) - counts
     pos_in_expert = torch.arange(n_flat, device=dev) - torch.gather(offsets, 1, sorted_expert)
@@ -327,8 +333,8 @@ def _moe_apply_global(
     # one all-reduce: each rank's (group, expert) counts in its own row,
     # and the router probabilities summed over each group's tokens
     rows = torch.arange(n_pieces, device=dev)[:, None] * e
-    counts = torch.bincount((expert_idx.reshape(n_pieces, -1).long() + rows).reshape(-1),
-                            minlength=n_pieces * e).view(n_pieces, e)
+    counts = _bincount((expert_idx.reshape(n_pieces, -1).long() + rows).reshape(-1),
+                       n_pieces * e).view(n_pieces, e)
     p_sum = probs.sum(dim=1)  # (pieces, E)
     buf = torch.zeros(split.ranks + 1, n_groups, e, dtype=torch.float64, device=dev)
     buf[split.index, gid] = counts.double()

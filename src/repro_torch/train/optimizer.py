@@ -189,7 +189,7 @@ def _update_leaf(cfg: AdamWConfig, p, g, m, v, lr, bc1, bc2, decay: bool) -> Non
     m32, v32 = m.float(), v.float()  # the moments themselves when fp32
     m32.mul_(cfg.b1).add_(g32, alpha=1 - cfg.b1)
     v32.mul_(cfg.b2).add_(g32.square(), alpha=1 - cfg.b2)
-    if m32.data_ptr() != m.data_ptr():
+    if m.dtype != torch.float32:
         m.copy_(m32)
         v.copy_(v32)
     delta = (m32 / bc1).div_(torch.sqrt(v32 / bc2).add_(cfg.eps))

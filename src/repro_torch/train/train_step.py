@@ -243,8 +243,9 @@ def sharded_global_norm(grads, params) -> torch.Tensor:
     mesh = flat_p[0].device_mesh
     sq = torch.stack([sum_of_squares(g) for g in pytree.tree_leaves(grads)])
     for i in range(mesh.ndim):
-        mask = torch.tensor([isinstance(p.placements[i], Shard) for p in flat_p], device=sq.device)
-        if mesh.size(i) > 1 and bool(mask.any()):
+        sharded = [isinstance(p.placements[i], Shard) for p in flat_p]
+        if mesh.size(i) > 1 and any(sharded):
+            mask = torch.tensor(sharded, device=sq.device)
             part = sq * mask
             dist.all_reduce(part, group=mesh.get_group(i))
             sq = torch.where(mask, part, sq)

@@ -74,6 +74,9 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.dist.sharding",
         "repro_torch.dist.elastic",
         "repro_torch.launch.train",
+        "repro_torch.launch.dryrun",
+        "repro_torch.launch.op_count",
+        "repro_torch.launch.roofline",
     } <= set(mods)
     examples = [str(p) for p in sorted(EXAMPLES.glob("*.py"))]
     assert {Path(p).stem for p in examples} == {
