@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, at
-first use), then runs eighteen phases, each printing JSON lines (phase 16
-runs after phase 4, phase 18 after phase 6, phase 17 after phase 7):
+first use), then runs nineteen phases, each printing JSON lines (phase 19
+runs after phase 1, phase 16 after phase 4, phase 18 after phase 6, phase
+17 after phase 7):
 
 1. env      — the card's name and power limit (nvidia-smi), torch/CUDA
               versions, the kernels' build time, and ptxas's registers and
@@ -207,6 +208,16 @@ runs after phase 4, phase 18 after phase 6, phase 17 after phase 7):
               bound. The CLI on qwen2-72b train_4k, mixtral-8x22b
               decode_32k and rwkv6-7b long_500k on the 16x16 fake mesh,
               kernel mode, meanwhile (started once the step is timed).
+19. ctl     — the persistent control plane (``repro_torch.ctl``, which takes
+              no device and imports no torch) in a tree without JAX, as
+              ``tests/test_ctl_recovery.py``'s SIGKILL test: ``python -m
+              repro_torch.ctl ... start`` (capacity 4 GB, epoch 20, 0.05 s
+              a paced epoch), three 300-iteration jobs submitted through
+              the CLI, the daemon SIGKILLed after its first committed epoch,
+              a second daemon on the same store waited on until quiet: the
+              decision log before the kill a prefix of the log after it,
+              every job FINISHED once with 300 iterations, ``status`` equal
+              to the store, ``replay()`` clean; at most 20 s.
 Then each phase's seconds and the ``{"kernels": [...]}`` summary line.
 
 Any failed check raises and the script exits non-zero. The last line is
@@ -4712,6 +4723,127 @@ def phase_dryrun(train_res: dict) -> dict:
     return {"train": train, "serve": serve, **res}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: ctl — the persistent control plane, killed and recovered
+# ---------------------------------------------------------------------------
+
+CTL_JOBS = 3
+CTL_ITERS = 300
+CTL_LIMIT_S = 20.0  # the phase's budget inside the script's 1200 s
+CTL_START_S = 12.0  # a daemon's socket must appear within this (torch's import)
+
+
+def ctl_start(workdir: str, store: str, sock: str, epoch_sleep: float) -> subprocess.Popen:
+    """``python -m repro_torch.ctl --socket SOCK start`` with
+    ``tests/test_ctl_recovery.py``'s SIGKILL flags, once its socket is up."""
+    if os.path.exists(sock):
+        os.unlink(sock)  # left behind by a SIGKILLed daemon
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.ctl", "--socket", sock, "start", "--store", store,
+         "--capacity-gb", "4.0", "--epoch", "20", "--epoch-sleep", str(epoch_sleep)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=workdir)
+    deadline = time.monotonic() + CTL_START_S
+    while not os.path.exists(sock):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            proc.kill()
+            out = proc.communicate(timeout=10)[0].decode(errors="replace")
+            check(False, f"ctl daemon socket not up within {CTL_START_S} s (rc {proc.returncode}):"
+                         f"\n{out[-2000:]}")
+        time.sleep(0.02)
+    return proc
+
+
+def phase_ctl() -> dict:
+    """The port's control plane in a tree without JAX: a daemon is
+    SIGKILLed after its first committed epoch, a second recovers the store,
+    and every job finishes once with the decision log extended as a prefix."""
+    import contextlib
+    import io
+    import shutil
+    import signal
+    import tempfile
+
+    from repro_torch.ctl import CtlClient, CtlState, JobStore
+    from repro_torch.ctl.cli import main as ctl_main
+
+    t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_ctl_")
+    store, sock = os.path.join(workdir, "jobs.sqlite"), os.path.join(workdir, "s")
+    check(len(sock.encode()) < 100, f"unix socket path too long: {sock}")
+    procs, secs, reader = [], {}, None
+    try:
+        procs.append(ctl_start(workdir, store, sock, epoch_sleep=0.05))
+        secs["first_start"] = time.perf_counter() - t0
+        client = CtlClient(sock, timeout=10.0)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            for i in range(CTL_JOBS):
+                check(ctl_main(["--socket", sock, "submit", "--name", f"t{i}", "--iters",
+                                str(CTL_ITERS), "--iter-time", "1.0", "--persistent-mb", "200",
+                                "--ephemeral-mb", "800"]) == 0, "ctl submit")
+        ids = [int(x) for x in out.getvalue().split()]
+        reader = JobStore(store)
+        deadline = time.monotonic() + 10.0
+        while not (any(r["iterations_done"] > 0 for r in reader.list_jobs())
+                   and reader.decision_count() > 0):
+            check(time.monotonic() < deadline, "ctl: no epoch committed within 10 s")
+            time.sleep(0.01)
+        os.kill(procs[0].pid, signal.SIGKILL)
+        procs[0].wait(timeout=10)
+        secs["to_kill"] = time.perf_counter() - t0
+        pre_log = reader.decision_log()
+        pre = {r["job_id"]: (r["state"].value, r["iterations_done"]) for r in reader.list_jobs()}
+        check(any(st != "finished" for st, _ in pre.values()), f"ctl: all finished before the kill {pre}")
+
+        procs.append(ctl_start(workdir, store, sock, epoch_sleep=0.0))
+        secs["second_start"] = time.perf_counter() - t0
+        status = client.wait_quiet(timeout=max(1.0, CTL_LIMIT_S - (time.perf_counter() - t0)))
+        secs["quiet"] = time.perf_counter() - t0
+        post_log = reader.decision_log()
+        check(post_log[: len(pre_log)] == pre_log and len(post_log) > len(pre_log),
+              f"ctl: the log after recovery ({len(post_log)}) does not extend the log before "
+              f"the kill ({len(pre_log)}) as a prefix")
+        reasons = [t[4] for t in reader.transitions()]
+        check("crash-recovery requeue" in reasons, "ctl: no job was requeued by recovery")
+        rows = {r["job_id"]: r for r in reader.list_jobs()}
+        check(sorted(rows) == sorted(ids) == list(range(CTL_JOBS)), f"ctl: jobs {sorted(rows)}")
+        for jid, r in rows.items():
+            finished = sum(1 for t in reader.transitions(jid) if t[2] == "finished")
+            check(r["state"] is CtlState.FINISHED and r["iterations_done"] == CTL_ITERS
+                  and finished == 1, f"ctl: job {jid} {r['state']} {r['iterations_done']}/"
+                                     f"{CTL_ITERS}, finished {finished} times")
+        by_id = {j["job_id"]: j for j in status["jobs"]}
+        for jid, r in rows.items():
+            check(by_id[jid]["state"] == r["state"].value
+                  and by_id[jid]["iterations_done"] == r["iterations_done"],
+                  f"ctl: status {by_id[jid]} disagrees with the store")
+        replayed = reader.replay()
+        check(all(s is CtlState.FINISHED for s in replayed.values()), f"ctl: replay {replayed}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            check(ctl_main(["--socket", sock, "shutdown"]) == 0, "ctl shutdown")
+        procs[1].wait(timeout=10)
+    finally:
+        if reader is not None:
+            reader.close()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=10)
+        shutil.rmtree(workdir, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    res = {"phase": "ctl", "jobs": CTL_JOBS, "iters": CTL_ITERS,
+           "at_kill": {str(j): it for j, (_, it) in sorted(pre.items())},
+           "states_at_kill": sorted({st for st, _ in pre.values()}),
+           "log_before_kill": len(pre_log), "log_after": len(post_log),
+           "requeued": reasons.count("crash-recovery requeue"),
+           "seconds": seconds, "marks_s": secs, "nvidia_smi": nvidia_smi()}
+    emit(res)
+    check(seconds <= CTL_LIMIT_S, f"ctl phase took {seconds:.1f} s, over {CTL_LIMIT_S}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -4735,6 +4867,7 @@ def main() -> int:
         return out
 
     timed("env", phase_env)
+    timed("ctl", phase_ctl)  # no device work: first, and quick to fail
     k = timed("kernels", phase_kernels)
     serve_res = timed("serve", phase_serve)
     for arch in ("qwen3-8b", "rwkv6-7b"):

@@ -20,7 +20,8 @@ Public surface:
   * profiles / tracegen — the paper's workload tables + trace and
     request-stream generation
 """
-from repro_torch.core.adaptor import VirtualDevice
+import importlib
+
 from repro_torch.core.cluster import (
     Cluster,
     ClusterExecutor,
@@ -40,7 +41,6 @@ from repro_torch.core.engine import (
     encode_decision_log,
 )
 from repro_torch.core.events import EpochSchedule, EventQueue
-from repro_torch.core.executor import ExecutorReport, SalusExecutor
 from repro_torch.core.fleet import FleetDriver
 from repro_torch.core.placement import (
     DeviceView,
@@ -56,9 +56,7 @@ from repro_torch.core.placement import (
 )
 from repro_torch.core.lanes import Lane, LaneRegistry, SafetyViolation
 from repro_torch.core.memory import MemoryConfig, MemoryManager
-from repro_torch.core.profiles import profile_model, profile_step, tensor_bytes
 from repro_torch.core.scheduler import FAIR, FIFO, PACK, PRIORITY, SRTF, Policy, get_policy
-from repro_torch.core.session import Session
 from repro_torch.core.simulator import SimResult, Simulator
 from repro_torch.core.types import (
     GB,
@@ -71,6 +69,26 @@ from repro_torch.core.types import (
     MemoryProfile,
     percentile,
 )
+
+# The live engine's modules import torch; they load at a name's first use,
+# so the simulated engines (and the control plane over them) import
+# without torch.
+_LIVE = {
+    "VirtualDevice": "adaptor",
+    "ExecutorReport": "executor",
+    "SalusExecutor": "executor",
+    "profile_model": "profiles",
+    "profile_step": "profiles",
+    "tensor_bytes": "profiles",
+    "Session": "session",
+}
+
+
+def __getattr__(name: str):
+    if name not in _LIVE:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{_LIVE[name]}"), name)
+
 
 __all__ = [
     "Engine",

@@ -45,13 +45,10 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
-
-import torch
+from typing import TYPE_CHECKING, Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 from repro_torch.core.engine import DecisionLog, ResultSurface, busy_seconds
 from repro_torch.core.events import EpochSchedule
-from repro_torch.core.executor import ExecutorReport, SalusExecutor
 from repro_torch.core.fleet import FleetDriver
 from repro_torch.core.memory import MemoryConfig
 from repro_torch.core.placement import (
@@ -73,8 +70,12 @@ from repro_torch.core.types import (
     JobState,
     JobStats,
 )
-from repro_torch.device import device as device_of
 from repro_torch.dist.fault import InjectedFailure, StragglerMonitor
+
+if TYPE_CHECKING:
+    import torch
+
+    from repro_torch.core.executor import ExecutorReport
 
 _TERMINAL = (JobState.FINISHED, JobState.FAILED, JobState.CANCELLED)
 
@@ -719,6 +720,13 @@ class ClusterExecutor(_RebalanceMixin):
         self.placer = Placer(
             n_devices, capacity, strategy, deficit_quantum=deficit_quantum
         )
+        # the live fleet's torch imports stay here: the simulated Cluster,
+        # and the control plane over it, import without torch
+        import torch
+
+        from repro_torch.core.executor import SalusExecutor
+        from repro_torch.device import device as device_of
+
         policy = get_policy(policy)
         dev = device_of(device)
         devices = [dev] * n_devices

@@ -15,10 +15,14 @@ Layers:
   * :mod:`repro_torch.dist.elastic` — checkpoint restore onto a different
     (shrunk/grown) mesh.
 """
-from repro_torch.dist.api import (  # noqa: F401
-    ShardingContext,
-    constrain,
-    constrain_weight,
-    current,
-    use_sharding,
-)
+import importlib
+
+# ``api`` imports torch.distributed; it loads at a name's first use, so
+# ``fault`` (host-side, what the control plane needs) imports without it.
+_API = ("ShardingContext", "constrain", "constrain_weight", "current", "use_sharding")
+
+
+def __getattr__(name: str):
+    if name not in _API:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.api"), name)
