@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, at
-first use), then runs nineteen phases, each printing JSON lines (phase 19
-runs after phase 1, phase 16 after phase 4, phase 18 after phase 6, phase
+first use), then runs twenty phases, each printing JSON lines (phases 19 and 20
+run after phase 1, phase 16 after phase 4, phase 18 after phase 6, phase
 17 after phase 7):
 
 1. env      — the card's name and power limit (nvidia-smi), torch/CUDA
@@ -218,6 +218,12 @@ runs after phase 1, phase 16 after phase 4, phase 18 after phase 6, phase
               decision log before the kill a prefix of the log after it,
               every job FINISHED once with 300 iterations, ``status`` equal
               to the store, ``replay()`` clean; at most 20 s.
+20. lint    — the repo's linter in the port (``repro_torch.analysis``,
+              standard library: no torch, no JAX), run after ctl: ``src/repro_torch`` under ``analysis_torch.toml``
+              clean with every suppression used, then each of the 14
+              rules' fixture pairs under ``tests/fixtures/analysis``, the
+              bad file tripping its rule and the good file clean; files,
+              findings, suppressed, the rules held, seconds; at most 60 s.
 Then each phase's seconds and the ``{"kernels": [...]}`` summary line.
 
 Any failed check raises and the script exits non-zero. The last line is
@@ -4844,6 +4850,51 @@ def phase_ctl() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 20: lint — the repo's linter in the port, over the port's tree
+# ---------------------------------------------------------------------------
+
+LINT_LIMIT_S = 60.0  # the phase's budget inside the script's 1200 s
+
+
+def phase_lint() -> dict:
+    """``repro_torch.analysis``, standard library only: the port's tree is
+    clean under ``analysis_torch.toml`` with no unused suppression, and
+    every rule's bad fixture trips it while the good twin is clean."""
+    from repro_torch.analysis import RULES, load_config, run_analysis
+
+    t0 = time.perf_counter()
+    report = run_analysis([SRC / "repro_torch"], load_config(ROOT / "analysis_torch.toml"))
+    check(report.clean, "lint: the port's tree has findings:\n" + "\n".join(
+        f"{f.location()}: {f.rule} {f.message}" for f in report.all_findings()))
+    check(not report.unused_suppressions,
+          f"lint: unused suppressions {[(s.rule, s.path) for s in report.unused_suppressions]}")
+    tree_s = time.perf_counter() - t0
+    fixtures = ROOT / "tests" / "fixtures" / "analysis"
+    fixture_cfg = load_config(fixtures / "analysis.toml")
+    held = []
+    for rule in sorted(RULES):
+        good, bad = [f"{rule}/good.py"], [f"{rule}/bad.py"]
+        if rule == "RPL020":  # an engine pair spans two files
+            good, bad = ["RPL020/good_left.py", "RPL020/good_right.py"], [
+                "RPL020/bad_left.py", "RPL020/bad_right.py"]
+        tripped = run_analysis([fixtures / f for f in bad], fixture_cfg)
+        check(rule in {f.rule for f in tripped.findings}, f"lint: {rule}'s bad fixture gave "
+              f"{sorted({f.rule for f in tripped.findings})}")
+        clean = run_analysis([fixtures / f for f in good], fixture_cfg)
+        check(clean.clean, f"lint: {rule}'s good fixture has findings "
+              f"{[(f.location(), f.rule) for f in clean.all_findings()]}")
+        held.append(rule)
+    seconds = time.perf_counter() - t0
+    res = {"phase": "lint", "files_checked": report.files_checked,
+           "findings": len(report.all_findings()), "suppressed": len(report.suppressed),
+           "rules_held": held, "tree_s": tree_s, "seconds": seconds, "nvidia_smi": nvidia_smi()}
+    emit(res)
+    check(len(held) == len(RULES) == 14, f"lint: {len(held)} of {len(RULES)} rules held")
+    check(seconds <= LINT_LIMIT_S, f"lint phase took {seconds:.1f} s, over {LINT_LIMIT_S}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -4868,6 +4919,7 @@ def main() -> int:
 
     timed("env", phase_env)
     timed("ctl", phase_ctl)  # no device work: first, and quick to fail
+    timed("lint", phase_lint)
     k = timed("kernels", phase_kernels)
     serve_res = timed("serve", phase_serve)
     for arch in ("qwen3-8b", "rwkv6-7b"):

@@ -580,7 +580,11 @@ class CtlDaemon:
         return {"ok": True, "draining": True, "quiet": self._quiet()}
 
     def _cmd_shutdown(self, req: Dict[str, Any]) -> Dict[str, Any]:
-        threading.Thread(target=self.stop, daemon=True).start()
+        # Under a socket server the handler stops it once this reply is
+        # written: a stop started here can end the process first, and the
+        # client then reads no reply.
+        if self._server is None:
+            self.stop()
         return {"ok": True, "stopping": True}
 
     # ------------------------------------------------------------------
@@ -625,6 +629,9 @@ class CtlDaemon:
                         resp = daemon.handle_request(req)
                     self.wfile.write(json.dumps(resp).encode() + b"\n")
                     self.wfile.flush()
+                    if resp.get("stopping"):
+                        daemon.stop()
+                        return
 
         class Server(socketserver.ThreadingMixIn, socketserver.UnixStreamServer):
             daemon_threads = True

@@ -555,6 +555,39 @@ def _start_daemon(tmp_path, store, sock, epoch_sleep):
     return proc
 
 
+def test_shutdown_reply_survives_a_slow_handler(tmp_path):
+    """``shutdown`` is answered before the server stops: with the handler
+    thread slow between the command and its reply, the client still reads
+    ``stopping`` rather than a connection the exiting process dropped."""
+    sock, store = str(tmp_path / "s"), str(tmp_path / "jobs.sqlite")
+    code = (
+        "import sys, time\n"
+        "from repro_torch.ctl import daemon\n"
+        "real = daemon.CtlDaemon.handle_request\n"
+        "def slow(self, req):\n"
+        "    resp = real(self, req)\n"
+        "    if req.get('cmd') == 'shutdown':\n"
+        "        time.sleep(0.5)\n"
+        "    return resp\n"
+        "daemon.CtlDaemon.handle_request = slow\n"
+        "from repro_torch.ctl.cli import main\n"
+        f"sys.exit(main(['--socket', {sock!r}, 'start', '--store', {store!r}]))\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(REPO, "src") + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env, cwd=str(tmp_path),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    try:
+        _poll(lambda: os.path.exists(sock) or proc.poll() is not None, 60.0, "daemon socket")
+        assert proc.poll() is None, proc.communicate(timeout=10)[0].decode()
+        assert CtlClient(sock).request("shutdown") == {"ok": True, "stopping": True}
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+
+
 def test_sigkill_daemon_mid_fleet_recovers(tmp_path):
     """``python -m repro_torch.ctl`` is SIGKILLed after its first committed
     epoch; a second daemon on the same store recovers, finishes every job

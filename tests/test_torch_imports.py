@@ -17,6 +17,10 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 EXAMPLES = ROOT / "examples" / "torch"
+ANALYSIS_MODULES = tuple(
+    f"repro_torch.analysis{m}" for m in (
+        "", ".__main__", ".base", ".config", ".callgraph", ".determinism", ".exhaustive",
+        ".parity", ".discipline", ".concurrency", ".taint", ".runner"))
 
 
 def _port_files():
@@ -77,7 +81,7 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.launch.dryrun",
         "repro_torch.launch.op_count",
         "repro_torch.launch.roofline",
-    } <= set(mods)
+    } | set(ANALYSIS_MODULES) <= set(mods)
     examples = [str(p) for p in sorted(EXAMPLES.glob("*.py"))]
     assert {Path(p).stem for p in examples} == {
         "train_lm", "quickstart", "hyperparam_tuning", "inference_packing"}
@@ -96,3 +100,20 @@ def test_importing_the_port_loads_no_jax():
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_linter_imports_only_the_standard_library():
+    """``python -m repro_torch.analysis`` loads neither torch nor JAX nor
+    the JAX package: the card's lint phase runs it where no JAX exists."""
+    assert len(ANALYSIS_MODULES) == len(list((PORT / "analysis").glob("*.py"))) == 12
+    code = (
+        "import sys, repro_torch.analysis, repro_torch.analysis.__main__\n"
+        f"for m in {ANALYSIS_MODULES!r}: assert m in sys.modules, m\n"
+        "print(sorted({m.split('.')[0] for m in sys.modules} & {'torch', 'jax', 'jaxlib', 'repro'}))"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=60,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
