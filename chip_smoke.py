@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, at
-first use), then runs twenty phases, each printing JSON lines (phases 19 and 20
-run after phase 1, phase 16 after phase 4, phase 18 after phase 6, phase
-17 after phase 7):
+first use), then runs twenty-one phases, each printing JSON lines (phases 19
+and 20 run after phase 1, phase 16 after phase 4, phase 18 after phase 6,
+phase 17 after phase 7, phase 21 after phase 17):
 
 1. env      — the card's name and power limit (nvidia-smi), torch/CUDA
               versions, the kernels' build time, and ptxas's registers and
@@ -152,7 +152,7 @@ run after phase 1, phase 16 after phase 4, phase 18 after phase 6, phase
               counts; each migration's page-out and page-in seconds and
               GB beside the paging and differential phases' moves.
 14. ckpt    — checkpoints, the dist layer and gradient compression
-              (``phase_ckpt``): gemma-2b at full width and 2 layers on a
+              (``phase_ckpt``): gemma-2b at full width and 1 layer on a
               one-rank (1, 1) mesh; A, 4 steps from a seed; B, the same
               saved after every step, killed at step 2 and restored onto
               the mesh (``restore_on_mesh``), bit for bit A's; C, a
@@ -224,6 +224,24 @@ run after phase 1, phase 16 after phase 4, phase 18 after phase 6, phase
               rules' fixture pairs under ``tests/fixtures/analysis``, the
               bad file tripping its rule and the good file clean; files,
               findings, suppressed, the rules held, seconds; at most 60 s.
+21. families_train — every attention family trains at full width
+              (``phase_families_train``): musicgen-medium at full depth,
+              hymba-1.5b (2 of 32 layers), qwen2-vl-72b (4 of 80),
+              mixtral-8x22b (2 of 56) and qwen3-moe-235b-a22b (1 of 94),
+              each (a) three
+              AdamW steps as a ``SalusExecutor`` session at TRAIN_4K x 4
+              and its runtime-table options (bf16 params and moments for
+              the 100B-class archs), fed ``make_batch_for``'s batches
+              (frame embeddings, spliced patch embeddings, M-RoPE ids):
+              finite losses, optimizer steps 1..3, exact launches, device
+              time in each kernel, step seconds, tokens a second, busy
+              share, top kernels, the peak beside the dry run's count;
+              (b) one sequence at 2 layers (mixtral's (1, 6144), where its
+              window binds): the fp32 loss and every gradient leaf through
+              K1/K3/B1/B2 against the plain path (1e-5, 1e-4), MoE routing
+              traced, 0 tokens apart in fp32, and bf16 on one routing
+              within 2e-2; (c) the train CLI and ``make_trainer`` of
+              hymba and mixtral at smoke size; at most 240 s.
 Then each phase's seconds and the ``{"kernels": [...]}`` summary line.
 
 Any failed check raises and the script exits non-zero. The last line is
@@ -286,7 +304,7 @@ RWKV_TRAIN_DEPTH = 4  # phase rwkv_train: 4 of 32 layers, as phase tp cuts rwkv 
 DECODE_PROMPT = 511  # tokens prefilled before the decode checks
 DECODE_NEW = 16  # greedy tokens
 DECODE_CACHE_GB = 40  # the decode shape's batch is halved until its state fits
-DECODE_STEPS = 8  # timed steps at the decode shape
+DECODE_STEPS = 4  # timed steps at the decode shape
 # the decode checks (decode_correctness) of the full-depth archs run at
 # full width, 8 layers deep, to keep the whole run well inside its limit;
 # the timed steps stay at full depth
@@ -319,6 +337,46 @@ MUSICGEN_PROMPT = 2048
 QWEN2_VL_DEPTH = 4
 QWEN2_VL_PROMPT = 1024
 PATCH_GRID_WIDTH = 16  # qwen2-vl's 256 patches as a 16 x 16 grid
+# phase families_train: each family's training step at full width, at
+# TRAIN_4K's sequence, TRAIN_BATCH and its runtime-table options; a depth
+# of None is the arch's own, else a cut: qwen3-moe's step at 2 layers
+# counts 75.93 GiB (scripts/families_train_count.py), inside the count's
+# error of the card's 76, so 1; hymba's plain SSM scan dispatches ~59k
+# ops a layer and microbatch (its doubling passes, their slices'
+# backward), 0.22-0.37 s a layer and microbatch on the card, so its 32
+# layers would take ~30-50 s a step: 2 here, the parity passes' depth
+FAMILIES_TRAIN = ((HYMBA_ARCH, 2), (MUSICGEN_ARCH, None), (QWEN2_VL_ARCH, 4),
+                  (MOE_ARCH, 2), (QWEN3_MOE_ARCH, 1))
+# its fp32 parity passes, one sequence: 2 layers, or 1 where
+# scripts/families_train_count.py counts 2 past the card; mixtral's
+# sequence is the moe phase's prompt, where its 4096 window binds
+FAMILIES_PARITY_DEPTH = 2
+FAMILIES_PARITY_SEQ = {MOE_ARCH: MOE_PARITY_PROMPT}
+# their options: fp32 params (the runtime table holds bf16 ones for the
+# 100B-class archs) and the plain path's queries in chunks of 1024 (its
+# scores' memory; the same function)
+PARITY_OPTS = dict(param_dtype="float32", attn_q_chunk=1024)
+FAMILIES_ENTRY_ARCHS = (HYMBA_ARCH, MOE_ARCH)  # the train CLI and make_trainer at smoke
+FAMILIES_TRAIN_LIMIT_S = 240.0  # the phase's budget inside the script's 1200 s
+# the dry run's count of each session step's peak, GiB
+# (scripts/families_train_count.py, printed beside the card's)
+FAMILIES_TRAIN_COUNTED_GIB = {HYMBA_ARCH: 15.800, MUSICGEN_ARCH: 34.222, QWEN2_VL_ARCH: 62.890,
+                              MOE_ARCH: 68.394, QWEN3_MOE_ARCH: 52.762}
+# its kernels' shapes at a (1, 4096) microbatch, for the kernels phase:
+# the norm rows at each width (hymba, musicgen, qwen2-vl, mixtral,
+# qwen3-moe) and qwen3-moe's q- and k-norm rows (64 and 4 heads of 128);
+# each family's heads, and mixtral's at the parity prompt, where its
+# window binds
+FAMILIES_TRAIN_NORMS = ((4096, 1600), (4096, 1536), (4096, 8192), (4096, 6144), (4096, 4096),
+                        (4096 * 64, 128), (4096 * 4, 128))
+FAMILIES_TRAIN_FLASH = (
+    dict(b=1, sq=4096, sk=4096, hq=25, hkv=5, d=64, window=1024),
+    dict(b=1, sq=4096, sk=4096, hq=24, hkv=24, d=64),
+    dict(b=1, sq=4096, sk=4096, hq=64, hkv=8, d=128),
+    dict(b=1, sq=4096, sk=4096, hq=48, hkv=8, d=128, window=4096),
+    dict(b=1, sq=MOE_PARITY_PROMPT, sk=MOE_PARITY_PROMPT, hq=48, hkv=8, d=128, window=4096),
+    dict(b=1, sq=4096, sk=4096, hq=64, hkv=4, d=128),
+)
 # profiler spans around the SSM branch and its scan (``ssm_spans``)
 SSM_SPANS = {"ssm_apply": "ssm_branch", "ssm_decode": "ssm_branch",
              "ssm_scan_chunked": "ssm_scan", "ssm_scan_ref": "ssm_scan"}
@@ -1200,6 +1258,21 @@ def phase_kernels() -> dict:
         # the tp phase's step: qwen3-8b's local 16/4 heads at (1, 4096), fp32
         dict(b=1, sq=TP_TRAIN_SEQ, sk=TP_TRAIN_SEQ, hq=16, hkv=4, d=128, dtype=f32, iters=3),
     ]
+    # the families_train phase's shapes, bf16 (its sessions' compute): K1
+    # and B1 at its norm rows, K3 and B2 at its heads
+    for rows, d in FAMILIES_TRAIN_NORMS:
+        res = rmsnorm_case(rows, d, bf16, residual=False, iters=20)
+        results[("rmsnorm", rows, d, res["dtype"])] = res
+        res = rmsnorm_bwd_case(rows, d, bf16, iters=20)
+        results[("rmsnorm_bwd", rows, d, res["dtype"])] = res
+    bwd_cases += [dict(c, dtype=bf16, iters=3) for c in FAMILIES_TRAIN_FLASH]
+    # K3: mixtral's window binds only at the (1, 6144) case above; at 4096
+    # it is the causal mask (whose control a tile narrower is blind)
+    for c in FAMILIES_TRAIN_FLASH[:3] + FAMILIES_TRAIN_FLASH[5:]:
+        res = flash_case(**c, dtype=bf16, iters=5)
+        s = res["shape"]
+        results[("flash_attention", s["b"], s["sq"], s["hq"], s["d"], s["window"],
+                 s["q_offset"], res["dtype"])] = res
     for c in bwd_cases:
         res = flash_bwd_case(**c)
         s = res["shape"]
@@ -1251,15 +1324,16 @@ MOE_KERNEL_KINDS = DECODE_KERNEL_KINDS[:-1] + (
 ) + DECODE_KERNEL_KINDS[-1:]
 
 
-def device_time_by_kind(prof, kinds=KERNEL_KINDS):
-    """Device milliseconds and kernel counts by kind from a profiler run
-    (kinds with no kernel stay at 0), and the total kernel count. A span's
-    own device-side record (``SSM_SPANS``) is no kernel and is skipped."""
+def device_time_by_kind(averages, kinds=KERNEL_KINDS):
+    """Device milliseconds and kernel counts by kind from a profiler run's
+    ``key_averages()`` (kinds with no kernel stay at 0), and the total
+    kernel count. A span's own device-side record (``SSM_SPANS``) is no
+    kernel and is skipped."""
     groups = {kind: 0.0 for kind, _ in kinds}
     groups["other"] = 0.0
     counts = dict.fromkeys(groups, 0)
     n_kernels = 0
-    for evt in prof.key_averages():
+    for evt in averages:
         if evt.device_type != torch.autograd.DeviceType.CUDA or evt.key in SSM_SPANS.values():
             continue
         us = getattr(evt, "self_device_time_total", None)
@@ -1320,31 +1394,38 @@ def ssm_spans():
             setattr(ssm, name, fn)
 
 
-def span_device_ms(prof) -> dict:
+def span_device_ms(averages) -> dict:
     """Device milliseconds of the kernels launched inside each SSM span
-    (the span's host-side event, its children's kernels included)."""
+    (the span's host-side event, its children's kernels included), from a
+    profiler run's ``key_averages()``."""
     out = dict.fromkeys(SSM_SPANS.values(), 0.0)
-    for evt in prof.key_averages():
+    for evt in averages:
         if evt.key in out and evt.device_type == torch.autograd.DeviceType.CPU:
             us = getattr(evt, "device_time_total", None)
             out[evt.key] += (evt.cuda_time_total if us is None else us) / 1e3
     return out
 
 
-def profiled(fn, kinds=KERNEL_KINDS) -> dict:
+def profiled(fn, kinds=KERNEL_KINDS, cpu: bool = True) -> dict:
     """``fn()`` once under ``torch.profiler``, synchronised: wall time, the
-    device time of its kernels grouped by ``kinds``, and the device's busy
-    share of the wall time; for a hybrid model also the device time of
-    the kernels its SSM branch and scan launch (``ssm_spans``), which
-    fall in the "other" kind (elementwise) and "gemm" (projections)."""
+    device time of its kernels grouped by ``kinds``, the device's busy
+    share of the wall time and the kernels with the most device time;
+    with ``cpu`` (host events recorded too), for a hybrid model also the
+    device time of the kernels its SSM branch and scan launch
+    (``ssm_spans``), which fall in the "other" kind (elementwise) and
+    "gemm" (projections). Without it the profiler records the device's
+    kernels only: a training step of hymba dispatches ~0.5M host ops,
+    whose events took the profiler minutes to gather."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, ssm_spans():
+    activities = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof, ssm_spans():
         t0 = time.perf_counter()
         fn()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, counts, n_kernels = device_time_by_kind(prof, kinds)
+    averages = prof.key_averages()
+    groups, counts, n_kernels = device_time_by_kind(averages, kinds)
     device_ms = sum(groups.values())
     res = {
         "wall_ms": wall_ms,
@@ -1355,7 +1436,8 @@ def profiled(fn, kinds=KERNEL_KINDS) -> dict:
         "device_us_per_launch": {k: 1e3 * groups[k] / counts[k] for k in groups if counts[k]},
         "kernels_launched": n_kernels,
     }
-    spans = span_device_ms(prof)
+    res["top_kernels"] = top_kernels(averages)
+    spans = span_device_ms(averages)
     if any(spans.values()):
         res["span_device_ms"] = spans
         res["span_share_of_device_ms"] = {k: v / device_ms for k, v in spans.items()}
@@ -1448,7 +1530,7 @@ def phase_serve(archs=SERVE_ARCHS, configs=None, kinds=KERNEL_KINDS) -> dict:
 
 def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
                  moe_res: dict, families_res: dict, fleet_res: dict, ckpt_res: dict,
-                 cli_res: dict, tp_res: dict, rwkv_res: dict) -> None:
+                 cli_res: dict, tp_res: dict, rwkv_res: dict, fam_train: dict) -> None:
     """The summary line: each kernel the serve and train paths launch. The
     forward kernels at their largest serve-path shape (bf16 for the norm
     and attention, whose largest is qwen3-8b's; fp32 for WKV6, rwkv6-7b's
@@ -1476,7 +1558,9 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
     rank's launches there (``at_tp``: its serve, prefill and train runs).
     The WKV6 backward (B3) at a (1, 4096) training microbatch with the
     rwkv_train phase's launches (K4's there beside it), and at its other
-    shapes and regimes (``at``)."""
+    shapes and regimes (``at``). K1, B1, K3 and B2 at the families_train
+    phase's shapes, with its launches a step of each arch
+    (``at_families_train``)."""
     rms = k[("rmsnorm", 64, 4096, "bfloat16")]
     rms_res = k[("rmsnorm_residual", 64, 4096, "bfloat16")]
     fa = k[("flash_attention", 4, 16, 32, 128, None, 0, "bfloat16")]
@@ -1525,6 +1609,19 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
                    str(c["dtype"]).removeprefix("torch."))] for c in TP_FLASH_CASES]
     tp_flash.append(k[("flash_decode", 8, 4096, 16, 128)])
     tp_rows = TP_TRAIN_SEQ * 16
+
+    def at_fam_train(name: str) -> dict:
+        if name.startswith("rmsnorm"):
+            shapes = [at(k[(name, rows, d, "bfloat16")]) for rows, d in FAMILIES_TRAIN_NORMS]
+        else:
+            cases = [(name, c["b"], c["sq"], c["hq"], c["d"], c.get("window"), 0, "bfloat16")
+                     for c in FAMILIES_TRAIN_FLASH]
+            shapes = [at(k[c]) for c in cases if c in k]  # K3 at 4096 under w 4096: none
+        return {"shapes": shapes,
+                "launches_a_step": {a: r["launches_per_step"][name]
+                                    for a, r in fam_train["steps"].items()},
+                "launches": {a: r["launches"][name] for a, r in fam_train["steps"].items()}}
+
     emit({"kernels": [
         {"name": "rmsnorm", "route": "cuda", "source": RMS_SRC,
          "replaces": RMS_TPU, "also_replaces": RMS_RES_TPU,
@@ -1542,7 +1639,8 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
          "launches_fleet": {run: n["rmsnorm"] for run, n in fleet_res["launches"].items()},
          "launches_ckpt": ckpt("rmsnorm"),
          "launches_cli": cli("rmsnorm"),
-         "at_tp": at_tp("rmsnorm", [k[("rmsnorm", tp_rows, 128, "float32")]])},
+         "at_tp": at_tp("rmsnorm", [k[("rmsnorm", tp_rows, 128, "float32")]]),
+         "at_families_train": at_fam_train("rmsnorm")},
         {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
          "replaces": FLASH_TPU,
          "launches": serve_res["launches"]["flash_attention"], "shape": fa["shape"],
@@ -1564,7 +1662,8 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
                             for run, n in fleet_res["launches"].items()},
          "launches_ckpt": ckpt("flash_attention"),
          "launches_cli": cli("flash_attention"),
-         "at_tp": at_tp("flash_attention", tp_flash)},
+         "at_tp": at_tp("flash_attention", tp_flash),
+         "at_families_train": at_fam_train("flash_attention")},
         {"name": "wkv6", "route": "cuda", "source": WKV_SRC, "replaces": WKV_TPU,
          "launches": serve_res["launches"]["wkv6"], "shape": wkv["shape"],
          "dtype": "float32", **{x: wkv[x] for x in keys},
@@ -1592,7 +1691,8 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
          "at_qk_norm": at(k[("rmsnorm_bwd", 131072, 128, "bfloat16")]),
          "launches_ckpt": ckpt("rmsnorm_bwd"),
          "launches_cli": cli("rmsnorm_bwd"),
-         "at_tp": at_tp("rmsnorm_bwd", [k[("rmsnorm_bwd", tp_rows, 128, "float32")]])},
+         "at_tp": at_tp("rmsnorm_bwd", [k[("rmsnorm_bwd", tp_rows, 128, "float32")]]),
+         "at_families_train": at_fam_train("rmsnorm_bwd")},
         {"name": "flash_attention_bwd", "route": "cuda", "source": FLASH_BWD_SRC,
          "replaces": FLASH_TPU, "backward_of": "flash_attention (K3); no TPU counterpart",
          "launches": train["flash_attention_bwd"],
@@ -1607,7 +1707,8 @@ def kernels_line(k: dict, serve_res: dict, train_res: dict, decode_res: dict,
          "launches_ckpt": ckpt("flash_attention_bwd"),
          "launches_cli": cli("flash_attention_bwd"),
          "at_tp": at_tp("flash_attention_bwd", [k[("flash_attention_bwd", 1, TP_TRAIN_SEQ, 16, 128,
-                                                   None, 0, "float32")]])},
+                                                   None, 0, "float32")]]),
+         "at_families_train": at_fam_train("flash_attention_bwd")},
     ]})
 
 
@@ -1988,11 +2089,16 @@ def zero_counts(counters: dict) -> None:
 
 
 def launches_per_microbatch(cfg) -> dict:
-    """Kernel launches of one loss-and-gradient pass of a dense or rwkv
-    model with remat: each layer's norms (and qk-norms) and attention, or
-    WKV6 scan, run forward twice (the pass and the checkpoint's recompute)
-    and backward once; the final norm, outside the checkpoints, once each
-    way."""
+    """Kernel launches of one loss-and-gradient pass of a model with
+    remat: each layer's norms and its attention, or WKV6 scan, run forward
+    twice (the pass and the checkpoint's recompute, which reaches every
+    kernel of a block: each lies before the block's MLP or MoE) and
+    backward once; the final norm, outside the checkpoints, once each way.
+    An attention block (dense, moe, hybrid, audio, vlm) has two norms, four
+    with qk-norms (qwen3-8b, qwen3-moe), and one attention; its other
+    branches launch none of the kernels (hymba's SSM branch, the MoE
+    dispatch and experts, the frontends' splice, M-RoPE). An rwkv block
+    has two norms and one WKV6 scan."""
     norms = cfg.n_layers * (4 if cfg.qk_norm else 2)
     mixers = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
               "wkv6": 0, "wkv6_bwd": 0}
@@ -2027,16 +2133,27 @@ def phase_train() -> dict:
     return train_session("train", *train_model())
 
 
+def family_batch(cfg, shape, step: int, device, seed: int = 0) -> dict:
+    """``make_batch_for``'s batch of ``cfg`` at ``shape`` on ``device``: the
+    JAX package's own batch for each family (tokens and labels; frame
+    embeddings for audio; patch embeddings and M-RoPE ids for vlm)."""
+    from repro_torch.data.pipeline import make_batch_for
+
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in make_batch_for(cfg, shape, step, seed).items()}
+
+
 def train_session(phase: str, cfg, shape, model, run, ocfg) -> dict:
     """TRAIN_STEPS AdamW steps of ``make_train_step`` as a training session
-    on a ``SalusExecutor``, fed by ``SyntheticLM``, its profile from
-    ``profile_model``: finite losses, optimizer steps 1.., exactly the
-    launches a step implies, and one more step under the profiler, where
-    each kernel the step launches must show device time."""
+    on a ``SalusExecutor``, fed ``make_batch_for``'s batches
+    (``family_batch``: ``SyntheticLM`` tokens, or the family's frontend
+    inputs), its profile from ``profile_model``: finite losses, optimizer
+    steps 1.., exactly the launches a step implies, and one more step
+    under the profiler (device events), where each kernel the step
+    launches must show device time."""
     from torch.utils import _pytree as pytree
 
     from repro_torch.core import GB, SalusExecutor, VirtualDevice, get_policy, profile_model
-    from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.train.optimizer import AdamW
     from repro_torch.train.train_step import make_train_step
 
@@ -2044,8 +2161,7 @@ def train_session(phase: str, cfg, shape, model, run, ocfg) -> dict:
     params = model.init(torch.Generator(device=dev).manual_seed(15))
     opt = AdamW(ocfg)
     opt_state = opt.init(params)
-    pipe = SyntheticLM(cfg.vocab_size, shape.seq_len, shape.global_batch, seed=0)
-    data_fn = lambda i: {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch(i).items()}
+    data_fn = lambda i: family_batch(cfg, shape, i, dev)  # noqa: E731
     step = make_train_step(model, opt, run)
     step_s = []
 
@@ -2085,7 +2201,7 @@ def train_session(phase: str, cfg, shape, model, run, ocfg) -> dict:
     check(launches == expected, f"{phase} launches {launches} != expected {expected}")
     # one more step under the profiler (after the counts were read)
     batch = data_fn(TRAIN_STEPS)
-    prof_step = profiled(lambda: step(params, opt_state, batch))
+    prof_step = profiled(lambda: step(params, opt_state, batch), cpu=False)
     for name, n in per_step.items():
         if n:
             check(prof_step["device_ms_by_kind"][name] > 0,
@@ -2122,10 +2238,14 @@ def train_session(phase: str, cfg, shape, model, run, ocfg) -> dict:
 
 def loss_and_grads(arch: str, n_layers, params, batch, kernel_mode: str, dtype: str,
                    **opts) -> tuple:
-    """The training model's loss and stacked gradients on ``batch`` with
+    """The training model's loss and gradients on ``batch`` with
     ``kernel_mode``, compute ``dtype`` and ``opts``, its seconds; the
-    kernels' launches must be one pass's (none on the plain path)."""
-    from repro_torch.train.train_step import stack_grads, value_and_grad
+    kernels' launches must be one pass's (none on the plain path). Each
+    layer's gradient stays apart, as the step takes them (``leaf_gaps``
+    reads such a tuple as the stacked leaf): a stacked copy of them all
+    would not fit beside two runs' gradients at mixtral's and qwen3-moe's
+    width."""
+    from repro_torch.train.train_step import value_and_grad
 
     cfg, _, m, _, _ = train_model(kernel_mode, dtype, n_layers, arch, **opts)
     per_mb = launches_per_microbatch(cfg)
@@ -2134,7 +2254,6 @@ def loss_and_grads(arch: str, n_layers, params, batch, kernel_mode: str, dtype: 
     sync()
     t0 = time.perf_counter()
     loss, g = value_and_grad(m, params, batch)
-    g = stack_grads(g)
     sync()
     launched = {name: fn.launches for name, fn in counters.items()}
     want = per_mb if kernel_mode == "kernel" else dict.fromkeys(per_mb, 0)
@@ -2143,12 +2262,21 @@ def loss_and_grads(arch: str, n_layers, params, batch, kernel_mode: str, dtype: 
 
 
 def leaf_gaps(a, b) -> dict:
-    """Relative Frobenius gap of each leaf, by its path."""
+    """Relative Frobenius gap of each leaf, by its path. A leaf may be a
+    tuple of per-layer tensors (unstacked gradients): its gap is the
+    stacked leaf's, from the layers' squared norms, with no stacked copy."""
     from torch.utils import _pytree as pytree
 
     out = {}
-    for (path, x), y in zip(pytree.tree_flatten_with_path(a)[0], pytree.tree_leaves(b)):
-        out[pytree.keystr(path)] = rel_fro(x, y)
+    is_tuple = lambda t: isinstance(t, tuple)  # noqa: E731
+    for (path, x), y in zip(pytree.tree_flatten_with_path(a, is_leaf=is_tuple)[0],
+                            pytree.tree_leaves(b, is_leaf=is_tuple)):
+        if is_tuple(x):
+            diff = sum(float((p.float() - q.float()).norm()) ** 2 for p, q in zip(x, y))
+            ref = sum(float(q.float().norm()) ** 2 for q in y)
+            out[pytree.keystr(path)] = math.sqrt(diff) / max(math.sqrt(ref), 1e-30)
+        else:
+            out[pytree.keystr(path)] = rel_fro(x, y)
     return out
 
 
@@ -2287,28 +2415,28 @@ def rwkv_train_parity() -> dict:
     return res
 
 
-def rwkv_entry_points() -> dict:
-    """rwkv6-7b at smoke size on the card through the user's entry points:
+def entry_points(arch: str) -> dict:
+    """``arch`` at smoke size on the card through the user's entry points:
     the train CLI's ``main`` (3 steps) and ``make_trainer``'s background
     trainer stepping as a session on an executor (3 iterations); finite
-    losses and exactly a pass's launches a microbatch (B3 among them)."""
+    losses and exactly a pass's launches a microbatch."""
     from repro_torch.configs import get_config
     from repro_torch.core import GB, SalusExecutor, VirtualDevice, get_policy
     from repro_torch.launch import train as cli
     from repro_torch.launch.serve import make_trainer
 
-    cfg = get_config(RWKV_ARCH).smoke()
+    cfg = get_config(arch).smoke()
     per = launches_per_microbatch(cfg)
     counters = kernel_counters()
     zero_counts(counters)
     t0 = time.perf_counter()
-    rec = cli.main(["--arch", RWKV_ARCH, "--smoke", "--steps", "3", "--device", "cuda"])
+    rec = cli.main(["--arch", arch, "--smoke", "--steps", "3", "--device", "cuda"])
     sync()
     cli_s = time.perf_counter() - t0
     cli_launches = {name: fn.launches for name, fn in counters.items()}
     cli_losses = [rec["losses"][i] for i in sorted(rec["losses"])]
     dev = torch.device("cuda")
-    step, params, data_fn = make_trainer(RWKV_ARCH, smoke=True, device=dev)
+    step, params, data_fn = make_trainer(arch, smoke=True, device=dev)
     vdev = VirtualDevice(SalusExecutor(int(8 * GB), get_policy("fifo"), device=dev))
     zero_counts(counters)
     sess = vdev.create_session(f"train:{cfg.name}", step, params, data_fn, n_iters=3,
@@ -2320,15 +2448,15 @@ def rwkv_entry_points() -> dict:
            "trainer": {"losses": trainer_losses, "launches": trainer_launches,
                        "failures": report.failures}}
     want = {k: 3 * v for k, v in per.items()}
-    check(cli_launches == want, f"rwkv CLI launches {cli_launches} != {want}")
+    check(cli_launches == want, f"{arch} CLI launches {cli_launches} != {want}")
     check(len(cli_losses) == 3 and all(math.isfinite(x) for x in cli_losses),
-          f"rwkv CLI losses {cli_losses}")
+          f"{arch} CLI losses {cli_losses}")
     # three iterations and the profiling step ``create_session`` takes
     want = {k: 4 * v for k, v in per.items()}
     check(not report.failures and trainer_launches == want,
-          f"rwkv trainer launches {trainer_launches} != {want}, failures {report.failures}")
+          f"{arch} trainer launches {trainer_launches} != {want}, failures {report.failures}")
     check(len(trainer_losses) == 3 and all(math.isfinite(x) for x in trainer_losses),
-          f"rwkv trainer losses {trainer_losses}")
+          f"{arch} trainer losses {trainer_losses}")
     return res
 
 
@@ -2339,8 +2467,145 @@ def phase_rwkv_train() -> dict:
     res = train_session("rwkv_train", *cut)
     del cut
     res = {"phase": "rwkv_train", "steps": res, "parity_fp32": rwkv_train_parity(),
-           "entry_points": rwkv_entry_points(), "nvidia_smi": nvidia_smi()}
+           "entry_points": entry_points(RWKV_ARCH), "nvidia_smi": nvidia_smi()}
     emit({k: v for k, v in res.items() if k != "steps"})
+    return res
+
+
+def top_kernels(averages, n: int = 8) -> list:
+    """The ``n`` kernels with the most device time in a profiler run's
+    ``key_averages()``: ``[name, device ms, launches]``."""
+    rows = []
+    for evt in averages:
+        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.key in SSM_SPANS.values():
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        rows.append([evt.key[:120], (evt.self_cuda_time_total if us is None else us) / 1e3,
+                     evt.count])
+    return sorted(rows, key=lambda r: -r[1])[:n]
+
+
+def family_train_parity(arch: str) -> dict:
+    """One ``make_batch_for`` sequence of ``arch`` (mixtral: the moe phase's
+    (1, 6144), where its window binds) at FAMILIES_PARITY_DEPTH layers and
+    full width, fp32 params: the fp32 loss and every gradient leaf
+    through the kernels against the plain path (loss within 1e-5
+    relative, each leaf within 1e-4 relative Frobenius), then bf16 compute,
+    kernels against plain within 2e-2. An MoE arch's routing is traced
+    (``moe_trace``): in fp32 the two runs must route every token alike
+    (else the kernel run is held again on the plain run's routing, and
+    that is what must pass); in bf16 the kernel run takes the plain run's
+    routing. Each run's dropped assignments are printed, and whether a
+    second fp32 kernel run of an MoE arch repeats the first bit for bit
+    (reported, not held: its gathers' backward accumulates)."""
+    from torch.utils import _pytree as pytree
+
+    dev = torch.device("cuda")
+    depth = FAMILIES_PARITY_DEPTH
+    cfg, shape, model, _, _ = train_model("reference", "float32", depth, arch, **PARITY_OPTS)
+    seq = FAMILIES_PARITY_SEQ.get(arch, shape.seq_len)
+    params = model.init(torch.Generator(device=dev).manual_seed(17))
+    batch = family_batch(cfg, replace(shape, seq_len=seq, global_batch=1), 1, dev)
+    del model
+
+    def grads(mode, dtype, replay=None):
+        trace = moe_trace(replay) if cfg.is_moe else contextlib.nullcontext([])
+        with trace as log:
+            loss, g, secs = loss_and_grads(arch, depth, params, batch, mode, dtype,
+                                           **PARITY_OPTS)
+        return loss, g, secs, list(log)
+
+    res = {"arch": arch, "n_layers": depth, "batch": [1, seq], "keys": sorted(batch)}
+    l_r, g_r, s_r, log_r = grads("reference", "float32")
+    l_k, g_k, s_k, log_k = grads("kernel", "float32")
+    flips = flipped_tokens(log_r, log_k)
+    if cfg.is_moe:
+        res["fp32_routing"] = {"flipped_tokens_a_route_call": flips,
+                               "dropped": {"plain": dropped(log_r), "kernel": dropped(log_k)}}
+        if any(flips):  # held again on the plain run's routing
+            del g_k
+            l_k, g_k, s_k, _ = grads("kernel", "float32", log_r)
+            res["fp32_routing"]["held_on_plain_routing"] = True
+    gaps = leaf_gaps(g_k, g_r)
+    del g_r
+    worst = max(gaps, key=gaps.get)
+    loss_rel = abs(l_k - l_r) / abs(l_r)
+    res["fp32"] = {"loss_kernel": l_k, "loss_plain": l_r, "loss_rel": loss_rel, "loss_tol": 1e-5,
+                   "grad_rel_fro": gaps, "grad_tol": 1e-4, "worst_leaf": [worst, gaps[worst]],
+                   "seconds": {"plain": s_r, "kernel": s_k}}
+    if cfg.is_moe:  # the dispatch's gathers take their backward through an accumulating index_put
+        l_k2, g_k2, _, _ = grads("kernel", "float32", log_r if any(flips) else None)
+        res["fp32"]["kernel_run_repeats_bit_for_bit"] = l_k2 == l_k and trees_equal(g_k, g_k2)
+        del g_k2
+    del g_k
+    l_r16, g_r16, s_r16, log_r16 = grads("reference", "bfloat16")
+    l_k16, g_k16, s_k16, log_k16 = grads("kernel", "bfloat16", log_r16 if cfg.is_moe else None)
+    gaps16 = leaf_gaps(g_k16, g_r16)
+    finite16 = all(bool(torch.isfinite(t).all().item()) for t in pytree.tree_leaves(g_k16))
+    del g_k16, g_r16
+    worst16 = max(gaps16, key=gaps16.get)
+    loss_rel16 = abs(l_k16 - l_r16) / abs(l_r16)
+    res["bf16"] = {"loss_kernel": l_k16, "loss_plain": l_r16, "loss_rel": loss_rel16,
+                   "grad_rel_fro": gaps16, "tol": 2e-2, "worst_leaf": [worst16, gaps16[worst16]],
+                   "finite": finite16, "seconds": {"plain": s_r16, "kernel": s_k16}}
+    if cfg.is_moe:
+        res["bf16"]["dropped"] = {"plain": dropped(log_r16), "kernel": dropped(log_k16)}
+    emit({"phase": "families_train", "part": "parity", **res})
+    check(loss_rel <= 1e-5, f"{arch} fp32 loss kernel {l_k} vs plain {l_r}")
+    check(gaps[worst] <= 1e-4, f"{arch} fp32 gradient {worst}: relative gap {gaps[worst]}")
+    check(finite16 and loss_rel16 <= 2e-2 and gaps16[worst16] <= 2e-2,
+          f"{arch} bf16: loss {l_k16} vs {l_r16}, gradient {worst16} {gaps16[worst16]}")
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_families_train() -> dict:
+    """Every attention family trains on the card at full width
+    (``FAMILIES_TRAIN``: musicgen-medium at full depth; hymba-1.5b,
+    qwen2-vl-72b, mixtral-8x22b and qwen3-moe-235b-a22b cut): (a) each a
+    ``train_session`` of TRAIN_STEPS AdamW steps at TRAIN_4K's sequence,
+    TRAIN_BATCH rows and its runtime-table options (microbatches, param,
+    moment and accumulation dtypes), fed ``make_batch_for``'s batches
+    (frame embeddings, patch embeddings and M-RoPE ids): finite losses,
+    optimizer steps 1..3, exact launches a step, device time in each
+    launched kernel; step seconds, tokens a second, the profiled step's
+    busy share and top kernels, the peak beside the dry run's count
+    (``scripts/families_train_count.py``); (b) ``family_train_parity``;
+    (c) ``entry_points`` of hymba and mixtral at smoke size. At most
+    FAMILIES_TRAIN_LIMIT_S seconds."""
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    steps, parity = {}, {}
+    for arch, depth in FAMILIES_TRAIN:
+        cut = train_model(n_layers=depth, arch=arch)
+        r = train_session("families_train", *cut)
+        del cut
+        prof = r["profiled_step"]
+        steps[arch] = {k: r[k] for k in (
+            "n_layers", "params", "param_gb", "shape", "model_options", "adamw", "losses",
+            "step_s", "tokens_per_s", "peak_gb", "profile_gb", "launches", "launches_per_step")}
+        count = FAMILIES_TRAIN_COUNTED_GIB[arch]
+        steps[arch].update(busy_share=prof["device_busy_share"],
+                           device_ms_by_kind=prof["device_ms_by_kind"],
+                           top_kernels=prof["top_kernels"], counted_peak_gib=count,
+                           peak_over_count=r["peak_gb"] / count)
+        parity[arch] = family_train_parity(arch)
+    entry = {arch: entry_points(arch) for arch in FAMILIES_ENTRY_ARCHS}
+    wall_s = time.perf_counter() - t0
+    res = {"phase": "families_train", "nvidia_smi": smi, "steps": steps,
+           "parity": {a: {"fp32_worst_leaf": p["fp32"]["worst_leaf"],
+                          "fp32_loss_rel": p["fp32"]["loss_rel"],
+                          "bf16_worst_leaf": p["bf16"]["worst_leaf"],
+                          "fp32_routing": p.get("fp32_routing"),
+                          "fp32_kernel_run_repeats_bit_for_bit":
+                              p["fp32"].get("kernel_run_repeats_bit_for_bit")}
+                      for a, p in parity.items()},
+           "entry_points": entry, "wall_s": wall_s}
+    emit(res)
+    check(wall_s <= FAMILIES_TRAIN_LIMIT_S,
+          f"families_train took {wall_s:.1f} s, over {FAMILIES_TRAIN_LIMIT_S}")
     return res
 
 
@@ -2743,7 +3008,7 @@ def decode_timing(cfg, opts, params, batch=None, kinds=DECODE_KERNEL_KINDS) -> d
     where ``kv_quantized`` is off): the batch halved until the state is
     at most DECODE_CACHE_GB (or ``batch``), a cache of random values of
     its dtype (a sliding window's ring of ``window`` slots, all valid at
-    these positions), and DECODE_STEPS steps timed at pos = 32768 - 9 on;
+    these positions), and DECODE_STEPS steps timed from pos = 32767 - DECODE_STEPS;
     launches a step, one more step under the profiler (kernels grouped by
     ``kinds``), and the bytes bound (params and the valid cache read
     once)."""
@@ -3536,7 +3801,10 @@ def phase_fleet(paging_res: dict, diff_res: dict) -> dict:
 # gradient compression
 # ---------------------------------------------------------------------------
 
-CKPT_DEPTH = 2  # gemma-2b at full width, 2 of 18 layers (phase_ckpt)
+# gemma-2b at full width, 1 of 18 layers (phase_ckpt, and the cli phase's
+# resume): a checkpoint of 7.61 GB, 2 layers' 8.94 less the room phase
+# families_train needs in the script's time
+CKPT_DEPTH = 1
 CKPT_STEPS = 4
 CKPT_FAIL_AT = 2  # run B is killed as it reaches this step
 CKPT_KEEP = 2
@@ -3803,7 +4071,7 @@ def ckpt_runs(cfg, shape, model, run, ocfg, dev, mesh, workdir: str) -> dict:
 def phase_ckpt() -> dict:
     """Checkpoints, the dist layer and gradient compression on the card:
     gemma-2b at full width, depth cut from 18 to ``CKPT_DEPTH`` layers
-    (0.744e9 params: params and fp32 AdamW m and v are 8.93 GB a
+    (0.634e9 params: params and fp32 AdamW m and v are 7.61 GB a
     checkpoint, where full depth would write 30 GB to a disk of unknown
     size), fp32 params, the train phase's runtime-table options (4
     microbatches of one 4096-token sequence, remat, bf16 compute) through
@@ -4049,8 +4317,8 @@ def phase_cli(train_res=None) -> dict:
     compressor, AdamW): exact K1/K3/B1/B2 launches a step, finite losses
     falling from step 0, each step's seconds, the peak memory. (b) The
     resume (``cli_resume``) at the ckpt phase's depth (``CKPT_DEPTH``
-    layers, 8.93 GB a checkpoint) in a temporary directory with at least
-    ``CKPT_MIN_FREE_GB`` free, at most 27 GB written at once. (c) The
+    layers, 7.61 GB a checkpoint) in a temporary directory with at least
+    ``CKPT_MIN_FREE_GB`` free, at most 23 GB written at once. (c) The
     example twins (``cli_examples``). Printed with the card and its power
     limit, and beside the train phase's step seconds of the same call
     (``train_res``, when given)."""
@@ -4932,6 +5200,7 @@ def main() -> int:
     timed("dryrun", phase_dryrun, train_res)
     timed("train_parity", phase_train_parity)
     rwkv_res = timed("rwkv_train", phase_rwkv_train)
+    fam_train_res = timed("families_train", phase_families_train)
     timed("serve_train", phase_serve_train)
     decode_res = timed("decode", phase_decode)
     moe_res = timed("moe", phase_moe)
@@ -4942,7 +5211,7 @@ def main() -> int:
     cli_res = timed("cli", phase_cli, train_res)
     emit({"phase_seconds": seconds})
     kernels_line(k, serve_res, train_res, decode_res, moe_res, families_res, fleet_res, ckpt_res,
-                 cli_res, tp_res, rwkv_res)
+                 cli_res, tp_res, rwkv_res, fam_train_res)
     emit({"phase": "done", "wall_s": time.perf_counter() - t0})
     emit({"ok": True, "device": {
         "platform": "gpu",

@@ -783,6 +783,27 @@ def test_rmsnorm_bwd_unaligned_views_repeat(cuda, dtype, rows, d):
     assert _rel(dx, rdx) <= BWD_TOL[dtype] and _rel(ds, rds) <= BWD_TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,hq,hkv,d,window", [
+    (1, 4096, 25, 5, 64, 1024),  # hymba-1.5b: GQA 5 under its window
+    (1, 4096, 24, 24, 64, None),  # musicgen-medium
+    (1, 6144, 48, 8, 128, 4096),  # mixtral-8x22b past its window, which binds
+])
+def test_flash_bwd_families_train_shapes(cuda, dtype, b, s, hq, hkv, d, window):
+    """B2 at the training shapes of the families that first train on the
+    card, on its tensor-core routes (bf16 wgmma, fp32 3xTF32): within
+    tolerance of the plain backward and of autograd of the plain forward,
+    and bit for bit on a repeat."""
+    if window is not None and s > window:  # the band leaves keys out
+        assert fa_ops.pairs(s, s, True, window) < fa_ops.pairs(s, s, True, None)
+    q, k, v, g = _bwd_inputs(cuda, b, s, s, hq, hkv, d, seed=hq + d, dtype=dtype)
+    check = _check_wgmma_bwd if dtype == torch.bfloat16 else _check_tf32_bwd
+    got = check(q, k, v, g, window=window)
+    out, lse = fa_ops._forward(q, k, v, True, window, 0, want_lse=True)
+    again = fa_ops.flash_attention_bwd(g, q, k, v, out, lse, window=window)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
 def test_smoke_model_grads_wgmma_route_bf16(cuda):
     """gemma-2b smoke with heads of 256 in bf16: the attention backward
     takes the tensor-core route, and every gradient leaf through the
@@ -813,28 +834,38 @@ def test_smoke_model_grads_wgmma_route_bf16(cuda):
         assert _rel(a, b) <= 2e-2
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-8b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-8b", "hymba-1.5b", "musicgen-medium",
+                                  "qwen2-vl-72b", "mixtral-8x22b", "qwen3-moe-235b-a22b"])
 def test_smoke_model_grads_kernel_match_reference(cuda, arch):
     """Every gradient leaf of a smoke model through the kernels equals the
     plain path's (fp32): the CUDA wrappers carry gradients to the weights
-    upstream of a norm or of attention (wq, wk, wv, the norm scales)."""
+    upstream of a norm or of attention (wq, wk, wv, the norm scales). The
+    batch is ``make_batch_for``'s (frame embeddings, patch embeddings and
+    M-RoPE ids where the family takes them); each kernel launches exactly
+    ``chip_smoke.launches_per_microbatch``'s count (remat on); an MoE
+    model's kernel run takes the plain run's routing
+    (``chip_smoke.moe_trace``)."""
+    import contextlib
+
+    from chip_smoke import family_batch, kernel_counters, launches_per_microbatch, moe_trace
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.train.train_step import stack_grads, value_and_grad
 
     cfg = get_config(arch).smoke()
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    params = build_model(cfg).init(gen)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen, device=cuda)
-    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=-1)}
-    grads = {}
-    for mode in ("kernel", "reference"):
+    params = build_model(cfg).init(torch.Generator(device=cuda).manual_seed(0))
+    batch = family_batch(cfg, ShapeConfig("smoke", "train", 64, 2), 0, cuda)
+    counters, grads, log = kernel_counters(), {}, None
+    for mode in ("reference", "kernel"):
         model = build_model(cfg, ModelOptions(kernel_mode=mode, compute_dtype="float32", loss_chunk=16))
-        before = (rms_ops.rmsnorm_bwd.launches, fa_ops.flash_attention_bwd.launches)
-        loss, g = value_and_grad(model, params, batch)
+        before = {n: fn.launches for n, fn in counters.items()}
+        trace = moe_trace(log) if cfg.is_moe else contextlib.nullcontext([])
+        with trace as routed:
+            loss, g = value_and_grad(model, params, batch)
+        log = list(routed)
         grads[mode] = (float(loss), stack_grads(g))
-        launched = (rms_ops.rmsnorm_bwd.launches - before[0],
-                    fa_ops.flash_attention_bwd.launches - before[1])
-        norms = cfg.n_layers * (4 if cfg.qk_norm else 2) + 1
-        assert launched == ((norms, cfg.n_layers) if mode == "kernel" else (0, 0))
+        launched = {n: fn.launches - before[n] for n, fn in counters.items()}
+        want = launches_per_microbatch(cfg)
+        assert launched == (want if mode == "kernel" else dict.fromkeys(want, 0))
     (lk, gk), (lr_, gr) = grads["kernel"], grads["reference"]
     assert lk == pytest.approx(lr_, rel=1e-5)
     for a, b in zip(torch.utils._pytree.tree_leaves(gk), torch.utils._pytree.tree_leaves(gr)):

@@ -5,7 +5,12 @@ the chunk does not divide; also for the MoE smoke configs, whose loss
 carries ``aux_coeff`` times the layers' mean load-balance loss), ``make_train_step`` over two steps with one
 and two microbatches, twins of tests/test_train.py's ``TestTrainStep``
 and ``TestData``, the runtime tables, and a training session whose first
-iteration reports JAX's step-1 loss (the profile took no hidden step)."""
+iteration reports JAX's step-1 loss (the profile took no hidden step);
+then the same two-step check for the other families (hymba-1.5b,
+musicgen-medium, qwen2-vl-72b, mixtral-8x22b, qwen3-moe-235b-a22b) at
+their runtime tables' microbatches and dtypes on ``make_batch_for``'s
+batches, and ``chip_smoke.launches_per_microbatch`` against the dry
+run's count."""
 import numpy as np
 import pytest
 
@@ -18,8 +23,11 @@ share_cores()
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
+
 from repro.configs import TRAIN_4K as JAX_TRAIN_4K  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs.base import ShapeConfig as JaxShape  # noqa: E402
 from repro.data.pipeline import SyntheticLM as JaxSyntheticLM  # noqa: E402
 from repro.data.pipeline import make_batch_for as jax_make_batch_for  # noqa: E402
 from repro.models import ModelOptions as JaxModelOptions  # noqa: E402
@@ -31,6 +39,7 @@ from repro.train.optimizer import AdamWConfig as JaxAdamWConfig  # noqa: E402
 from repro.train.train_step import TrainRunConfig as JaxTrainRunConfig  # noqa: E402
 from repro.train.train_step import make_train_step as jax_make_train_step  # noqa: E402
 from repro_torch.configs import SHAPES, TRAIN_4K, get_config  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     GB,
     SalusExecutor,
@@ -39,9 +48,11 @@ from repro_torch.core import (  # noqa: E402
     profile_model,
 )
 from repro_torch.data.pipeline import SyntheticLM, make_batch_for  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.models import ModelOptions, build_model  # noqa: E402
 from repro_torch.models.layers import softmax_cross_entropy  # noqa: E402
 from repro_torch.train import runtime  # noqa: E402
+from repro_torch.train import train_step as port_train_step  # noqa: E402
 from repro_torch.train.optimizer import AdamW, AdamWConfig  # noqa: E402
 from repro_torch.train.train_step import (  # noqa: E402
     TrainRunConfig,
@@ -54,8 +65,12 @@ from repro_torch.train.train_step import (  # noqa: E402
 )
 from repro_torch.weights import from_jax  # noqa: E402
 
+from chip_smoke import family_batch, kernel_counters, launches_per_microbatch  # noqa: E402
+
 ARCHS = ["gemma-2b", "qwen3-8b"]
 MOE_ARCHS = ["mixtral-8x22b", "qwen3-moe-235b-a22b"]
+# the families that first trained on the card
+FAMILY_ARCHS = ["hymba-1.5b", "musicgen-medium", "qwen2-vl-72b"] + MOE_ARCHS
 CPU = torch.device("cpu")
 # AdamW at its warmup lr (adamw_config_for's lr 3e-4 over 200 warmup
 # steps): Adam's first steps move each element by about lr * sign(g), so a
@@ -179,6 +194,86 @@ def test_train_step_matches_jax_over_two_steps(arch, n_micro):
         _assert_tree_close(s["v"], js["v"], rtol=1e-4, atol=1e-9)
 
 
+def _assert_close_or_fro(ours, theirs, bf16, rtol, atol):
+    """Leaf for leaf: fp32 elementwise at ``rtol``/``atol``; bf16 within
+    2e-2 relative Frobenius (tests/test_torch_optimizer.py's bf16 state)."""
+    leaves = jax.tree_util.tree_leaves_with_path(theirs)
+    assert len(leaves) == len(jax.tree_util.tree_leaves(ours))
+    for path, a in leaves:
+        got = _leaf(ours, path).float().numpy()
+        want = np.asarray(a, np.float32)
+        if bf16:
+            gap = np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
+            assert gap <= 2e-2, (jax.tree_util.keystr(path), gap)
+        else:
+            np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
+                                       err_msg=jax.tree_util.keystr(path))
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_train_step_matches_jax_over_two_steps(arch):
+    """The sibling of the test above for the other families: each arch's
+    runtime-table microbatches (capped at the batch of 4) and param,
+    moment and accumulation dtypes, fp32 compute, ``make_batch_for``'s
+    batches (frame embeddings, patch embeddings, M-RoPE ids), JAX's step
+    jitted; fp32 archs at the tolerances above, bf16 archs at 2e-2."""
+    cfg, jcfg = get_config(arch).smoke(), jax_get_config(arch).smoke()
+    shape, jshape = ShapeConfig("t", "train", 16, 4), JaxShape("t", "train", 16, 4)
+    run = runtime.train_run_config_for(cfg, shape)
+    jrun = jax_runtime.train_run_config_for(jcfg, jshape)
+    assert run.num_microbatches == jrun.num_microbatches == 4  # the table's, capped
+    param_dtype = runtime.model_options_for(cfg, shape).param_dtype
+    bf16 = param_dtype == "bfloat16"
+    assert run.accum_dtype == jrun.accum_dtype == param_dtype
+    opts = dict(compute_dtype="float32", param_dtype=param_dtype, loss_chunk=8)
+    jm = jax_build_model(jcfg, JaxModelOptions(**opts))
+    m = build_model(cfg, ModelOptions(**opts))
+    jp = jm.init(jax.random.PRNGKey(0))
+    p = from_jax(jax.tree_util.tree_map(np.asarray, jp), CPU)
+    jopt = JaxAdamW(jax_runtime.adamw_config_for(jcfg))
+    opt = AdamW(runtime.adamw_config_for(cfg))
+    assert opt.cfg.state_dtype == jopt.cfg.state_dtype == param_dtype
+    js, s = jopt.init(jp), opt.init(p)
+    jstep = jax.jit(jax_make_train_step(jm, jopt, jrun))
+    step = make_train_step(m, opt, run)
+    rel = 2e-2 if bf16 else 1e-5
+    for i in range(2):
+        batch = family_batch(cfg, shape, i, CPU, seed=3)
+        jbatch = {k: jnp.asarray(v) for k, v in jax_make_batch_for(jcfg, jshape, i, 3).items()}
+        assert sorted(batch) == sorted(jbatch)
+        jp, js, jmet = jstep(jp, js, jbatch)
+        p2, s2, met = step(p, s, batch)
+        assert p2 is p and s2 is s  # updated in place
+        assert int(met["step"]) == int(jmet["step"]) == i + 1
+        assert float(met["lr"]) == float(jmet["lr"])
+        assert float(met["loss"]) == pytest.approx(float(jmet["loss"]), rel=rel)
+        assert float(met["grad_norm"]) == pytest.approx(float(jmet["grad_norm"]), rel=rel)
+        assert {t.dtype for t in jax.tree_util.tree_leaves(s["m"])} == {getattr(torch, param_dtype)}
+        _assert_close_or_fro(p, jp, bf16, rtol=1e-4, atol=1e-5)
+        _assert_close_or_fro(s["m"], js["m"], bf16, rtol=1e-4, atol=1e-7)
+        _assert_close_or_fro(s["v"], js["v"], bf16, rtol=1e-4, atol=1e-9)
+
+
+@pytest.mark.parametrize("arch", ARCHS + ["rwkv6-7b"] + FAMILY_ARCHS)
+def test_launches_per_microbatch_is_the_dry_runs_count(arch):
+    """``chip_smoke.launches_per_microbatch``, the launches the card's
+    training checks demand, against the dry run's count of one
+    loss-and-gradient pass through the kernels (remat on) on fake tensors
+    (``launch.dryrun.count``, the wrappers' fake branch)."""
+    cfg = get_config(arch).smoke()
+    model = build_model(cfg, ModelOptions(compute_dtype="bfloat16", loss_chunk=8))
+    batch = family_batch(cfg, ShapeConfig("t", "train", 32, 1), 0, CPU)
+    mode = FakeTensorMode()
+    with mode:
+        args = (dryrun.abstract_params(model, "cpu"),
+                {k: mode.from_tensor(v) for k, v in batch.items()})
+        counter, _, _ = dryrun.count(
+            lambda p, b: port_train_step.value_and_grad(model, p, b), args)
+    counted = {n: counter.kernels.get(n, {}).get("launches", 0) for n in kernel_counters()}
+    assert counted == launches_per_microbatch(cfg)
+    assert counted["flash_attention"] + counted["wkv6"] == 2 * cfg.n_layers
+
+
 def test_microbatches_are_strided():
     batch = {"tokens": torch.arange(12).reshape(6, 2)}
     mbs = _split_microbatches(batch, 3)["tokens"]
@@ -250,23 +345,27 @@ def test_make_batch_for_matches_jax():
         assert {k: v.tobytes() for k, v in ours.items()} == {k: v.tobytes() for k, v in theirs.items()}
 
 
-def test_runtime_tables_match_jax():
+@pytest.mark.parametrize("arch", sorted(jax_runtime._TRAIN_TABLE))
+def test_runtime_tables_match_jax(arch):
+    """Every arch of the table (all ten), full and smoke, on every shape:
+    the run config, AdamW config and model options JAX's tables give."""
     assert runtime._TRAIN_TABLE == jax_runtime._TRAIN_TABLE
+    jax_shapes = __import__("repro.configs", fromlist=["SHAPES"]).SHAPES
     assert {k: (v.kind, v.seq_len, v.global_batch) for k, v in SHAPES.items()} == {
-        k: (v.kind, v.seq_len, v.global_batch)
-        for k, v in __import__("repro.configs", fromlist=["SHAPES"]).SHAPES.items()
+        k: (v.kind, v.seq_len, v.global_batch) for k, v in jax_shapes.items()
     }
-    for arch in ARCHS + ["rwkv6-7b"] + MOE_ARCHS:
-        for cfg, jcfg in ((get_config(arch), jax_get_config(arch)),
-                          (get_config(arch).smoke(), jax_get_config(arch).smoke())):
-            run, jrun = runtime.train_run_config_for(cfg, TRAIN_4K), jax_runtime.train_run_config_for(jcfg, JAX_TRAIN_4K)
-            assert (run.num_microbatches, run.accum_dtype) == (jrun.num_microbatches, jrun.accum_dtype)
-            assert runtime.adamw_config_for(cfg).__dict__ == jax_runtime.adamw_config_for(jcfg).__dict__
-            opts = runtime.model_options_for(cfg, TRAIN_4K)
-            jopts = jax_runtime.model_options_for(jcfg, JAX_TRAIN_4K)
+    for cfg, jcfg in ((get_config(arch), jax_get_config(arch)),
+                      (get_config(arch).smoke(), jax_get_config(arch).smoke())):
+        run, jrun = runtime.train_run_config_for(cfg, TRAIN_4K), jax_runtime.train_run_config_for(jcfg, JAX_TRAIN_4K)
+        assert (run.num_microbatches, run.accum_dtype) == (jrun.num_microbatches, jrun.accum_dtype)
+        assert runtime.adamw_config_for(cfg).__dict__ == jax_runtime.adamw_config_for(jcfg).__dict__
+        for name, shape in SHAPES.items():
+            opts = runtime.model_options_for(cfg, shape)
+            jopts = jax_runtime.model_options_for(jcfg, jax_shapes[name])
             for field in ("remat", "wkv_chunk", "moe_group", "loss_chunk", "aux_coeff",
-                          "compute_dtype", "param_dtype"):
-                assert getattr(opts, field) == getattr(jopts, field), field
+                          "compute_dtype", "param_dtype", "ssm_chunk", "attn_q_chunk",
+                          "kv_quantized"):
+                assert getattr(opts, field) == getattr(jopts, field), (name, field)
             assert opts.kernel_mode == "kernel"
     gemma = runtime.train_run_config_for(get_config("gemma-2b"), TRAIN_4K)
     assert gemma.num_microbatches == 4 and gemma.accum_dtype == "float32"
